@@ -1,0 +1,54 @@
+"""Device handling: work runs where its input tensors live.
+
+The port never falls back to the CPU on its own.  A caller that asks for
+``cuda`` on a machine without a usable card gets an error, and every
+entry point takes its device from the tensors it is given.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
+    """The device to put new tensors on: ``device`` if given (raising
+    when it names CUDA and no card is usable), else CUDA when
+    available, else the CPU."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but "
+                           "torch.cuda.is_available() is False")
+    return dev
+
+
+def on_device(x, device: torch.device,
+              dtype: Optional[torch.dtype] = None) -> Optional[torch.Tensor]:
+    """``x`` (tensor, numpy array or None) as a tensor on ``device``.
+
+    A tensor already on another device is an error, not a silent copy:
+    the main path's inputs must agree on where the work runs."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"tensor on {x.device}, expected {device}")
+        return x if dtype is None else x.to(dtype)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def to_float32(x: torch.Tensor) -> torch.Tensor:
+    """float32 copy of ``x``.  uint16 goes through an int16 view, since
+    uint16 arithmetic and casts are only partly implemented for CUDA
+    tensors."""
+    if x.dtype == torch.uint16:
+        return x.view(torch.int16).to(torch.int32).bitwise_and_(0xFFFF) \
+            .to(torch.float32)
+    return x.to(torch.float32)

@@ -1,0 +1,213 @@
+"""Build, bind and launch the hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface.  At the first CUDA
+use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library under ``build/torch_kernels/`` of the checkout (named by a hash
+of the sources, so an edit rebuilds) and loaded with ``ctypes``.  Each C
+entry point launches on PyTorch's current stream and returns
+``cudaGetLastError()``; the wrapper raises if that is not 0.
+
+Each kernel has a launch counter: a plain integer in
+:data:`launch_counts`, raised by one where the wrapper launches the
+kernel and nowhere else, so a run can show that its main path went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+_SRC = _PKG / "csrc"
+_SOURCES = ("detect_tiles.cu", "warp_combine.cu")
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+#: launches of each kernel since the last :func:`reset_launch_counts`
+launch_counts = {"detect_tiles": 0, "warp_combine": 0}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: what the last build did: nvcc path, version line, seconds, library
+build_info: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_SRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if this source hash is not built yet) and
+    return the shared library's path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"libastro_kernels_{_source_hash()}.so"
+    if lib.exists():
+        build_info.update(library=str(lib), built=False, seconds=0.0)
+        return lib
+    nvcc = _nvcc()
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(_SRC / name) for name in _SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    build_info.update(library=str(lib), built=True,
+                      seconds=time.perf_counter() - t0, nvcc=nvcc,
+                      nvcc_version=version.splitlines()[-1],
+                      ptxas=proc.stderr.strip())
+    return lib
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.detect_tiles_launch.argtypes = [p, i, p, p, p, p, p, p, p, p,
+                                                p, i, i, i, i, p]
+            lib.detect_tiles_launch.restype = i
+            lib.warp_combine_launch.argtypes = [p, i, p, p, p, p, i, i, i, i,
+                                                i, i, i, i, i, i, f, f, p]
+            lib.warp_combine_launch.restype = i
+            _lib = lib
+        return _lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _check(t: Optional[torch.Tensor], name: str, device, shape=None,
+           dtype=torch.float32) -> Optional[torch.Tensor]:
+    """``t`` as a contiguous ``dtype`` tensor on ``device`` (None stays
+    None); raises on the wrong device or shape."""
+    if t is None:
+        return None
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t.to(dtype).contiguous()
+
+
+def _frames_arg(frames: torch.Tensor):
+    if frames.dtype not in (torch.uint16, torch.float32):
+        raise ValueError(f"frames must be uint16 or float32, got "
+                         f"{frames.dtype}")
+    return frames.contiguous(), int(frames.dtype == torch.uint16)
+
+
+@functools.lru_cache(maxsize=None)
+def _params_on(params: tuple, device: torch.device) -> torch.Tensor:
+    """K1's parameter block on ``device``, copied once: a copy from
+    pageable host memory waits for the stream, on every call."""
+    return torch.tensor(params, dtype=torch.float32, device=device)
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
+                      params, r: int):
+    """Launch K1 (``csrc/detect_tiles.cu``); see
+    ``ops.detect_tiles.detect_tiles`` for the arguments and results."""
+    dev = frames.device
+    n, h, w = frames.shape
+    frames, is_u16 = _frames_arg(frames)
+    thr = _check(thresholds, "thresholds", dev, (n,))
+    if exp_ratios is None:
+        exp_ratios = torch.ones((n,), dtype=torch.float32, device=dev)
+    er = _check(exp_ratios, "exp_ratios", dev, (n,))
+    a = _check(a_plane, "a_plane", dev, (h, w))
+    mf = _check(mf_bc, "mf_bc", dev, (2, h // 2, w))
+    par = _params_on(tuple(params), dev)
+    shape = (n, h // 64, w // 256)
+    out_max = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_idx = torch.empty(shape, dtype=torch.int32, device=dev)
+    out_yoff = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_xoff = torch.empty(shape, dtype=torch.float32, device=dev)
+    lib = _load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.detect_tiles_launch(
+        _ptr(frames), is_u16, _ptr(a), _ptr(mf), _ptr(thr), _ptr(er),
+        _ptr(par), _ptr(out_max), _ptr(out_idx), _ptr(out_yoff),
+        _ptr(out_xoff), n, h, w, r, ctypes.c_void_p(stream))
+    _raise_on(err, "detect_tiles")
+    launch_counts["detect_tiles"] += 1
+    return out_max, out_idx, out_yoff, out_xoff
+
+
+#: one thread per output pixel keeps all N samples in 4 B of shared
+#: memory each, 64 threads per block, within the 227 KB a block may use
+_MAX_FRAMES = 232448 // (4 * 64)
+
+
+def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
+                      sigma_lower: float, sigma_upper: float):
+    """Launch K2 (``csrc/warp_combine.cu``) on a prepared
+    ``ops.warp_combine.WarpPlan``; see ``ops.warp_combine.warp_combine``
+    for the semantics."""
+    dev = frames.device
+    n, h0, w0 = frames.shape
+    if n > _MAX_FRAMES:
+        raise ValueError(f"warp_combine kernel takes at most {_MAX_FRAMES} "
+                         f"frames, got {n}")
+    frames, is_u16 = _frames_arg(frames)
+    masters = _check(masters, "masters", dev, (3, h0, w0))
+    table = _check(plan.table, "plan.table", dev, (n, 16))
+    tiles = _check(plan.tiles, "plan.tiles", dev,
+                   (n, plan.n_ti * plan.n_tj, 3), dtype=torch.int32)
+    out = torch.empty((h0, w0), dtype=torch.float32, device=dev)
+    lib = _load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.warp_combine_launch(
+        _ptr(frames), is_u16, _ptr(masters), _ptr(table), _ptr(tiles),
+        _ptr(out), n, h0, w0, plan.th, plan.tw, plan.n_ti, plan.n_tj,
+        plan.span, int(lowrank), combine, sigma_lower, sigma_upper,
+        ctypes.c_void_p(stream))
+    _raise_on(err, "warp_combine")
+    launch_counts["warp_combine"] += 1
+    return out

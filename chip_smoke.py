@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one GPU.
+
+Builds the hand-written CUDA kernels from ``astrophotography_tpu_torch/
+csrc``, holds each against its plain PyTorch twin on the card (at the
+main path's own shapes and on a smaller matrix of cases), then drives
+the port's lean stacking path (``calibrate_register_stack_lean``) at
+full size — 100 raw uint16 frames of 4096^2 with bias, dark and flat
+masters, once with sub-pixel dithers (translation-snap path) and once
+with 0.1-0.25 deg field rotations (lowrank taps) — and checks the
+registrations and the stack.
+
+Run from the repository root with ``python3 chip_smoke.py``.  Every
+phase raises on failure.  Each phase prints one JSON line; the line
+before the last is the card's ``nvidia-smi`` name and power limit, the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+the script exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N_FRAMES, SIZE = 100, 4096
+SKY = 800.0
+
+
+def _print(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _gaussian_star(shape, x, y, flux, fwhm):
+    """Circular Gaussian star image (float64) integrating to ~flux."""
+    h, w = shape
+    sigma = fwhm / 2.35482
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    amp = flux / (2 * np.pi * sigma * sigma)
+    return amp * np.exp(-0.5 * (((xx - x) / sigma) ** 2
+                                + ((yy - y) / sigma) ** 2))
+
+
+def make_workload(n_frames: int, size: int, rotate: bool = False):
+    """Synthetic observing run with a full master set, the same numbers
+    as ``bench.py``'s workload: uint16 frames = scene*flat + bias +
+    0.5*dark_counts with sub-pixel dithers uniform(-4, 4) and, with
+    ``rotate``, 0.1-0.25 deg rotations about the centre.
+
+    Returns (frames, bias, dark_master, flat, exp_ratio, max_offset_px,
+    matrices (N, 2, 3) of the true reference->frame similarities)."""
+    rng = np.random.default_rng(0)
+    yy = (np.arange(size, dtype=np.float32) - size / 2) / size
+    r2 = yy[:, None] ** 2 + yy[None, :] ** 2
+    flat = (1.0 - 0.08 * r2 / r2.max()).astype(np.float32)
+    bias = np.full((size, size), 300.0, np.float32)
+    dark_counts = np.full((size, size), 40.0, np.float32)
+    hot = rng.integers(0, size, (200, 2))
+    dark_counts[hot[:, 0], hot[:, 1]] = 5000.0
+    dark_master = bias + dark_counts
+    exp_ratio = 0.5
+    xs = rng.uniform(48, size - 48, 40)
+    ys = rng.uniform(48, size - 48, 40)
+    fl = rng.uniform(20000, 60000, 40)
+    base_fixed = SKY * flat + bias + exp_ratio * dark_counts
+    noise_bank = [rng.normal(0, 8.0, (size, size)).astype(np.float32)
+                  for _ in range(min(4, n_frames))]
+    cx = cy = (size - 1) / 2.0
+    frames = np.empty((n_frames, size, size), np.uint16)
+    mats = np.zeros((n_frames, 2, 3), np.float64)
+    max_off = 0.0
+    for i in range(n_frames):
+        if i == 0:
+            dx = dy = theta = 0.0
+        else:
+            dx, dy = rng.uniform(-4.0, 4.0, 2)
+            theta = (float(rng.choice([-1.0, 1.0])
+                           * np.deg2rad(rng.uniform(0.1, 0.25)))
+                     if rotate else 0.0)
+        c, s = np.cos(theta), np.sin(theta)
+        mats[i] = [[c, -s, cx + dx - c * cx + s * cy],
+                   [s, c, cy + dy - s * cx - c * cy]]
+        f = base_fixed + noise_bank[i % len(noise_bank)]
+        for x, y, amp in zip(xs, ys, fl):
+            px = c * (x - cx) - s * (y - cy) + cx + dx
+            py = s * (x - cx) + c * (y - cy) + cy + dy
+            x0, y0 = int(px) - 12, int(py) - 12
+            patch = _gaussian_star((25, 25), px - x0, py - y0, amp, 3.0)
+            f[y0:y0 + 25, x0:x0 + 25] += patch * flat[y0:y0 + 25,
+                                                      x0:x0 + 25]
+            max_off = max(max_off, float(np.hypot(px - x, py - y)))
+        frames[i] = np.clip(f, 0, 65535).astype(np.uint16)
+    return frames, bias, dark_master, flat, exp_ratio, max_off, mats
+
+
+def lean_config(rotate: bool):
+    """bench.py's lean configurations (rotation: lowrank taps, budget
+    32; snap: span 8, budget 8)."""
+    from astrophotography_tpu_torch.models import PipelineConfig
+
+    common = dict(max_stars=48, match_k=10, detect_mode="chunked",
+                  detect_chunk=2, detect_topk="tile", detect_fast=True,
+                  detect_bin_rows=True, centroid="kernel", fused_apron=False,
+                  general_taps="lowrank")
+    if rotate:
+        return PipelineConfig(dither_budget=32, **common)
+    return PipelineConfig(warp_span=8, dither_budget=8, **common)
+
+
+def _timed(fn):
+    """(fn(), its device time in ms) for one call (CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches after a warm-up
+    (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
+    """K1 against detect_tiles_plain: max values within rtol 1e-4, atol
+    1e-2; argmax and offsets equal (offsets within 1e-4 bin) on every
+    tile, except tiles whose two maxima tie within 1e-3 relative."""
+    from astrophotography_tpu_torch.ops import detect_tiles as dt
+
+    args = dict(mf_bc=mf, a_plane=a_plane, exp_ratios=er)
+    k = dt.detect_tiles(frames, thr, **args)
+    torch.cuda.synchronize()
+    p, plain_ms = _timed(lambda: dt.detect_tiles_plain(frames, thr, **args))
+    kmax, kidx, kyo, kxo = k
+    pmax, pidx, pyo, pxo = p
+    _require(bool(((kmax > -1e37) == (pmax > -1e37)).all()),
+             f"{label}: K1 empty tiles differ")
+    live = pmax > -1e37
+    err = (kmax - pmax).abs()
+    _require(bool((err[live] <= 1e-2 + 1e-4 * pmax[live].abs()).all()),
+             f"{label}: K1 tile maxima differ")
+    tie = (kidx != pidx) & (err <= 1e-3 * pmax.abs().clamp(min=1.0))
+    same = kidx == pidx
+    _require(bool((same | tie).all()), f"{label}: K1 argmax differs")
+    off = torch.maximum((kyo - pyo).abs(), (kxo - pxo).abs())
+    _require(bool((off[same] <= 1e-4).all()), f"{label}: K1 offsets differ")
+    ms = _time_ms(lambda: dt.detect_tiles(frames, thr, **args), reps)
+    res = {"phase": "K1 vs detect_tiles_plain", "case": label,
+           "shape": list(frames.shape),
+           "max_abs_err": float(err[live].max()) if bool(live.any()) else 0.0,
+           "offset_max_abs_err": float(off[same].max()),
+           "argmax_ties": int(tie.sum()), "live_tiles": int(live.sum()),
+           "ms": ms, "plain_ms": plain_ms, "card": card}
+    _print(res)
+    return res
+
+
+def check_warp(frames, mats, masters, er, label, card, reps=2, **kw):
+    """K2 against warp_combine_plain: rtol 1e-4, atol 1e-2, equal
+    zero-coverage masks; at most 1e-5 of the pixels may differ (a sample
+    within rounding of a clip bound kept on one side only)."""
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+
+    args = dict(masters=masters, exp_ratios=er, **kw)
+    k = wc.warp_combine(frames, mats, **args)
+    torch.cuda.synchronize()
+    p, plain_ms = _timed(lambda: wc.warp_combine_plain(frames, mats, **args))
+    _require(bool(((k == 0) == (p == 0)).all()),
+             f"{label}: K2 zero coverage differs")
+    err = (k - p).abs()
+    bad = err > 1e-2 + 1e-4 * p.abs()
+    frac = float(bad.float().mean())
+    _require(frac <= 1e-5, f"{label}: K2 differs on {frac:.2e} of pixels")
+    ok_err = float(err[~bad].max())
+    del k, p, err, bad
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: wc.warp_combine(frames, mats, **args), reps)
+    res = {"phase": "K2 vs warp_combine_plain", "case": label,
+           "shape": list(frames.shape), "max_abs_err": ok_err,
+           "pixels_differing": frac, "ms": ms, "plain_ms": plain_ms,
+           "card": card}
+    _print(res)
+    return res
+
+
+def _masters(bias, dark, flat, dev):
+    """(A, B, C) = (1/flat, bias/flat, (dark - bias)/flat) on ``dev``."""
+    b, d, f = (torch.from_numpy(x).to(dev) for x in (bias, dark, flat))
+    a = 1.0 / f
+    return torch.stack([a, b * a, (d - b) * a]), b, d - b, f
+
+
+def _workload_on_device(rotate, dev):
+    t0 = time.perf_counter()
+    frames, bias, dark, flat, exp_ratio, max_off, mats = make_workload(
+        N_FRAMES, SIZE, rotate=rotate)
+    gen_s = time.perf_counter() - t0
+    fr = torch.from_numpy(frames).to(dev)
+    del frames
+    return fr, bias, dark, flat, exp_ratio, max_off, mats, gen_s
+
+
+def run_main_path(rotate: bool, card: str, dev) -> dict:
+    """Kernel checks at the main path's shapes, then the lean path."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.models import (
+        calibrate_register_stack_lean)
+    from astrophotography_tpu_torch.ops import detect_tiles as dt
+
+    label = "rotated" if rotate else "snap"
+    cfg = lean_config(rotate)
+    fr, bias, dark, flat, exp_ratio, max_off, mats, gen_s = \
+        _workload_on_device(rotate, dev)
+    n = fr.shape[0]
+    er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
+    masters, b_t, du_t, f_t = _masters(bias, dark, flat, dev)
+    checks = {}
+    if not rotate:
+        # K1 on the main path's input (threshold: nsigma x the 8 ADU noise)
+        mf = dt.master_densities(b_t, du_t, f_t, fwhm=cfg.fwhm)
+        thr = torch.full((n,), cfg.detect_nsigma * 8.0, device=dev)
+        checks["detect_tiles"] = check_detect(
+            fr, thr, mf, masters[0], er, f"main path {label}", card)
+        del mf
+    checks["warp_combine"] = check_warp(
+        fr, torch.from_numpy(mats.astype(np.float32)).to(dev), masters, er,
+        f"main path {label}", card, span=cfg.warp_span, apron=False,
+        dither_budget=cfg.dither_budget, general_taps=cfg.general_taps)
+    torch.cuda.empty_cache()
+
+    kw = dict(bias=torch.from_numpy(bias).to(dev),
+              dark=torch.from_numpy(dark).to(dev),
+              flat=torch.from_numpy(flat).to(dev), exp_ratios=er)
+
+    def run():
+        return calibrate_register_stack_lean(fr, config=cfg, **kw)
+
+    run()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stacked, diag = run()
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    for name, count in launches.items():
+        _require(count > 0, f"{label}: kernel {name} not launched")
+    _require("jax" not in sys.modules, "jax was imported")
+    k = 3
+    t0 = time.perf_counter()
+    for _ in range(k):
+        out, _d = run()
+    torch.cuda.synchronize()
+    sustained_s = (time.perf_counter() - t0) / k
+
+    n_in = diag["n_inliers"].cpu().numpy()
+    rms = diag["rms"].cpu().numpy()
+    _require(bool((n_in >= 5).all()), f"{label}: n_inliers {n_in.min()}")
+    _require(bool((rms < 0.5).all()), f"{label}: rms {rms.max()}")
+    _require(bool(torch.isfinite(stacked).all()), f"{label}: stack not finite")
+    m = SIZE // 8
+    med = float(stacked[m:-m, m:-m].median())
+    _require(abs(med - SKY) < 0.05 * SKY, f"{label}: interior median {med}")
+    # registration against the known dithers (reference = frame 0)
+    t_err = max(np.max(np.abs(diag["tx"].cpu().numpy() - mats[:, 0, 2])),
+                np.max(np.abs(diag["ty"].cpu().numpy() - mats[:, 1, 2])))
+    res = {"phase": f"main path {label}", "shape": [n, SIZE, SIZE],
+           "single_run_ms": single_ms,
+           "sustained_gpix_s": n * SIZE * SIZE / sustained_s / 1e9,
+           "sustained_ms": sustained_s * 1e3,
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "min_inliers": int(n_in.min()), "max_rms_px": float(rms.max()),
+           "max_translation_err_px": float(t_err),
+           "interior_median": med, "sky": SKY,
+           "max_offset_px": max_off, "workload_gen_s": gen_s, "card": card}
+    _print(res)
+    del fr, stacked, out, masters, kw
+    torch.cuda.empty_cache()
+    return {"main": res, **checks}
+
+
+def run_small_matrix(card: str, dev) -> None:
+    """The smaller matrix of kernel cases: K1 at 8x1024^2 with masters;
+    K2 at 16x1024^2 with masters for every combine, on snapped
+    translations and on rotations under 'exact' and 'lowrank'."""
+    from astrophotography_tpu_torch.ops import detect_tiles as dt
+
+    frames, bias, dark, flat, exp_ratio, _off, mats = make_workload(
+        16, 1024, rotate=False)
+    fr = torch.from_numpy(frames).to(dev)
+    er = torch.full((16,), exp_ratio, dtype=torch.float32, device=dev)
+    masters, b_t, du_t, f_t = _masters(bias, dark, flat, dev)
+    mf = dt.master_densities(b_t, du_t, f_t)
+    check_detect(fr[:8], torch.full((8,), 56.0, device=dev), mf, masters[0],
+                 er[:8], "8x1024^2", card)
+    _fr, _b, _d, _f, _e, _o, rmats = make_workload(16, 1024, rotate=True)
+    rfr = torch.from_numpy(_fr).to(dev)
+    for combine in ("average", "median", "sum", "mean"):
+        check_warp(fr, torch.from_numpy(mats.astype(np.float32)).to(dev),
+                   masters, er, f"16x1024^2 snap {combine}", card,
+                   combine=combine, span=8, dither_budget=8)
+        for taps in ("exact", "lowrank"):
+            check_warp(rfr, torch.from_numpy(rmats.astype(np.float32))
+                       .to(dev), masters, er,
+                       f"16x1024^2 rotated {taps} {combine}", card,
+                       combine=combine, general_taps=taps, dither_budget=32)
+
+
+def main() -> int:
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")        # raises without a usable card
+    card = card_line()
+    t0 = time.perf_counter()
+    lib = kernels.build()
+    build_s = time.perf_counter() - t0
+    kernels._load()
+    _print({"phase": "build", "library": str(lib), "seconds": build_s,
+            "nvcc": kernels.build_info.get("nvcc_version"),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "card": card})
+
+    snap = run_main_path(False, card, dev)
+    rot = run_main_path(True, card, dev)
+    run_small_matrix(card, dev)
+
+    launches = snap["main"]["launches"]
+    kernels_line = {"kernels": [
+        {"name": "detect_tiles", "route": "cuda",
+         "source": "astrophotography_tpu_torch/csrc/detect_tiles.cu",
+         "replaces": "astrophotography_tpu/ops/pallas_detect.py:405",
+         "launches": launches["detect_tiles"],
+         "max_abs_err": snap["detect_tiles"]["max_abs_err"],
+         "ms": snap["detect_tiles"]["ms"],
+         "plain_ms": snap["detect_tiles"]["plain_ms"]},
+        {"name": "warp_combine", "route": "cuda",
+         "source": "astrophotography_tpu_torch/csrc/warp_combine.cu",
+         "replaces": "astrophotography_tpu/ops/pallas_warp_combine.py:658",
+         "launches": launches["warp_combine"],
+         "max_abs_err": max(snap["warp_combine"]["max_abs_err"],
+                            rot["warp_combine"]["max_abs_err"]),
+         "ms": snap["warp_combine"]["ms"],
+         "plain_ms": snap["warp_combine"]["plain_ms"]},
+    ]}
+    _print(kernels_line)
+    print(card, flush=True)
+    _print({"ok": True, "device": {"platform": "gpu",
+                                   "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,136 @@
+"""Port parity: the fused raw->candidate detector (K1) and its host
+pieces, against the JAX package (the Pallas kernel runs in interpret
+mode on the CPU backend, as the JAX suite runs it)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from astrophotography_tpu import synth
+from astrophotography_tpu.ops import detect as jdetect
+from astrophotography_tpu.ops import pallas_detect as jpd
+from astrophotography_tpu_torch.ops import detect as tdetect
+from astrophotography_tpu_torch.ops import detect_tiles as tdt
+
+N, H, W = 2, 256, 512
+THRESH = 60.0
+
+
+def _stack(seed=0):
+    """Raw uint16 frames plus bias, dark (exp ratio 2) and a flat with
+    row-to-row structure, so every calibration plane matters."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for f in range(N):
+        img, _ = synth.make_starfield((H, W), n_stars=12, background=500.0,
+                                      read_noise=4.0, seed=seed + f + 1,
+                                      margin=24, min_sep=30.0)
+        frames.append(img)
+    frames = np.stack(frames).astype(np.float32)
+    bias = (250.0 + rng.normal(0, 2.0, (H, W))).astype(np.float32)
+    dark = np.abs(rng.normal(3.0, 1.0, (H, W))).astype(np.float32)
+    dark[100, 300] = 4000.0                       # a hot pixel
+    flat = (1.0 + 0.1 * np.sin(np.arange(H) * 0.7)[:, None]
+            + 0.05 * np.cos(np.arange(W) * 0.013)[None, :]).astype(np.float32)
+    raw = np.clip(frames * flat + bias + 2.0 * dark, 0, 65535) \
+        .astype(np.uint16)
+    return raw, bias, dark, flat
+
+
+def test_filter_constants_identical():
+    for fwhm in (2.5, 3.0, 4.5):
+        ours = tdt._filter_taps(fwhm)
+        ref = jpd._filter_taps(fwhm)
+        for a, b in zip(ours, ref):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert tdt._paroff_calibration(fwhm) == jpd._paroff_calibration(fwhm)
+        assert tdetect._kernel_radius(fwhm) == jdetect._kernel_radius(fwhm)
+        # the kernel's cached parameter block carries the same constants
+        params, r = tdt._kernel_params(fwhm)
+        gr, gc, _r, mean_w, inv_den = ref
+        (cy1, cy3, cy5), (cx1, cx3, cx5) = jpd._paroff_calibration(fwhm)
+        want = np.concatenate([gr, gc, np.asarray(
+            [mean_w, inv_den, cy1, cy3, cy5, cx1, cx3, cx5], np.float32)])
+        assert r == _r
+        np.testing.assert_array_equal(np.asarray(params, np.float32), want)
+        assert tdt._kernel_params(fwhm) is tdt._kernel_params(fwhm)
+
+
+def test_master_densities_match():
+    _raw, bias, dark, flat = _stack()
+    for fl in (None, flat):
+        ref = np.asarray(jpd.master_densities(
+            jnp.asarray(bias), jnp.asarray(dark),
+            None if fl is None else jnp.asarray(fl)))
+        got = tdt.master_densities(
+            torch.from_numpy(bias), torch.from_numpy(dark),
+            None if fl is None else torch.from_numpy(fl)).numpy()
+        assert got.shape == ref.shape == (2, H // 2, W)
+        # both round through bf16 op by op; 2% of each plane's amplitude
+        # (in practice they agree bit for bit)
+        for k in range(2):
+            scale = np.abs(ref[k]).max()
+            assert np.abs(got[k] - ref[k]).max() <= 0.02 * scale, k
+
+
+def _run_both(raw, thr, mf=None, a=None, er=None):
+    ref = jpd.pallas_detect_tiles(
+        jnp.asarray(raw), jnp.asarray(thr),
+        mf_bc=None if mf is None else jnp.asarray(mf),
+        a_plane=None if a is None else jnp.asarray(a),
+        exp_ratios=None if er is None else jnp.asarray(er), band=64)
+    got = tdt.detect_tiles(
+        torch.from_numpy(raw), torch.from_numpy(thr),
+        mf_bc=None if mf is None else torch.from_numpy(mf),
+        a_plane=None if a is None else torch.from_numpy(a),
+        exp_ratios=None if er is None else torch.from_numpy(er))
+    return [np.asarray(x) for x in ref], [x.numpy() for x in got]
+
+
+@pytest.mark.parametrize("masters", ["none", "bias_dark", "full"])
+def test_detect_tiles_matches_pallas(masters):
+    raw, bias, dark, flat = _stack(seed=3)
+    thr = np.full((N,), THRESH, np.float32)
+    er = np.full((N,), 2.0, np.float32)
+    mf = a = None
+    if masters != "none":
+        fl = flat if masters == "full" else None
+        mf = np.array(jpd.master_densities(         # writable copy
+            jnp.asarray(bias), jnp.asarray(dark),
+            None if fl is None else jnp.asarray(fl)))
+        a = None if fl is None else (1.0 / flat).astype(np.float32)
+    (rmax, ridx, ryo, rxo), (gmax, gidx, gyo, gxo) = _run_both(
+        raw, thr, mf, a, er)
+    assert gmax.shape == rmax.shape == (N, H // 64, W // 256)
+    assert gidx.dtype == np.int32
+    empty = rmax <= -1e37
+    np.testing.assert_array_equal(gmax <= -1e37, empty)
+    # density values: bf16 lane pass on the TPU side (as
+    # tests/test_pallas_detect.py bounds it against f32)
+    live = ~empty
+    assert np.all(np.abs(gmax[live] - rmax[live])
+                  <= 0.02 * np.abs(rmax[live]) + 0.5)
+    np.testing.assert_array_equal(gidx[empty], 0)
+    strong = rmax >= 10 * THRESH
+    assert strong.sum() >= 8
+    np.testing.assert_array_equal(gidx[strong], ridx[strong])
+    np.testing.assert_allclose(gyo[strong], ryo[strong], atol=0.02)
+    np.testing.assert_allclose(gxo[strong], rxo[strong], atol=0.02)
+    np.testing.assert_array_equal(gyo[empty], 0.0)
+
+
+def test_detect_tiles_rejects_bad_geometry():
+    with pytest.raises(ValueError, match="geometry"):
+        tdt.detect_tiles(torch.zeros((1, 96, 512), dtype=torch.uint16),
+                         torch.ones(1))
+
+
+def test_detect_tiles_float_frames_match_uint16():
+    raw, _bias, _dark, _flat = _stack(seed=5)
+    thr = torch.full((N,), THRESH)
+    a = tdt.detect_tiles(torch.from_numpy(raw), thr)
+    b = tdt.detect_tiles(torch.from_numpy(raw.astype(np.float32)), thr)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)

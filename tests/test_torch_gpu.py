@@ -1,0 +1,102 @@
+"""The CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked ``gpu``: these skip without a CUDA device.  They import no JAX, so
+on a machine without it run them without the suite's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from astrophotography_tpu_torch import kernels
+from astrophotography_tpu_torch.ops import detect_tiles as dt
+from astrophotography_tpu_torch.ops import warp_combine as wc
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _starfield(n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.full((n, h, w), 500.0)
+    for f in range(n):
+        for x0, y0, a in zip(rng.uniform(20, w - 20, 24),
+                             rng.uniform(20, h - 20, 24),
+                             rng.uniform(1e3, 3e4, 24)):
+            img[f] += a * np.exp(-0.5 * ((xx - x0) ** 2 + (yy - y0) ** 2)
+                                 / 1.6)
+    img += rng.normal(0, 4, img.shape)
+    return np.clip(img, 0, 65535).astype(np.uint16)
+
+
+@pytest.mark.parametrize("masters", [False, True])
+def test_detect_kernel_matches_plain(cuda, masters):
+    n, h, w = 3, 256, 512
+    fr = torch.from_numpy(_starfield(n, h, w, 0)).to(cuda)
+    thr = torch.full((n,), 60.0, device=cuda)
+    args = {}
+    if masters:
+        rng = np.random.default_rng(1)
+        bias = torch.from_numpy((250 + rng.normal(0, 2, (h, w)))
+                                .astype(np.float32)).to(cuda)
+        dark = torch.full((h, w), 3.0, device=cuda)
+        flat = 1.0 + 0.1 * torch.sin(torch.arange(h, device=cuda) * 0.7)[:, None] \
+            * torch.ones((1, w), device=cuda)
+        args = dict(mf_bc=dt.master_densities(bias, dark, flat),
+                    a_plane=1.0 / flat,
+                    exp_ratios=torch.full((n,), 2.0, device=cuda))
+    before = kernels.launch_counts["detect_tiles"]
+    got = dt.detect_tiles(fr, thr, **args)
+    assert kernels.launch_counts["detect_tiles"] == before + 1
+    want = dt.detect_tiles_plain(fr, thr, **args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-2)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("combine", ["average", "median", "sum", "mean"])
+@pytest.mark.parametrize("taps", ["exact", "lowrank"])
+def test_warp_combine_kernel_equals_plain(cuda, combine, taps):
+    """The kernel rounds every value operation as its twin does, so the
+    two agree bit for bit."""
+    n, h, w = 6, 128, 256
+    rng = np.random.default_rng(2)
+    raw = torch.from_numpy(_starfield(n, h, w, 3)).to(cuda)
+    mats = []
+    for f in range(n):
+        th = 0.0 if f in (0, 2) else rng.choice([-1, 1]) * rng.uniform(0.002,
+                                                                        0.004)
+        tx, ty = (0.0, 0.0) if f == 0 else rng.uniform(-5, 5, 2)
+        c, s = np.cos(th), np.sin(th)
+        mats.append([[c, -s, tx], [s, c, ty]])
+    mats = torch.tensor(np.asarray(mats, np.float32), device=cuda)
+    masters = torch.stack([torch.full((h, w), 1.02), torch.full((h, w), 300.0),
+                           torch.full((h, w), 20.0)]).to(cuda)
+    args = dict(masters=masters, exp_ratios=torch.full((n,), 0.5, device=cuda),
+                flux_scales=torch.linspace(0.9, 1.1, n, device=cuda),
+                tile=(32, 128), combine=combine, general_taps=taps)
+    before = kernels.launch_counts["warp_combine"]
+    got = wc.warp_combine(raw, mats, **args)
+    assert kernels.launch_counts["warp_combine"] == before + 1
+    want = wc.warp_combine_plain(raw, mats, **args)
+    assert torch.equal(got, want)
+    assert (got != 0).float().mean() > 0.8
+
+
+def test_kernel_wrapper_rejects_bad_input(cuda):
+    fr = torch.zeros((2, 128, 256), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="uint16 or float32"):
+        dt.detect_tiles(fr, torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="thresholds"):
+        dt.detect_tiles(fr.to(torch.float32), torch.ones(3, device=cuda))

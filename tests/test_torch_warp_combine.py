@@ -1,0 +1,229 @@
+"""Port parity: the fused calibrate + warp + sigma-clip combine (K2),
+host prep and values, against the JAX package's Pallas kernel (interpret
+mode on the CPU backend)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from astrophotography_tpu import synth
+from astrophotography_tpu.ops import pallas_warp_combine as pwc
+from astrophotography_tpu_torch.ops import warp_combine as twc
+
+
+def _scene(n, h, w, seed, ty_range=(-5.0, 5.0)):
+    """Calibrated frames of one scene plus masters and the raw uint16
+    frames they calibrate back to; frame 0 identity (shifted down to
+    ty_range[0] when that is positive), frame 2 a pure sub-pixel
+    translation (both take the snapped path), the rest small rotations
+    (the general tap bodies)."""
+    rng = np.random.default_rng(seed)
+    base = np.asarray(synth.make_rgb_scene((h, w), seed=seed,
+                                           peak=5000)[..., 0], np.float32)
+    base += synth.gaussian_star((h, w), w * 0.3, h * 0.4, 40000.0,
+                                3.0).astype(np.float32)
+    cal = np.stack([base + rng.normal(0, 3, (h, w)).astype(np.float32)
+                    for _ in range(n)])
+    mats = []
+    for f in range(n):
+        theta = 0.0 if f in (0, 2) else \
+            rng.choice([-1, 1]) * rng.uniform(0.002, 0.004)
+        tx, ty = (0.0, max(ty_range[0], 0.0)) if f == 0 else \
+            (rng.uniform(-5, 5), rng.uniform(*ty_range))
+        c, s = np.cos(theta), np.sin(theta)
+        mats.append([[c, -s, tx], [s, c, ty]])
+    mats = np.asarray(mats, np.float32)
+    flat = (1.0 + 0.05 * np.cos(np.arange(w) * 0.05)[None, :]
+            * np.ones((h, 1))).astype(np.float32)
+    bias = (300.0 + rng.normal(0, 2, (h, w))).astype(np.float32)
+    dark = np.abs(rng.normal(20.0, 3.0, (h, w))).astype(np.float32)
+    er = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    fs = rng.uniform(0.8, 1.25, n).astype(np.float32)
+    raw = np.clip(np.rint(cal * flat + bias + er[:, None, None] * dark),
+                  0, 65535).astype(np.uint16)
+    masters = np.stack([1.0 / flat, bias / flat, dark / flat]) \
+        .astype(np.float32)
+    return cal, raw, masters, mats, er, fs
+
+
+def _capture_jax_prep(monkeypatch, frames, mats, **kw):
+    """Run the JAX wrapper eagerly with pl.pallas_call replaced by a
+    recorder: returns the kernel's operands and grid geometry exactly as
+    the JAX host prep produced them."""
+    seen = {}
+
+    def fake_pallas_call(kernel, out_shape, grid_spec, **_unused):
+        def call(mats_t, byp, bxp, *_ops):
+            seen.update(mats=np.asarray(mats_t), byp=np.asarray(byp),
+                        bxp=np.asarray(bxp), grid=tuple(grid_spec.grid),
+                        n_specs=len(grid_spec.in_specs),
+                        block=tuple(grid_spec.in_specs[0].block_shape),
+                        scratch=[tuple(s.shape)
+                                 for s in grid_spec.scratch_shapes])
+            return jnp.zeros(out_shape.shape, out_shape.dtype)
+        return call
+
+    monkeypatch.setattr(pwc.pl, "pallas_call", fake_pallas_call)
+    with jax.disable_jit():
+        pwc.pallas_warp_combine(jnp.asarray(frames), jnp.asarray(mats), **kw)
+    return seen
+
+
+PREP_CASES = [
+    # (n, h, w, kwargs)
+    (5, 64, 128, dict(tile=(32, 64))),
+    (5, 96, 192, dict(tile=(32, 64), apron=False, general_taps="lowrank")),
+    (4, 192, 3072, dict(apron=False, span=8, dither_budget=8,
+                        general_taps="lowrank")),
+    (4, 96, 1536, dict(dither_budget=32)),
+    (40, 64, 256, dict(span=10)),
+]
+
+
+@pytest.mark.parametrize("n,h,w,kw", PREP_CASES)
+def test_host_prep_matches_jax_exactly(monkeypatch, n, h, w, kw):
+    _cal, raw, masters, mats, er, fs = _scene(n, h, w, seed=n + h)
+    mats[n - 1, 0, 2] = 1e9                    # a rejected registration
+    seen = _capture_jax_prep(
+        monkeypatch, raw, mats, masters=jnp.asarray(masters),
+        exp_ratios=jnp.asarray(er), flux_scales=jnp.asarray(fs), **kw)
+    kw = dict(kw)
+    span = kw.get("span", 12)
+    plan = twc.plan_warp_combine(
+        (n, h, w), torch.from_numpy(mats), torch.from_numpy(er),
+        torch.from_numpy(fs), tile=kw.get("tile"), span=span,
+        apron=kw.get("apron", True), dither_budget=kw.get("dither_budget", 64),
+        general_taps=kw.get("general_taps", "exact"))
+    # tile, delivery blocks, window extents, grid
+    assert seen["scratch"][0][1:] == (plan.th, plan.tw)
+    assert seen["block"][1:] == (plan.bh, plan.bw)
+    assert seen["scratch"][1] == (plan.vb * plan.bh, plan.hb * plan.bw)
+    assert seen["n_specs"] == 2 * plan.vb * plan.hb
+    assert seen["grid"][:2] == (plan.n_ti, plan.n_tj)
+    # window origins and the snapped (N, 11) per-frame table, exactly
+    np.testing.assert_array_equal(plan.byp.numpy(), seen["byp"])
+    np.testing.assert_array_equal(plan.bxp.numpy(), seen["bxp"])
+    np.testing.assert_array_equal(plan.table[:, :11].numpy(), seen["mats"])
+    # per-(frame, tile) bases against the kernel's own scalar formula,
+    # and base_ok from the captured window origins
+    apron = kw.get("apron", True)
+    oy = (2 * plan.th) // plan.bh if apron else 0
+    ox = plan.tw // plan.bw if apron else 0
+    tiles = plan.tiles.numpy().reshape(n, plan.n_ti, plan.n_tj, 3)
+    m = jnp.asarray(seen["mats"])
+    for f in range(n):
+        for i in range(plan.n_ti):
+            for j in range(plan.n_tj):
+                vb_, ub_ = (int(v) for v in pwc._frame_bases(
+                    m, f, i, j, plan.th, plan.tw, span))
+                wy0 = (int(seen["byp"][i, j]) - oy) * plan.bh
+                wx0 = (int(seen["bxp"][i, j]) - ox) * plan.bw
+                ok = (wy0 <= max(vb_, 0)
+                      and min(vb_ + plan.th + span, h) <= wy0
+                      + plan.vb * plan.bh
+                      and wx0 <= max(ub_, 0)
+                      and min(ub_ + plan.tw + span, w) <= wx0
+                      + plan.hb * plan.bw)
+                assert tuple(tiles[f, i, j]) == (vb_, ub_, int(ok)), (f, i, j)
+
+
+def _compare(got, ref):
+    """Zero coverage equal; values within rtol 2e-4 (the reference's snap
+    path rides the MXU as a bf16 hi/lo split) and atol 0.5, except for
+    sigma-clip tie flips: a sample within float rounding of a clip bound
+    (seen: 7e-7 relative) may be kept on one side and dropped on the
+    other, on at most 1e-4 of the pixels."""
+    np.testing.assert_array_equal(got == 0, ref == 0)
+    off = np.abs(got - ref) > 0.5 + 2e-4 * np.abs(ref)
+    assert off.mean() <= 1e-4, (off.sum(), np.argwhere(off)[:5])
+
+
+@pytest.mark.parametrize("combine", ["average", "median", "sum", "mean"])
+@pytest.mark.parametrize("taps", ["exact", "lowrank"])
+@pytest.mark.parametrize("source", ["calibrated", "raw_masters"])
+def test_warp_combine_matches_pallas(combine, taps, source):
+    cal, raw, masters, mats, er, fs = _scene(5, 64, 128, seed=7)
+    if source == "calibrated":
+        jargs, targs = (jnp.asarray(cal),), (torch.from_numpy(cal),)
+        jkw, tkw = {}, {}
+    else:
+        jargs, targs = (jnp.asarray(raw),), (torch.from_numpy(raw),)
+        jkw = dict(masters=jnp.asarray(masters), exp_ratios=jnp.asarray(er),
+                   flux_scales=jnp.asarray(fs))
+        tkw = dict(masters=torch.from_numpy(masters),
+                   exp_ratios=torch.from_numpy(er),
+                   flux_scales=torch.from_numpy(fs))
+    ref = np.asarray(pwc.pallas_warp_combine(
+        *jargs, jnp.asarray(mats), tile=(32, 64), combine=combine,
+        general_taps=taps, **jkw))
+    got = twc.warp_combine(*targs, torch.from_numpy(mats), tile=(32, 64),
+                           combine=combine, general_taps=taps, **tkw).numpy()
+    assert got.dtype == np.float32 and got.shape == (64, 128)
+    assert (got != 0).mean() > 0.8
+    _compare(got, ref)
+
+
+@pytest.mark.parametrize("combine,taps", [("average", "exact"),
+                                          ("median", "lowrank")])
+def test_warp_combine_apron_free_matches_pallas(combine, taps):
+    # every frame shifted down >= 4 px, so the top tiles' taps start
+    # inside the image: the TPU kernel rotates a negative tap offset into
+    # window rows it never assembled, which its interpret mode fills
+    # with NaN (on the chip they are stale finite values under zero
+    # weight), poisoning those pixels in the reference only
+    _cal, raw, masters, mats, er, fs = _scene(5, 96, 192, seed=11,
+                                              ty_range=(4.0, 6.0))
+    ref = np.asarray(pwc.pallas_warp_combine(
+        jnp.asarray(raw), jnp.asarray(mats), masters=jnp.asarray(masters),
+        exp_ratios=jnp.asarray(er), flux_scales=jnp.asarray(fs),
+        tile=(32, 64), apron=False, combine=combine, general_taps=taps))
+    got = twc.warp_combine(
+        torch.from_numpy(raw), torch.from_numpy(mats),
+        masters=torch.from_numpy(masters), exp_ratios=torch.from_numpy(er),
+        flux_scales=torch.from_numpy(fs), tile=(32, 64), apron=False,
+        combine=combine, general_taps=taps).numpy()
+    assert (got == 0).any()          # the apron-free border ring
+    _compare(got, ref)
+
+
+def test_rejected_frame_is_excluded_everywhere():
+    cal, _raw, _m, mats, _er, _fs = _scene(5, 64, 128, seed=3)
+    keep = twc.warp_combine(torch.from_numpy(cal[:4]),
+                            torch.from_numpy(mats[:4]), tile=(32, 64),
+                            combine="mean")
+    bad = mats.copy()
+    bad[4, :, 2] = 1e9                       # REJECTED_TRANSLATION
+    cal[4] = 1e6                             # would dominate any mean
+    got = twc.warp_combine(torch.from_numpy(cal), torch.from_numpy(bad),
+                           tile=(32, 64), combine="mean")
+    # same frames contribute, though the window geometry sees 5 frames
+    assert torch.isfinite(got).all()
+    assert got.max() < 1e5
+    both = (keep != 0) & (got != 0)
+    assert both.float().mean() > 0.8
+    torch.testing.assert_close(got[both], keep[both], rtol=1e-5, atol=1e-3)
+
+
+def test_wrapper_equals_plain_on_cpu():
+    cal, _raw, _m, mats, _er, _fs = _scene(4, 64, 128, seed=5)
+    args = (torch.from_numpy(cal), torch.from_numpy(mats))
+    a = twc.warp_combine(*args, tile=(32, 64), combine="median")
+    b = twc.warp_combine_plain(*args, tile=(32, 64), combine="median")
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_rejects_bad_arguments():
+    cal, _raw, _m, mats, _er, _fs = _scene(3, 64, 128, seed=1)
+    c, m = torch.from_numpy(cal), torch.from_numpy(mats)
+    with pytest.raises(ValueError, match="apron-free"):
+        twc.warp_combine(c, m, tile=(32, 64), apron=False)
+    with pytest.raises(ValueError, match="snap_tol"):
+        twc.warp_combine(c, m, tile=(32, 64), snap_tol=0.0,
+                         general_taps="lowrank")
+    with pytest.raises(ValueError, match="combine"):
+        twc.warp_combine(c, m, tile=(32, 64), combine="max")
+    with pytest.raises(ValueError, match="exceed span"):
+        twc.warp_combine(c, m, tile=(8, 64))
