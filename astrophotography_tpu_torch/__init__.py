@@ -1,10 +1,10 @@
 """astrophotography_tpu_torch — the PyTorch + CUDA port of astrophotography_tpu.
 
 The JAX package (``astrophotography_tpu``) stays the reference; this
-package re-implements its lean stacking path
-(calibrate -> detect -> register -> warp -> sigma-clip stack) on
-PyTorch tensors, with the two TPU Pallas kernels of that path rewritten
-as hand-written CUDA C++ kernels for Hopper (``csrc/``).
+package re-implements its stacking paths, lean and unfused
+(calibrate -> detect -> register -> warp -> sigma-clip stack), on
+PyTorch tensors, with the JAX package's three TPU Pallas kernels
+rewritten as hand-written CUDA C++ kernels for Hopper (``csrc/``).
 
 Every kernel has a plain PyTorch twin beside it.  A wrapper runs the
 plain version only for tensors that live on the CPU; for CUDA tensors it

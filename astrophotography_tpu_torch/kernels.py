@@ -1,10 +1,11 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  At the first CUDA
-use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
+use each is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library under ``build/torch_kernels/`` of the checkout (named by a hash
-of the sources, so an edit rebuilds) and loaded with ``ctypes``.  Each C
-entry point launches on PyTorch's current stream and returns
+of the source, so an edit rebuilds it); the ``nvcc`` processes run
+together, and the libraries are loaded with ``ctypes``.  Each C entry
+point launches on PyTorch's current stream and returns
 ``cudaGetLastError()``; the wrapper raises if that is not 0.
 
 Each kernel has a launch counter: a plain integer in
@@ -30,17 +31,20 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
-_SOURCES = ("detect_tiles.cu", "warp_combine.cu")
+#: kernel name -> its source under csrc/ (one library each)
+_SOURCES = {"detect_tiles": "detect_tiles.cu",
+            "warp_combine": "warp_combine.cu",
+            "clip_combine": "clip_combine.cu"}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
-launch_counts = {"detect_tiles": 0, "warp_combine": 0}
+launch_counts = {name: 0 for name in _SOURCES}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-#: what the last build did: nvcc path, version line, seconds, library
+_libs: Optional[dict] = None
+#: what the last build did: nvcc path, version line, seconds, libraries
 build_info: dict = {}
 
 
@@ -61,56 +65,70 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256()
-    for name in _SOURCES:
-        h.update(name.encode())
-        h.update((_SRC / name).read_bytes())
+def _library(name: str) -> Path:
+    """The shared library of kernel ``name``, named by a hash of its
+    source and the flags."""
+    h = hashlib.sha256((_SRC / _SOURCES[name]).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels (if this source hash is not built yet) and
-    return the shared library's path."""
+def build() -> dict:
+    """Compile every kernel whose library for this source hash does not
+    exist yet, one ``nvcc`` process per source, all started together.
+    Returns {kernel name: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libastro_kernels_{_source_hash()}.so"
-    if lib.exists():
-        build_info.update(library=str(lib), built=False, seconds=0.0)
-        return lib
+    libs = {name: _library(name) for name in _SOURCES}
+    todo = [name for name, lib in libs.items() if not lib.exists()]
+    build_info.update(libraries={k: str(v) for k, v in libs.items()},
+                      built=todo, seconds=0.0)
+    if not todo:
+        return libs
     nvcc = _nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout.strip()
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_SRC / name) for name in _SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    build_info.update(library=str(lib), built=True,
-                      seconds=time.perf_counter() - t0, nvcc=nvcc,
-                      nvcc_version=version.splitlines()[-1],
-                      ptxas=proc.stderr.strip())
-    return lib
+    procs = {}
+    for name in todo:
+        tmp = libs[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC / _SOURCES[name])]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed, ptxas = [], {}
+    for name, (cmd, tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}\n{err}")
+        else:
+            os.replace(tmp, libs[name])
+            ptxas[name] = err.strip()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    build_info.update(seconds=time.perf_counter() - t0, nvcc=nvcc,
+                      nvcc_version=version.splitlines()[-1], ptxas=ptxas)
+    return libs
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load() -> dict:
+    """{kernel name: loaded library}, built and bound at the first call."""
+    global _libs
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if _libs is None:
+            libs = {name: ctypes.CDLL(str(path))
+                    for name, path in build().items()}
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.detect_tiles_launch.argtypes = [p, i, p, p, p, p, p, p, p, p,
-                                                p, i, i, i, i, p]
-            lib.detect_tiles_launch.restype = i
-            lib.warp_combine_launch.argtypes = [p, i, p, p, p, p, i, i, i, i,
-                                                i, i, i, i, i, i, f, f, p]
-            lib.warp_combine_launch.restype = i
-            _lib = lib
-        return _lib
+            fn = libs["detect_tiles"].detect_tiles_launch
+            fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            fn.restype = i
+            fn = libs["warp_combine"].warp_combine_launch
+            fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
+                           f, p]
+            fn.restype = i
+            fn = libs["clip_combine"].clip_combine_launch
+            fn.argtypes = [p, p, p, i, i, i, f, f, p]
+            fn.restype = i
+            _libs = libs
+        return _libs
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -169,7 +187,7 @@ def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
     out_idx = torch.empty(shape, dtype=torch.int32, device=dev)
     out_yoff = torch.empty(shape, dtype=torch.float32, device=dev)
     out_xoff = torch.empty(shape, dtype=torch.float32, device=dev)
-    lib = _load()
+    lib = _load()["detect_tiles"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.detect_tiles_launch(
         _ptr(frames), is_u16, _ptr(a), _ptr(mf), _ptr(thr), _ptr(er),
@@ -201,7 +219,7 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
     tiles = _check(plan.tiles, "plan.tiles", dev,
                    (n, plan.n_ti * plan.n_tj, 3), dtype=torch.int32)
     out = torch.empty((h0, w0), dtype=torch.float32, device=dev)
-    lib = _load()
+    lib = _load()["warp_combine"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.warp_combine_launch(
         _ptr(frames), is_u16, _ptr(masters), _ptr(table), _ptr(tiles),
@@ -210,4 +228,38 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
         ctypes.c_void_p(stream))
     _raise_on(err, "warp_combine")
     launch_counts["warp_combine"] += 1
+    return out
+
+
+#: K3 keeps each thread's N samples in 4 B of shared memory each, 128
+#: threads per block, within the 227 KB a block may use
+_CLIP_MAX_FRAMES = 232448 // (4 * 128)
+
+
+def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float):
+    """Launch K3 (``csrc/clip_combine.cu``); see
+    ``ops.clip_combine.clip_combine`` for the semantics."""
+    dev = stack.device
+    if stack.dim() != 3:
+        raise ValueError(f"stack must be (N, H, W), got {tuple(stack.shape)}")
+    n, h, w = stack.shape
+    if not 1 <= n <= _CLIP_MAX_FRAMES:
+        raise ValueError(f"clip_combine kernel takes 1 to {_CLIP_MAX_FRAMES} "
+                         f"frames, got {n}")
+    if stack.dtype != torch.float32:
+        raise ValueError(f"stack must be float32, got {stack.dtype}")
+    stack = _check(stack, "stack", dev)
+    if mask is not None:
+        if mask.dtype != torch.bool:
+            mask = mask > 0.5
+        mask = _check(mask, "mask", dev, (n, h, w), dtype=torch.bool) \
+            .view(torch.uint8)
+    out = torch.empty((h, w), dtype=torch.float32, device=dev)
+    lib = _load()["clip_combine"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.clip_combine_launch(
+        _ptr(stack), _ptr(mask), _ptr(out), n, h, w, sigma_lower,
+        sigma_upper, ctypes.c_void_p(stream))
+    _raise_on(err, "clip_combine")
+    launch_counts["clip_combine"] += 1
     return out

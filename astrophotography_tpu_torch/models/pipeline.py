@@ -1,13 +1,20 @@
-"""The lean stacking pipeline: calibrate -> detect -> register -> warp ->
-sigma-clip stack over a raw (N, H, W) light stack (the JAX package's
-``models/pipeline.py:calibrate_register_stack_lean``).
+"""The stacking pipelines: calibrate -> detect -> register -> warp ->
+sigma-clip stack over an (N, H, W) light stack (the JAX package's
+``models/pipeline.py``).  Work runs on the device of ``frames``.
 
-The float32 calibrated stack never exists.  Detection runs the fused
-raw->candidate kernel (``ops/detect_tiles``) with the calibration folded
-in algebraically; registration solves every frame against the reference
-from the star tables; the fused warp+combine kernel
-(``ops/warp_combine``) calibrates raw taps on the fly.  Work runs on the
-device of ``frames``.
+:func:`calibrate_register_stack` is the unfused path: it calibrates the
+whole stack to float32, detects stars on every calibrated frame
+(``ops/detect.find_stars``), registers every frame to the reference, then
+warps the stack band by band (``ops/warp``) and sigma-clip combines each
+band (``ops/stack``, or the K3 kernel ``ops/clip_combine`` with
+``combine_impl='pallas'``), or hands the calibrated stack to the fused
+warp+combine kernel (``combine_impl='fused'``).
+
+:func:`calibrate_register_stack_lean` never holds a calibrated stack:
+detection runs the fused raw->candidate kernel (``ops/detect_tiles``)
+with the calibration folded in algebraically, or calibrates chunk by
+chunk for ``find_stars``; the fused warp+combine kernel
+(``ops/warp_combine``) calibrates raw taps on the fly.
 """
 
 from __future__ import annotations
@@ -17,15 +24,18 @@ from typing import Optional
 import torch
 
 from ..device import on_device, to_float32
-from ..ops.detect import Stars, _kernel_radius
+from ..ops.calibrate import calibrate_batch
+from ..ops.clip_combine import clip_combine
+from ..ops.detect import Stars, _kernel_radius, find_stars
 from ..ops.detect_tiles import (_BIN, _TTX, _TTY, detect_tiles,
                                 master_densities)
 from ..ops.register import Similarity, estimate_similarity
+from ..ops.stack import sigma_clip_combine
+from ..ops.stats import sigma_clipped_stats
+from ..ops.warp import (warp_affine_bilinear, warp_affine_lanczos3,
+                        warp_affine_separable)
 from ..ops.warp_combine import warp_combine
 from .config import PipelineConfig
-
-#: where the unported detection paths are queued
-_ROADMAP_ITEM = "ROADMAP.md, 'Remaining port work', item 1"
 
 
 def _noise_row_stride(h: int) -> int:
@@ -39,13 +49,22 @@ def _sample_rows(x: torch.Tensor, st: int) -> torch.Tensor:
     return x[..., ::st, :]
 
 
+def frame_noise_stats(frames: torch.Tensor, center: str = "mean"):
+    """Per-frame (center, robust std) of an (N, H, W) float32 stack, on
+    every :func:`_noise_row_stride`-th row: the detection thresholds."""
+    st = _noise_row_stride(frames.shape[1])
+    sub = _sample_rows(frames, st).reshape(frames.shape[0], -1)
+    return _noise_stats_from_sub(sub, center)
+
+
 def _noise_stats_from_sub(sub: torch.Tensor, center: str):
-    """(center, std) per row of an (N, M) float32 subsample: 3 rounds of
-    mean/std clipping at 3 sigma (the 'mean' centre)."""
+    """(center, std) per row of an (N, M) float32 subsample: 'mean' = 3
+    rounds of mean/std clipping at 3 sigma (no sorts); 'median' =
+    ``sigma_clipped_stats(sigma=3, maxiters=3)``'s median and std."""
     if center == "median":
-        raise NotImplementedError(
-            "noise_center='median' needs sigma_clipped_stats, not ported "
-            f"yet: {_ROADMAP_ITEM}")
+        _mean, med, std = sigma_clipped_stats(sub, sigma=3.0, maxiters=3,
+                                              axis=1)
+        return med, std
     keep = torch.ones_like(sub, dtype=torch.bool)
     for _ in range(3):
         nk = torch.clamp(keep.sum(dim=1), min=1).to(torch.float32)
@@ -226,6 +245,178 @@ def _solve_frame_similarities(stars: Stars, n: int, config: PipelineConfig):
     return sims, sims.matrix(), idx_ref
 
 
+def _find_stars(cal: torch.Tensor, center: torch.Tensor, std: torch.Tensor,
+                config: PipelineConfig) -> Stars:
+    """Registration-grade stars of calibrated frames (x / y / flux only).
+    ``floor=center`` instead of ``cal - center``: the matched filter has
+    no DC response, so no subtracted copy is made."""
+    return find_stars(cal, fwhm=config.fwhm,
+                      threshold=config.detect_nsigma * std,
+                      max_stars=config.max_stars,
+                      topk_mode=config.detect_topk,
+                      mode="fast" if config.detect_fast else "exact",
+                      stats=False, bin_rows=config.detect_bin_rows,
+                      floor=center)
+
+
+def _concat_stars(parts) -> Stars:
+    return Stars(*(torch.cat(fields, dim=0) for fields in zip(*parts)))
+
+
+def detect_calibrated(cal: torch.Tensor, config: PipelineConfig) -> Stars:
+    """Stars tables (N, max_stars) of an (N, H, W) calibrated stack: the
+    noise stats of the whole stack, then detection of all frames at once
+    ('vmap') or ``detect_chunk`` frames at a time ('chunked')."""
+    n = cal.shape[0]
+    center, std = frame_noise_stats(cal, center=config.noise_center)
+    if config.detect_mode == "chunked" and n > config.detect_chunk:
+        c = config.detect_chunk
+        if n % c:
+            raise ValueError(f"frame count {n} not divisible by "
+                             f"detect_chunk {c}")
+        return _concat_stars([
+            _find_stars(cal[k:k + c], center[k:k + c], std[k:k + c], config)
+            for k in range(0, n, c)])
+    return _find_stars(cal, center, std, config)
+
+
+def register_frames(cal: torch.Tensor,
+                    config: PipelineConfig = PipelineConfig()):
+    """Detect stars and solve every frame->reference similarity of an
+    (N, H, W) CALIBRATED stack: the registration half of
+    :func:`calibrate_register_stack`.
+
+    Returns (stars, sims, matrices (N, 2, 3), ref_idx)."""
+    stars = detect_calibrated(cal, config)
+    sims, matrices, ref_idx = _solve_frame_similarities(stars, cal.shape[0],
+                                                        config)
+    return stars, sims, matrices, ref_idx
+
+
+def band_matrices(matrices: torch.Tensor, y0: float) -> torch.Tensor:
+    """The warp matrices of an output band starting at row ``y0``: output
+    (x, y + y0) maps to input A @ (x, y + y0) + t, so A @ (0, y0) joins
+    t, in float32 and in the reference's operation order."""
+    out = matrices.clone()
+    out[:, 0, 2] = matrices[:, 0, 2] + matrices[:, 0, 1] * y0
+    out[:, 1, 2] = matrices[:, 1, 2] + matrices[:, 1, 1] * y0
+    return out
+
+
+_WARPS = {"lanczos3": warp_affine_lanczos3, "bilinear": warp_affine_bilinear}
+
+
+def warp_band(cal: torch.Tensor, matrices: torch.Tensor, band_h: int,
+              config: PipelineConfig):
+    """(warped, weights), each (N, band_h, W): every frame warped onto
+    one output band by ``config.interp``."""
+    out_shape = (band_h, cal.shape[2])
+    if config.interp == "separable":
+        # analytic coverage: the combine masks coverage <= 0.5 anyway
+        return warp_affine_separable(cal, matrices, out_shape,
+                                     span=config.warp_span,
+                                     analytic_coverage=True)
+    if config.interp not in _WARPS:
+        raise ValueError(f"unknown interp {config.interp!r}")
+    return _WARPS[config.interp](cal, matrices, out_shape)
+
+
+def combine_band(warped: torch.Tensor, weights: torch.Tensor,
+                 config: PipelineConfig) -> torch.Tensor:
+    """Sigma-clip combine one warped band: K3 for combine_impl='pallas'
+    with 'average', else ``sigma_clip_combine``.  Pixels no frame covers
+    are 0 (swarp weight-map semantics), not NaN."""
+    mask = weights > 0.5
+    if config.combine_impl == "pallas" and config.combine == "average":
+        out = clip_combine(warped, mask=mask, sigma_lower=config.sigma_lower,
+                           sigma_upper=config.sigma_upper)
+    else:
+        out = sigma_clip_combine(warped, mask=mask,
+                                 sigma_lower=config.sigma_lower,
+                                 sigma_upper=config.sigma_upper,
+                                 method=config.combine)
+    return torch.where(torch.isnan(out), 0.0, out)
+
+
+def calibrate_register_stack(
+    frames: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    dark: Optional[torch.Tensor] = None,
+    flat: Optional[torch.Tensor] = None,
+    exp_ratios: Optional[torch.Tensor] = None,
+    badpix_mask: Optional[torch.Tensor] = None,
+    flux_scales: Optional[torch.Tensor] = None,
+    config: PipelineConfig = PipelineConfig(),
+):
+    """Calibrate, register and sigma-clip stack an (N, H, W) light
+    stack through a float32 calibrated stack.
+
+    ``frames`` is a uint16 or float32 tensor; the work runs on its
+    device, and the masters (H, W), ``exp_ratios`` (N,) and
+    ``flux_scales`` (N,) (multiplying each calibrated frame: swarp's
+    FSCALE) may be tensors on that device or numpy arrays.
+    ``badpix_mask`` raises: its repair is not ported.
+    ``config.combine_impl`` is 'xla' (``sigma_clip_combine``), 'pallas'
+    (the K3 kernel for 'average') or 'fused' (the warp+combine kernel on
+    the calibrated stack); the non-fused paths warp ``config.n_bands``
+    horizontal bands one after another.
+
+    Returns (stacked (H, W) float32, diagnostics dict of per-frame
+    scale, theta, tx, ty, n_inliers, rms, n_stars, the reference frame
+    index and the (N, 2, 3) matrices)."""
+    if not isinstance(frames, torch.Tensor):
+        raise TypeError("frames must be a torch.Tensor; its device is "
+                        "where the pipeline runs")
+    dev = frames.device
+    bias, dark, flat = (on_device(m, dev, torch.float32)
+                        for m in (bias, dark, flat))
+    exp_ratios = on_device(exp_ratios, dev, torch.float32)
+    flux_scales = on_device(flux_scales, dev, torch.float32)
+    n, h, w = frames.shape
+    cal = calibrate_batch(frames, bias, dark, flat, exp_ratios,
+                          dark_still_biased=config.dark_still_biased,
+                          badpix_mask=badpix_mask)
+    if flux_scales is not None:
+        cal = cal * flux_scales[:, None, None]
+
+    stars, sims, matrices, ref_idx = register_frames(cal, config)
+    diagnostics = {
+        "scale": sims.scale, "theta": sims.theta,
+        "tx": sims.tx, "ty": sims.ty,
+        "n_inliers": sims.n_inliers, "rms": sims.rms,
+        "n_stars": stars.valid.sum(dim=1),
+        "ref_frame": ref_idx,
+        "matrices": matrices,
+    }
+
+    if config.combine_impl == "fused":
+        if config.n_bands > 1:
+            raise ValueError("combine_impl='fused' subsumes banding; "
+                             "use n_bands=1")
+        # apron-free needs >= 3 tile blocks per axis; small frames have
+        # no memory pressure, so they keep the apron
+        apron = config.fused_apron or h < 96 or w < 768
+        stacked = warp_combine(
+            cal, matrices, span=config.warp_span, tile=config.fused_tile,
+            sigma_lower=config.sigma_lower, sigma_upper=config.sigma_upper,
+            apron=apron, combine=config.combine,
+            dither_budget=config.dither_budget,
+            general_taps=config.general_taps)
+        return stacked, diagnostics
+
+    n_bands = max(config.n_bands, 1)
+    if h % n_bands:
+        raise ValueError(f"height {h} not divisible by n_bands {n_bands}")
+    band_h = h // n_bands
+    bands = []
+    for b in range(n_bands):
+        warped, weights = warp_band(
+            cal, band_matrices(matrices, float(b * band_h)), band_h, config)
+        bands.append(combine_band(warped, weights, config))
+        del warped, weights
+    return torch.cat(bands, dim=0), diagnostics
+
+
 def calibrate_register_stack_lean(
     frames: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
@@ -270,12 +461,21 @@ def calibrate_register_stack_lean(
     use_fused = (config.detect_impl == "fused"
                  or (config.detect_impl == "auto" and ok
                      and (h // 64) * (w // 256) >= config.max_stars))
-    if not use_fused:
-        raise NotImplementedError(
-            "only the fused detector is ported; detect_impl='chunked' (or "
-            "'auto' on a geometry the fused detector cannot take) is "
-            f"queued: {_ROADMAP_ITEM}")
-    stars = _detect_stars_fused(frames, bias, dark, flat, exp_ratios, config)
+    if use_fused:
+        stars = _detect_stars_fused(frames, bias, dark, flat, exp_ratios,
+                                    config)
+    else:
+        # calibrate, measure and detect chunk by chunk: at most c
+        # calibrated frames exist at a time
+        parts = []
+        for k in range(0, n, c):
+            calc = calibrate_batch(frames[k:k + c], bias, dark, flat,
+                                   exp_ratios[k:k + c],
+                                   dark_still_biased=config.dark_still_biased)
+            ce, s = frame_noise_stats(calc, center=config.noise_center)
+            parts.append(_find_stars(calc, ce, s, config))
+            del calc
+        stars = _concat_stars(parts)
     sims, matrices, ref_idx = _solve_frame_similarities(stars, n, config)
 
     a_pl, b_pl, c_pl, _bias_t, _dark_use, _has = _calibration_planes(

@@ -1,2 +1,3 @@
-"""Device operations of the lean path: detection, registration and the
-fused warp+combine, each kernel beside its plain PyTorch twin."""
+"""Device operations of the stacking paths: statistics, calibration,
+detection, registration, warps and the sigma-clip combines, each kernel
+beside its plain PyTorch twin."""

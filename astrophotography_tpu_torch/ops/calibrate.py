@@ -1,0 +1,83 @@
+"""Bias / dark / flat calibration of light frames (the JAX package's
+``ops/calibrate.py``).
+
+The arithmetic of the reference ApCalibrate.calibrate:
+``img - bias``; ``dark - bias`` when the master dark still holds the bias
+(``dark_still_biased``); the dark scaled by the light/dark exposure
+ratio; then a division by the flat wherever the flat is non-zero.
+
+This is not the lean path's ``raw * A - B - r * C`` with A = 1/flat: the
+division rounds differently from a multiply by the reciprocal, so the two
+stay separate.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..device import to_float32
+
+#: where the bad-pixel repair (ops/badpix) is queued
+_BADPIX_ITEM = "ROADMAP.md, 'Remaining port work', item 2 (ops/badpix)"
+
+
+def _no_badpix(badpix_mask) -> None:
+    if badpix_mask is not None:
+        raise NotImplementedError(
+            "badpix_mask needs the bad-pixel repair of ops/badpix, not "
+            f"ported yet: {_BADPIX_ITEM}")
+
+
+def calibrate_frame(
+    img: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    dark: Optional[torch.Tensor] = None,
+    flat: Optional[torch.Tensor] = None,
+    exp_ratio: float = 1.0,
+    dark_still_biased: bool = True,
+    badpix_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Calibrate one frame (or a batch the masters broadcast against) to
+    float32.  ``badpix_mask`` raises: its repair is not ported."""
+    _no_badpix(badpix_mask)
+    out = to_float32(img)
+    if bias is not None:
+        out = out - bias
+    if dark is not None:
+        dark_use = dark - bias if (dark_still_biased
+                                   and bias is not None) else dark
+        out = out - torch.as_tensor(exp_ratio, dtype=torch.float32,
+                                    device=out.device) * dark_use
+    if flat is not None:
+        out = torch.where(flat != 0, out / flat, out)
+    return out
+
+
+def calibrate_batch(
+    imgs: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    dark: Optional[torch.Tensor] = None,
+    flat: Optional[torch.Tensor] = None,
+    exp_ratios: Optional[torch.Tensor] = None,
+    dark_still_biased: bool = True,
+    badpix_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Calibrate an (N, H, W) stack against shared (H, W) masters;
+    ``exp_ratios`` (N,) scales the dark per frame (default 1).
+    ``badpix_mask`` raises: its repair is not ported."""
+    _no_badpix(badpix_mask)
+    out = to_float32(imgs)
+    if bias is not None:
+        out = out - bias[None]
+    if dark is not None:
+        dark_use = dark - bias if (dark_still_biased
+                                   and bias is not None) else dark
+        ratios = (torch.ones(imgs.shape[0], dtype=torch.float32,
+                             device=out.device)
+                  if exp_ratios is None else exp_ratios.to(torch.float32))
+        out = out - ratios[:, None, None] * dark_use[None]
+    if flat is not None:
+        out = torch.where(flat[None] != 0, out / flat[None], out)
+    return out

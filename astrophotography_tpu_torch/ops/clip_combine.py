@@ -1,0 +1,104 @@
+"""Single-pass masked sigma-clipped mean over the frame axis (the JAX
+package's ``ops/pallas_combine.py``, kernel K3).
+
+Per pixel of an (N, H, W) stack with a validity mask: the median of the
+valid samples, the MAD of their deviations times 1.4826, a clip at
+med -/+ sigma * std, then the mean of the kept samples; NaN where nothing
+is kept.  :func:`clip_combine` runs the hand-written CUDA kernel
+(``csrc/clip_combine.cu``) on CUDA tensors and :func:`clip_combine_plain`
+on CPU tensors.
+
+The rounding order is K3's own, not the fused warp+combine's: the median
+is 0.5 * (lo + hi), the std is 1.4826 * MAD, and the kept samples are
+summed in frame order.  The reference writes that sum as ``acc + f * kf``
+with ``kf`` the 0/1 keep flag; XLA rewrites a product with a converted
+predicate into a select, so a sample that is not kept adds exactly 0 even
+when it is inf or NaN.  The port sums ``acc + where(keep, f, 0)``, which
+is that compiled behaviour.  Valid NaN samples are outside the contract:
+the reference's min/max sorting network and a comparison sort place them
+differently.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .stats import _MAD_TO_STD
+
+#: sentinel of an invalid sample in the sorts
+_BIG = 3.4e38
+
+
+def _valid(stack: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The validity mask as bool: a bool mask as it is, a numeric one
+    where it is > 0.5, everything without a mask."""
+    if mask is None:
+        return torch.ones_like(stack, dtype=torch.bool)
+    return mask if mask.dtype == torch.bool else mask > 0.5
+
+
+def _validate(stack: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
+    if stack.dim() != 3 or stack.shape[0] < 1:
+        raise ValueError(f"stack must be (N, H, W) with N >= 1, got "
+                         f"{tuple(stack.shape)}")
+    if mask is not None and tuple(mask.shape) != tuple(stack.shape):
+        raise ValueError(f"mask must have the stack's shape "
+                         f"{tuple(stack.shape)}, got {tuple(mask.shape)}")
+
+
+def clip_combine_plain(stack: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       sigma_lower: float = 5.0,
+                       sigma_upper: float = 5.0) -> torch.Tensor:
+    """Plain PyTorch twin of the K3 kernel, on any device, in the
+    reference kernel's operation order.  Same arguments and result as
+    :func:`clip_combine`."""
+    _validate(stack, mask)
+    stack = stack.to(torch.float32)
+    n = stack.shape[0]
+    valid = _valid(stack, mask)
+    count = valid.sum(dim=0)
+    lo_i = torch.clamp(torch.div(count - 1, 2, rounding_mode="floor"),
+                       min=0)[None]
+    hi_i = torch.clamp(torch.div(count, 2, rounding_mode="floor"),
+                       min=0)[None]
+    srt = torch.sort(torch.where(valid, stack, _BIG), dim=0).values
+    med = (0.5 * (srt.gather(0, lo_i) + srt.gather(0, hi_i)))[0]
+    del srt
+    devs = torch.where(valid, (stack - med).abs(), _BIG)
+    dsrt = torch.sort(devs, dim=0).values
+    del devs
+    mad = (0.5 * (dsrt.gather(0, lo_i) + dsrt.gather(0, hi_i)))[0]
+    del dsrt
+    std = _MAD_TO_STD * mad
+    lo = med - sigma_lower * std
+    hi = med + sigma_upper * std
+    acc = torch.zeros_like(med)
+    cnt = torch.zeros_like(med)
+    for f in range(n):
+        keep = valid[f] & (stack[f] >= lo) & (stack[f] <= hi)
+        acc = acc + torch.where(keep, stack[f], 0.0)
+        cnt = cnt + keep.to(torch.float32)
+    return torch.where(cnt > 0, acc / torch.clamp(cnt, min=1.0), torch.nan)
+
+
+def clip_combine(stack: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                 sigma_lower: float = 5.0,
+                 sigma_upper: float = 5.0) -> torch.Tensor:
+    """Sigma-clipped average of an (N, H, W) float32 stack over axis 0.
+
+    ``mask`` (N, H, W) marks valid samples: bool, or numeric with > 0.5
+    valid; None = all valid.  Returns (H, W) float32, NaN where no
+    sample is kept.  CUDA tensors run the hand-written kernel; CPU
+    tensors run :func:`clip_combine_plain`."""
+    _validate(stack, mask)
+    if stack.device.type == "cpu":
+        return clip_combine_plain(stack, mask, sigma_lower, sigma_upper)
+    if stack.device.type != "cuda":
+        raise ValueError(f"no clip_combine kernel for device {stack.device}")
+    from .. import kernels
+
+    return kernels.clip_combine_cuda(stack, mask, float(sigma_lower),
+                                     float(sigma_upper))

@@ -3,12 +3,18 @@
 
 Builds the hand-written CUDA kernels from ``astrophotography_tpu_torch/
 csrc``, holds each against its plain PyTorch twin on the card (at the
-main path's own shapes and on a smaller matrix of cases), then drives
-the port's lean stacking path (``calibrate_register_stack_lean``) at
-full size — 100 raw uint16 frames of 4096^2 with bias, dark and flat
-masters, once with sub-pixel dithers (translation-snap path) and once
-with 0.1-0.25 deg field rotations (lowrank taps) — and checks the
-registrations and the stack.
+main paths' own shapes and on a smaller matrix of cases), then drives
+the port's stacking paths at full size and checks the registrations and
+the stacks:
+
+* the lean path (``calibrate_register_stack_lean``, kernels K1 and K2)
+  on 100 raw uint16 frames of 4096^2 with bias, dark and flat masters,
+  once with sub-pixel dithers (translation-snap path) and once with
+  0.1-0.25 deg field rotations (lowrank taps);
+* the unfused path (``calibrate_register_stack``, kernel K3) on the
+  first 24 of those dithered frames, with bench.py's own config for that
+  size (two output bands, the K3 combine);
+* the lean path's chunked detection at 16x1024^2.
 
 Run from the repository root with ``python3 chip_smoke.py``.  Every
 phase raises on failure.  Each phase prints one JSON line; the line
@@ -19,6 +25,7 @@ the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -28,7 +35,13 @@ import numpy as np
 import torch
 
 N_FRAMES, SIZE = 100, 4096
+UNFUSED_FRAMES = 24
 SKY = 800.0
+#: translation error bound against the true dithers where stars come from
+#: find_stars (the unfused path, the lean path's chunked detection): its
+#: 5x5 centre-of-mass centroids carry a sub-pixel-phase bias (the JAX
+#: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
+UNFUSED_T_ERR_PX = 0.5
 
 
 def _print(obj) -> None:
@@ -117,6 +130,17 @@ def lean_config(rotate: bool):
     if rotate:
         return PipelineConfig(dither_budget=32, **common)
     return PipelineConfig(warp_span=8, dither_budget=8, **common)
+
+
+def unfused_config():
+    """bench.py's unfused rung at 24x4096^2 (bench.py:260-270): exact
+    f32 detection, global top-k, two bands by bench.py's memory rule,
+    the K3 combine."""
+    from astrophotography_tpu_torch.models import PipelineConfig
+
+    return PipelineConfig(max_stars=48, match_k=10, interp="separable",
+                          n_bands=2, detect_mode="vmap",
+                          combine_impl="pallas")
 
 
 def _timed(fn):
@@ -213,6 +237,45 @@ def check_warp(frames, mats, masters, er, label, card, reps=2, **kw):
     return res
 
 
+def check_clip(stack, mask, label, card, reps=5):
+    """K3 against clip_combine_plain: bit-identical, NaN where nothing is
+    kept included (the kernel rounds every value operation as its twin
+    does, so any difference is a bug)."""
+    from astrophotography_tpu_torch.ops import clip_combine as cc
+
+    k = cc.clip_combine(stack, mask)
+    torch.cuda.synchronize()
+    p, plain_ms = _timed(lambda: cc.clip_combine_plain(stack, mask))
+    nan_k, nan_p = torch.isnan(k), torch.isnan(p)
+    _require(bool(torch.equal(nan_k, nan_p)), f"{label}: K3 NaN pixels differ")
+    err = float((k - p).abs()[~nan_p].max()) if bool((~nan_p).any()) else 0.0
+    _require(err == 0.0, f"{label}: K3 differs from its twin by {err}")
+    del k, p
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: cc.clip_combine(stack, mask), reps)
+    res = {"phase": "K3 vs clip_combine_plain", "case": label,
+           "shape": list(stack.shape), "masked": mask is not None,
+           "max_abs_err": err, "nan_pixels": int(nan_p.sum()),
+           "ms": ms, "plain_ms": plain_ms, "card": card}
+    _print(res)
+    return res
+
+
+def _clip_inputs(n, h, w, dev, seed, masked=True):
+    """A K3 test stack on ``dev``: sky 800 with 8 ADU noise, 2% outliers
+    at 40000, ~20% of the samples masked and every 97th row of pixels
+    fully masked."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    stack = SKY + 8.0 * torch.randn((n, h, w), generator=g, device=dev)
+    out = torch.rand((n, h, w), generator=g, device=dev) < 0.02
+    stack = torch.where(out, 40000.0, stack)
+    if not masked:
+        return stack, None
+    mask = torch.rand((n, h, w), generator=g, device=dev) > 0.2
+    mask[:, ::97, :] = False
+    return stack, mask
+
+
 def _masters(bias, dark, flat, dev):
     """(A, B, C) = (1/flat, bias/flat, (dark - bias)/flat) on ``dev``."""
     b, d, f = (torch.from_numpy(x).to(dev) for x in (bias, dark, flat))
@@ -228,6 +291,41 @@ def _workload_on_device(rotate, dev):
     fr = torch.from_numpy(frames).to(dev)
     del frames
     return fr, bias, dark, flat, exp_ratio, max_off, mats, gen_s
+
+
+def _check_launches(label, launches, required) -> None:
+    """Every kernel in ``required`` ({name: exact count or None for any
+    positive count}) was launched; no other kernel was."""
+    for name, count in launches.items():
+        want = required.get(name, 0)
+        if want is None:
+            _require(count > 0, f"{label}: kernel {name} not launched")
+        else:
+            _require(count == want, f"{label}: kernel {name} launched "
+                                    f"{count} times, expected {want}")
+
+
+def _check_registration(label, diag, mats, t_err_max=None):
+    """n_inliers >= 5 and rms < 0.5 px on every frame; returns the
+    largest translation error against the true matrices."""
+    n_in = diag["n_inliers"].cpu().numpy()
+    rms = diag["rms"].cpu().numpy()
+    _require(bool((n_in >= 5).all()), f"{label}: n_inliers {n_in.min()}")
+    _require(bool((rms < 0.5).all()), f"{label}: rms {rms.max()}")
+    n = len(n_in)
+    t_err = max(np.max(np.abs(diag["tx"].cpu().numpy() - mats[:n, 0, 2])),
+                np.max(np.abs(diag["ty"].cpu().numpy() - mats[:n, 1, 2])))
+    if t_err_max is not None:
+        _require(t_err < t_err_max, f"{label}: translation error {t_err}")
+    return int(n_in.min()), float(rms.max()), float(t_err)
+
+
+def _check_stack(label, stacked, size):
+    _require(bool(torch.isfinite(stacked).all()), f"{label}: stack not finite")
+    m = size // 8
+    med = float(stacked[m:-m, m:-m].median())
+    _require(abs(med - SKY) < 0.05 * SKY, f"{label}: interior median {med}")
+    return med
 
 
 def run_main_path(rotate: bool, card: str, dev) -> dict:
@@ -275,8 +373,8 @@ def run_main_path(rotate: bool, card: str, dev) -> dict:
     single_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    for name, count in launches.items():
-        _require(count > 0, f"{label}: kernel {name} not launched")
+    _check_launches(label, launches, {"detect_tiles": None,
+                                      "warp_combine": None})
     _require("jax" not in sys.modules, "jax was imported")
     k = 3
     t0 = time.perf_counter()
@@ -285,24 +383,16 @@ def run_main_path(rotate: bool, card: str, dev) -> dict:
     torch.cuda.synchronize()
     sustained_s = (time.perf_counter() - t0) / k
 
-    n_in = diag["n_inliers"].cpu().numpy()
-    rms = diag["rms"].cpu().numpy()
-    _require(bool((n_in >= 5).all()), f"{label}: n_inliers {n_in.min()}")
-    _require(bool((rms < 0.5).all()), f"{label}: rms {rms.max()}")
-    _require(bool(torch.isfinite(stacked).all()), f"{label}: stack not finite")
-    m = SIZE // 8
-    med = float(stacked[m:-m, m:-m].median())
-    _require(abs(med - SKY) < 0.05 * SKY, f"{label}: interior median {med}")
     # registration against the known dithers (reference = frame 0)
-    t_err = max(np.max(np.abs(diag["tx"].cpu().numpy() - mats[:, 0, 2])),
-                np.max(np.abs(diag["ty"].cpu().numpy() - mats[:, 1, 2])))
+    min_in, max_rms, t_err = _check_registration(label, diag, mats)
+    med = _check_stack(label, stacked, SIZE)
     res = {"phase": f"main path {label}", "shape": [n, SIZE, SIZE],
            "single_run_ms": single_ms,
            "sustained_gpix_s": n * SIZE * SIZE / sustained_s / 1e9,
            "sustained_ms": sustained_s * 1e3,
            "max_memory_allocated_bytes": peak, "launches": launches,
-           "min_inliers": int(n_in.min()), "max_rms_px": float(rms.max()),
-           "max_translation_err_px": float(t_err),
+           "min_inliers": min_in, "max_rms_px": max_rms,
+           "max_translation_err_px": t_err,
            "interior_median": med, "sky": SKY,
            "max_offset_px": max_off, "workload_gen_s": gen_s, "card": card}
     _print(res)
@@ -311,10 +401,170 @@ def run_main_path(rotate: bool, card: str, dev) -> dict:
     return {"main": res, **checks}
 
 
+def _unfused_split(fr, kw, cfg) -> dict:
+    """Device time (ms, CUDA events) of each stage of one unfused run,
+    stage by stage as ``calibrate_register_stack`` runs them."""
+    from astrophotography_tpu_torch.models import pipeline as pl
+    from astrophotography_tpu_torch.ops.calibrate import calibrate_batch
+    from astrophotography_tpu_torch.ops.clip_combine import clip_combine
+
+    names, events = [], []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        names.append(name)
+        events.append(ev)
+
+    n, h, _w = fr.shape
+    torch.cuda.synchronize()
+    mark("start")
+    cal = calibrate_batch(fr, kw["bias"], kw["dark"], kw["flat"],
+                          kw["exp_ratios"],
+                          dark_still_biased=cfg.dark_still_biased)
+    mark("calibrate")
+    stars = pl.detect_calibrated(cal, cfg)
+    mark("detect")
+    _sims, mats, _ref = pl._solve_frame_similarities(stars, n, cfg)
+    mark("register")
+    band_h = h // cfg.n_bands
+    for b in range(cfg.n_bands):
+        warped, weights = pl.warp_band(
+            cal, pl.band_matrices(mats, float(b * band_h)), band_h, cfg)
+        mark("warp")
+        mask = weights > 0.5
+        mark("glue")
+        out = clip_combine(warped, mask=mask, sigma_lower=cfg.sigma_lower,
+                           sigma_upper=cfg.sigma_upper)
+        mark("K3")
+        torch.where(torch.isnan(out), 0.0, out)
+        mark("glue")
+        del warped, weights, mask
+    torch.cuda.synchronize()
+    split = {}
+    for name, a, b in zip(names[1:], events, events[1:]):
+        split[name] = split.get(name, 0.0) + a.elapsed_time(b)
+    split["total"] = events[0].elapsed_time(events[-1])
+    return split
+
+
+def run_unfused_path(card: str, dev) -> dict:
+    """K3 against its twin at the unfused path's band shape, then the
+    unfused path (``calibrate_register_stack``) at 24x4096^2."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.models import calibrate_register_stack
+
+    label = "unfused path snap"
+    cfg = unfused_config()
+    n = UNFUSED_FRAMES
+    band = (n, SIZE // cfg.n_bands, SIZE)
+    stack, mask = _clip_inputs(*band, dev, seed=1)
+    k3 = check_clip(stack, mask, f"{label} band {band}", card)
+    del stack, mask
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    frames, bias, dark, flat, exp_ratio, max_off, mats = make_workload(
+        n, SIZE, rotate=False)
+    gen_s = time.perf_counter() - t0
+    fr = torch.from_numpy(frames).to(dev)
+    del frames
+    kw = dict(bias=torch.from_numpy(bias).to(dev),
+              dark=torch.from_numpy(dark).to(dev),
+              flat=torch.from_numpy(flat).to(dev),
+              exp_ratios=torch.full((n,), exp_ratio, dtype=torch.float32,
+                                    device=dev))
+
+    def run():
+        return calibrate_register_stack(fr, config=cfg, **kw)
+
+    run()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stacked, diag = run()
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(label, launches, {"clip_combine": cfg.n_bands})
+    _require("jax" not in sys.modules, "jax was imported")
+    k = 3
+    t0 = time.perf_counter()
+    for _ in range(k):
+        out, _d = run()
+    torch.cuda.synchronize()
+    sustained_s = (time.perf_counter() - t0) / k
+    min_in, max_rms, t_err = _check_registration(label, diag, mats,
+                                                 UNFUSED_T_ERR_PX)
+    med = _check_stack(label, stacked, SIZE)
+    del out, stacked
+    split = _unfused_split(fr, kw, cfg)
+    res = {"phase": label, "shape": [n, SIZE, SIZE],
+           "config": {"max_stars": cfg.max_stars, "match_k": cfg.match_k,
+                      "interp": cfg.interp, "n_bands": cfg.n_bands,
+                      "detect_mode": cfg.detect_mode,
+                      "combine_impl": cfg.combine_impl},
+           "single_run_ms": single_ms,
+           "sustained_gpix_s": n * SIZE * SIZE / sustained_s / 1e9,
+           "sustained_ms": sustained_s * 1e3,
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "device_ms_split": split,
+           "min_inliers": min_in, "max_rms_px": max_rms,
+           "max_translation_err_px": t_err, "interior_median": med,
+           "sky": SKY, "max_offset_px": max_off, "workload_gen_s": gen_s,
+           "card": card}
+    _print(res)
+    del fr, kw
+    torch.cuda.empty_cache()
+    return {"main": res, "clip_combine": k3}
+
+
+def run_lean_chunked(card: str, dev) -> dict:
+    """The lean path with detect_impl='chunked' (calibrate + noise stats
+    + find_stars chunk by chunk, then K2) at 16x1024^2."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.models import (
+        calibrate_register_stack_lean)
+
+    label = "lean path chunked detection"
+    n, size = 16, 1024
+    cfg = dataclasses.replace(lean_config(False), detect_impl="chunked")
+    frames, bias, dark, flat, exp_ratio, _off, mats = make_workload(n, size)
+    fr = torch.from_numpy(frames).to(dev)
+    kw = dict(bias=torch.from_numpy(bias).to(dev),
+              dark=torch.from_numpy(dark).to(dev),
+              flat=torch.from_numpy(flat).to(dev),
+              exp_ratios=torch.full((n,), exp_ratio, dtype=torch.float32,
+                                    device=dev))
+    calibrate_register_stack_lean(fr, config=cfg, **kw)      # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stacked, diag = calibrate_register_stack_lean(fr, config=cfg, **kw)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launch_counts)
+    _check_launches(label, launches, {"warp_combine": 1})
+    # find_stars' 5x5 centre-of-mass centroids, as on the unfused path
+    min_in, max_rms, t_err = _check_registration(label, diag, mats,
+                                                 UNFUSED_T_ERR_PX)
+    med = _check_stack(label, stacked, size)
+    res = {"phase": label, "shape": [n, size, size],
+           "single_run_ms": single_ms, "launches": launches,
+           "min_inliers": min_in, "max_rms_px": max_rms,
+           "max_translation_err_px": t_err, "interior_median": med,
+           "card": card}
+    _print(res)
+    return res
+
+
 def run_small_matrix(card: str, dev) -> None:
     """The smaller matrix of kernel cases: K1 at 8x1024^2 with masters;
     K2 at 16x1024^2 with masters for every combine, on snapped
-    translations and on rotations under 'exact' and 'lowrank'."""
+    translations and on rotations under 'exact' and 'lowrank'; K3 at
+    N x 1024^2 for N in 1, 2, 7, 24, 100, with and without a mask."""
     from astrophotography_tpu_torch.ops import detect_tiles as dt
 
     frames, bias, dark, flat, exp_ratio, _off, mats = make_workload(
@@ -336,6 +586,13 @@ def run_small_matrix(card: str, dev) -> None:
                        .to(dev), masters, er,
                        f"16x1024^2 rotated {taps} {combine}", card,
                        combine=combine, general_taps=taps, dither_budget=32)
+    del fr, rfr, masters, mf
+    torch.cuda.empty_cache()
+    for n in (1, 2, 7, 24, 100):
+        for masked in (False, True):
+            stack, mask = _clip_inputs(n, 1024, 1024, dev, seed=n,
+                                       masked=masked)
+            check_clip(stack, mask, f"{n}x1024^2", card, reps=3)
 
 
 def main() -> int:
@@ -345,16 +602,19 @@ def main() -> int:
     dev = resolve_device("cuda")        # raises without a usable card
     card = card_line()
     t0 = time.perf_counter()
-    lib = kernels.build()
+    libs = kernels.build()
     build_s = time.perf_counter() - t0
     kernels._load()
-    _print({"phase": "build", "library": str(lib), "seconds": build_s,
+    _print({"phase": "build", "libraries": {k: str(v) for k, v in libs.items()},
+            "seconds": build_s,
             "nvcc": kernels.build_info.get("nvcc_version"),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "card": card})
 
     snap = run_main_path(False, card, dev)
     rot = run_main_path(True, card, dev)
+    unfused = run_unfused_path(card, dev)
+    run_lean_chunked(card, dev)
     run_small_matrix(card, dev)
 
     launches = snap["main"]["launches"]
@@ -374,6 +634,13 @@ def main() -> int:
                             rot["warp_combine"]["max_abs_err"]),
          "ms": snap["warp_combine"]["ms"],
          "plain_ms": snap["warp_combine"]["plain_ms"]},
+        {"name": "clip_combine", "route": "cuda",
+         "source": "astrophotography_tpu_torch/csrc/clip_combine.cu",
+         "replaces": "astrophotography_tpu/ops/pallas_combine.py:102",
+         "launches": unfused["main"]["launches"]["clip_combine"],
+         "max_abs_err": unfused["clip_combine"]["max_abs_err"],
+         "ms": unfused["clip_combine"]["ms"],
+         "plain_ms": unfused["clip_combine"]["plain_ms"]},
     ]}
     _print(kernels_line)
     print(card, flush=True)

@@ -14,6 +14,10 @@ from astrophotography_tpu.ops import pallas_detect as jpd
 from astrophotography_tpu_torch.ops import detect as tdetect
 from astrophotography_tpu_torch.ops import detect_tiles as tdt
 
+# one intra-op thread: the suite runs in parallel worker processes, whose
+# OpenMP threads would oversubscribe the cores (~6x slower under -n 6)
+torch.set_num_threads(1)
+
 N, H, W = 2, 256, 512
 THRESH = 60.0
 

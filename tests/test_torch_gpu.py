@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from astrophotography_tpu_torch import kernels
+from astrophotography_tpu_torch.ops import clip_combine as cc
 from astrophotography_tpu_torch.ops import detect_tiles as dt
 from astrophotography_tpu_torch.ops import warp_combine as wc
 
@@ -94,9 +95,49 @@ def test_warp_combine_kernel_equals_plain(cuda, combine, taps):
     assert (got != 0).float().mean() > 0.8
 
 
+def _clip_stack(n, h, w, seed):
+    """Normal samples with outliers, ~20% masked samples and a fully
+    masked pixel column."""
+    rng = np.random.default_rng(seed)
+    stack = rng.normal(800.0, 8.0, (n, h, w)).astype(np.float32)
+    stack[rng.uniform(size=stack.shape) < 0.02] = 40000.0
+    mask = rng.uniform(size=stack.shape) > 0.2
+    mask[:, 3, 5] = False
+    return stack, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 24, 100])
+def test_clip_combine_kernel_equals_plain(cuda, n, masked):
+    """K3 rounds every value operation as its twin does, so the two agree
+    bit for bit, NaN where nothing is kept included."""
+    stack, mask = _clip_stack(n, 96, 300, n)
+    st = torch.from_numpy(stack).to(cuda)
+    mk = torch.from_numpy(mask).to(cuda) if masked else None
+    before = kernels.launch_counts["clip_combine"]
+    got = cc.clip_combine(st, mk, sigma_lower=3.0, sigma_upper=4.0)
+    assert kernels.launch_counts["clip_combine"] == before + 1
+    want = cc.clip_combine_plain(st, mk, sigma_lower=3.0, sigma_upper=4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+    assert bool(torch.isnan(got[3, 5])) == masked
+    if masked:
+        # a float mask (> 0.5 valid) is the same as the bool one
+        fm = mk.to(torch.float32) * 0.75
+        assert torch.equal(torch.nan_to_num(cc.clip_combine(st, fm, 3.0, 4.0)),
+                           torch.nan_to_num(got))
+
+
 def test_kernel_wrapper_rejects_bad_input(cuda):
     fr = torch.zeros((2, 128, 256), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="uint16 or float32"):
         dt.detect_tiles(fr, torch.ones(2, device=cuda))
     with pytest.raises(ValueError, match="thresholds"):
         dt.detect_tiles(fr.to(torch.float32), torch.ones(3, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        cc.clip_combine(fr, None)
+    with pytest.raises(ValueError, match="frames"):
+        cc.clip_combine(torch.zeros((kernels._CLIP_MAX_FRAMES + 1, 2, 2),
+                                    device=cuda))

@@ -24,6 +24,10 @@ from astrophotography_tpu_torch.models import (PipelineConfig,
                                                from_jax_config)
 from tests.test_register_stack import _make_dithered_stack
 
+# one intra-op thread: the suite runs in parallel worker processes, whose
+# OpenMP threads would oversubscribe the cores (~6x slower under -n 6)
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, N = 256, 768, 4
 BASE = dict(max_stars=24, match_k=10, detect_fast=True, detect_bin_rows=True,
@@ -166,15 +170,17 @@ def test_resolve_device_never_falls_back():
 
 
 def test_unported_paths_raise():
+    """What is still queued raises and names ROADMAP.md: the bad-pixel
+    repair of the unfused path.  A fused detector the geometry or the
+    config cannot take is a ValueError."""
+    from astrophotography_tpu_torch.models import calibrate_register_stack
+
     raw, kw = _inputs("bias")
     frames = torch.from_numpy(raw)
     bias = torch.from_numpy(kw["bias"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calibrate_register_stack_lean(frames, bias=bias, config=PipelineConfig(
-            **{**BASE, "detect_impl": "chunked"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calibrate_register_stack_lean(frames, bias=bias, config=PipelineConfig(
-            **{**BASE, "noise_center": "median"}))
+        calibrate_register_stack(frames, bias=bias,
+                                 badpix_mask=torch.zeros((H, W), dtype=bool))
     with pytest.raises(ValueError, match="detect_impl='fused'"):
         calibrate_register_stack_lean(frames, bias=bias, config=PipelineConfig(
             **{**BASE, "detect_fast": False}))
@@ -205,7 +211,8 @@ def test_port_never_imports_jax():
         import numpy as np
         import torch
         from astrophotography_tpu_torch.models import (
-            PipelineConfig, calibrate_register_stack_lean)
+            PipelineConfig, calibrate_register_stack,
+            calibrate_register_stack_lean)
         rng = np.random.default_rng(0)
         h, w = 128, 512
         yy, xx = np.mgrid[0:h, 0:w]
@@ -220,6 +227,10 @@ def test_port_never_imports_jax():
                              detect_impl="fused", centroid="kernel",
                              fused_tile=(32, 256), warp_span=8)
         out, diag = calibrate_register_stack_lean(raw, config=cfg)
+        assert out.shape == (h, w) and bool(torch.isfinite(out).all())
+        out, diag = calibrate_register_stack(raw, config=PipelineConfig(
+            max_stars=4, match_k=4, n_bands=2, combine_impl="pallas",
+            noise_center="median"))
         assert out.shape == (h, w) and bool(torch.isfinite(out).all())
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

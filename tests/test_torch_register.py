@@ -12,6 +12,10 @@ from astrophotography_tpu.ops import register as jreg
 from astrophotography_tpu_torch.models.config import similarity_to_numpy
 from astrophotography_tpu_torch.ops import register as treg
 
+# one intra-op thread: the suite runs in parallel worker processes, whose
+# OpenMP threads would oversubscribe the cores (~6x slower under -n 6)
+torch.set_num_threads(1)
+
 CAP = 48
 
 

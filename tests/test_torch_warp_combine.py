@@ -13,6 +13,10 @@ from astrophotography_tpu import synth
 from astrophotography_tpu.ops import pallas_warp_combine as pwc
 from astrophotography_tpu_torch.ops import warp_combine as twc
 
+# one intra-op thread: the suite runs in parallel worker processes, whose
+# OpenMP threads would oversubscribe the cores (~6x slower under -n 6)
+torch.set_num_threads(1)
+
 
 def _scene(n, h, w, seed, ty_range=(-5.0, 5.0)):
     """Calibrated frames of one scene plus masters and the raw uint16
