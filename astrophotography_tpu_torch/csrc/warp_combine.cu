@@ -3,45 +3,74 @@
 //
 // Replaces the TPU kernel astrophotography_tpu/ops/pallas_warp_combine.py
 // (pallas_warp_combine, body _make_kernel).  Per output pixel and frame:
-// calibrate the raw taps on the fly, cal = ((raw*A - B) - r*C) * fscale
-// (raw * fscale without masters), resample with the separable two-pass
-// Lanczos3 (weights from the degree-10 polynomial in t^2) using one of
-// three tap bodies — snapped translation (scalar weights, taps [1, 7)),
-// 'exact' (per-pixel weights normalised by their sum) or 'lowrank'
-// (per-row / per-column weights) — with the TPU kernel's coverage rules;
-// then over the N samples of the pixel: sort, median, MAD of all N
-// sorted deviations (uncovered samples are +3.4e38 and sort last), clip
-// at med -/+ sigma * 1.4826 * MAD, and write 'average', 'median', 'sum'
-// or the unclipped 'mean'.  Pixels nobody covers get 0.
+// calibrate the raw taps, cal = ((raw*A - B) - r*C) * fscale (raw *
+// fscale without masters), resample with the separable two-pass Lanczos3
+// (weights from the degree-10 polynomial in t^2) using one of three tap
+// bodies — snapped translation (scalar weights, taps [1, 7)), 'exact'
+// (per-pixel weights normalised by their sum) or 'lowrank' (per-row /
+// per-column weights) — with the TPU kernel's coverage rules; then over
+// the N samples of the pixel: sort, median, MAD of all N sorted
+// deviations (uncovered samples are +3.4e38 and sort last), clip at
+// med -/+ sigma * 1.4826 * MAD, and write 'average', 'median', 'sum' or
+// the unclipped 'mean'.  Pixels nobody covers get 0.
 //
-// What bounds it on the H100: latency of the tap reads, then the
-// instruction rate of the per-tap arithmetic.  At N = 100 every output pixel reads
-// ~36 taps per frame (2 B raw + 12 B of masters each), almost all from
-// L1/L2 because neighbouring threads read neighbouring source pixels;
-// device memory sees the raw stack about once.  There is no matrix
-// product; the per-pixel sort is ~N^2/4 shared-memory moves.
+// What bounds it on the H100.  The least time is 1.08 ms at 100 x 4096^2:
+// the 3.36 GB raw stack, 0.20 GB of masters and the 0.07 GB image at
+// 3.35 TB/s; its ~37 operations per (frame, pixel) (calibration, 6 + 6
+// taps, the sort's compares) take ~0.9 ms at the f32 rate.  There is no
+// matrix product, and the tensor cores are out of scope: every value
+// operation is f32 rounded op by op (below), and a bf16 hi/lo product
+// would not give the twin's bits.  The first design evaluated 12 Lanczos
+// polynomials and calibrated ~36 taps per thread and frame; its warp
+// phase was ~90 % of 419 ms (chip_smoke.py's average-vs-mean split).
+// This one does the per-frame work once per block, and is bound by
+// latency: the N-sample columns (N x 4 B per pixel) and ~128 registers a
+// thread leave 16 warps per SM, each a chain of shared-memory round
+// trips, so the SM issues a fraction of its peak: tools/k2_variants.py
+// measures ~4,800 cycles per warp and frame on the snap body and ~7,000
+// on lowrank, and without any window loads the warp phase is only
+// 8-10 % faster: the chains, not the memory, set its time.
 //
-// Design: one thread per output pixel, 64 threads (2 rows x 32 columns)
-// per block, looping over frames.  The geometry the TPU kernel derives
-// from its shared per-tile source windows — tap bases, the window
-// containment test base_ok, the span and lowrank gates, the translation
-// snap — arrives precomputed in a per-frame table (16 floats) and a
-// per-(frame, tile) table (vbase, ubase, base_ok), so the kernel needs no
-// window: it evaluates sum_s wv(s) * mid(s) / sum wv directly, skipping
-// taps whose weight is exactly zero (they add nothing to either sum).
-// Each thread keeps its N samples in its own column of shared memory
-// (N x 64 x 4 B, 25.6 KB at N = 100, bank-conflict free), insertion-sorts
-// them, and finds the MAD ranks by merging the two monotone runs of
-// deviations around the median instead of sorting them again.
+// Design.  A block covers 8 output rows x 32 columns inside one TPU
+// tile (fewer rows when N leaves no room; the last block of a tile is
+// clipped, and its idle threads still join the barriers), so all its
+// pixels share each frame's tap bases (vbase, ubase) and window test
+// base_ok from the per-(frame, tile) table, which reaches the block
+// through a shared-memory ring three frames ahead.  Per frame:
+//  1. The calibrated source window, rows vbase + r0 + [0, rows + span)
+//     by columns ubase + c0 + [0, 32 + span), goes into shared memory,
+//     each source pixel calibrated once in the twin's order.  Each warp
+//     stages the window rows it owns; their raw pixels and masters were
+//     loaded into registers during the previous frame.  Outside the
+//     image the window reads 0.
+//  2. The tap weights are computed once per (frame, block): the snap
+//     body's 12 weights and two reciprocals by one warp, a frame ahead;
+//     the lowrank body's horizontal weights once per window row and its
+//     vertical weights once per column.
+//  3. Each warp runs the horizontal pass over its own rows, one mid value
+//     per (window row, column); after the frame's only block barrier the
+//     vertical pass reads them from the other of two mid buffers while
+//     the next frame's rows are filtered.  The 'exact' body keeps its
+//     per-pixel tap loop on the window, behind two more barriers.
+// A frame whose base_ok or gate is false for the tile is skipped by the
+// whole block.  Each thread keeps its N samples in its own column of
+// shared memory; the combine sorts that column with a bitonic network
+// (stages of partner distance < 16 run in registers on 16-sample blocks,
+// the others in shared memory, +inf padding never stored) instead of an
+// insertion sort whose trip counts diverged within a warp, then finds
+// the MAD ranks by merging the two monotone runs of deviations around
+// the median.  No per-thread array is indexed at run time (no local
+// memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BX = 32;
-constexpr int BY = 2;
-constexpr int NT = BX * BY;
+constexpr int BX = 32;      // output columns per block: one warp per row
+constexpr int MAX_BY = 8;   // output rows per block
+constexpr int HT = 8;       // lowrank horizontal taps s2 in [1, min(span, 9))
+constexpr int SB = 16;      // samples per register block of the sort
 constexpr float BIG = 3.4e38f;
 constexpr float MAD_HALF = 0.741301109252801f;  // 1.482602218505602 * 0.5
 
@@ -68,24 +97,6 @@ __device__ __forceinline__ float l3(float t) {
   return acc;
 }
 
-template <typename T>
-struct Source {
-  const T* raw;          // this frame's (H, W)
-  const float* masters;  // (3, H, W) or null
-  size_t plane;
-  int h, w;
-  float er, fs;
-  __device__ __forceinline__ float operator()(int y, int x) const {
-    if (y < 0 || y >= h || x < 0 || x >= w) return 0.0f;
-    size_t o = (size_t)y * w + x;
-    float v = static_cast<float>(raw[o]);
-    if (masters != nullptr)
-      v = sub(sub(mul(v, masters[o]), masters[plane + o]),
-              mul(er, masters[2 * plane + o]));
-    return mul(v, fs);
-  }
-};
-
 // a*x + b*y + c (tap coordinates; an ulp there is a visible value
 // difference on a steep edge)
 __device__ __forceinline__ float affine_rn(float a, float x, float b, float y,
@@ -101,151 +112,516 @@ __device__ __forceinline__ int tap_hi(float base, int hi) {
   return min(hi, (int)floorf(base) + 4);
 }
 
-template <typename T>
-__device__ float warp_translation(const Source<T>& src, const float* tb,
-                                  int vbase, int ubase, float ti, float tj,
-                                  int rr, int c, int span) {
-  const int t_lo = span >= 7 ? 1 : 0;
-  const int t_hi = span >= 7 ? min(span, 7) : span;
-  float a_u = (tj + tb[13]) - (float)ubase;   // tj + g0 - ubase
-  float a_v = (ti + tb[5]) - (float)vbase;    // ti + m12 - vbase
-  float wu[8], wv[8];
-  float su = 0.0f, sv = 0.0f;
-  for (int s = t_lo; s < t_hi; ++s) {
-    wu[s] = l3(a_u - (float)s);
-    wv[s] = l3(a_v - (float)s);
-    su = s == t_lo ? wu[s] : add(su, wu[s]);
-    sv = s == t_lo ? wv[s] : add(sv, wv[s]);
-  }
-  float inv = fabsf(su) > 1e-3f ? 1.0f / su : 0.0f;
-  float inv2 = fabsf(sv) > 1e-3f ? 1.0f / sv : 0.0f;
-  float out = 0.0f;
-  for (int s = t_lo; s < t_hi; ++s) {
-    if (wv[s] == 0.0f) continue;
-    int row = vbase + rr + s;
-    float mid = 0.0f;
-    for (int s2 = t_lo; s2 < t_hi; ++s2) {
-      if (wu[s2] == 0.0f) continue;
-      mid = add(mid, mul(mul(wu[s2], inv), src(row, ubase + c + s2)));
-    }
-    out = add(out, mul(mul(wv[s], inv2), mid));
-  }
-  return out;
+// Shared memory of a block, in 4-byte words.  kernels.py mirrors the
+// total (_warp_smem_bytes) to pick the block's rows.
+constexpr int RP = 3;      // window rows per warp loaded a frame ahead
+constexpr int PSLOT = 20;  // per-frame slot: table row, vbase, ubase, use
+constexpr int PRING = 5;   // slots: frames f-1 .. f+3
+enum { OFF = 0, SNAP = 1, LOW = 2, EXACT = 3 };  // how the block uses a frame
+
+struct Layout {
+  int nt, wr, wc;
+  int vals, win, mid, hw, hinv, vw, vr, sw, ring, total;
+};
+
+__host__ __device__ inline Layout layout(int n, int by, int span) {
+  Layout L;
+  L.nt = BX * by;
+  L.wr = by + span;                  // window rows
+  L.wc = BX + span;                  // window columns
+  L.vals = 0;                        // [n][nt] samples
+  L.win = L.vals + n * L.nt;         // [wr][wc] calibrated window
+  L.mid = L.win + L.wr * L.wc;       // [2][wr][BX] horizontal pass
+  L.hw = L.mid + 2 * L.wr * BX;      // [wr][HT] lowrank row weights
+  L.hinv = L.hw + L.wr * HT;         // [wr] lowrank 1 / row weight sum
+  L.vw = L.hinv + L.wr;              // [2][HT][BX] lowrank column weights
+  L.vr = L.vw + 2 * HT * BX;         // [2][BX][2] lowrank column taps
+  L.sw = L.vr + 4 * BX;              // [3][16] snap weights and masks
+  L.ring = L.sw + 3 * 16;            // [PRING][PSLOT] frame parameters
+  L.total = L.ring + PRING * PSLOT;
+  return L;
 }
 
+// One frame of the source: raw pixels, calibrated on the way in.
 template <typename T>
-__device__ float warp_exact(const Source<T>& src, const float* tb, int vbase,
-                            int ubase, float x_out, float v, int rr, int c,
-                            int span) {
-  const float gx = tb[11], gy = tb[12], g0 = tb[13];
-  float v_loc = v - (float)vbase;
-  float vb_f = (float)vbase, ub_f = (float)ubase;
-  float acc2 = 0.0f, wsum2 = 0.0f;
-  float vrel = v_loc - (float)rr;
-  for (int s = tap_lo(vrel, 0); s <= tap_hi(vrel, span - 1); ++s) {
-    float wvt = l3(v_loc - (float)(rr + s));
-    if (wvt == 0.0f) continue;
-    int row = vbase + rr + s;
-    float u_loc = affine_rn(gx, x_out, gy, vb_f + (float)(rr + s), g0) - ub_f;
-    float acc = 0.0f, wsum = 0.0f;
-    float urel = u_loc - (float)c;
-    for (int s2 = tap_lo(urel, 0); s2 <= tap_hi(urel, span - 1); ++s2) {
-      float wt = l3(u_loc - (float)(c + s2));
-      if (wt == 0.0f) continue;
-      acc = add(acc, mul(wt, src(row, ubase + c + s2)));
-      wsum = add(wsum, wt);
-    }
-    float mid = fabsf(wsum) > 1e-3f ? acc / wsum : 0.0f;
-    acc2 = add(acc2, mul(wvt, mid));
-    wsum2 = add(wsum2, wvt);
+struct Src {
+  const T* frames;
+  const float* masters;  // (3, H, W) or null
+  size_t plane;
+  int h0, w0;
+
+  __device__ __forceinline__ float cal(float v, float av, float bv, float cv,
+                                       float er, float fs) const {
+    if (masters != nullptr) v = sub(sub(mul(v, av), bv), mul(er, cv));
+    return mul(v, fs);
   }
-  return fabsf(wsum2) > 1e-3f ? acc2 / wsum2 : 0.0f;
+  // calibrated pixel (gy, gx) of frame f; 0 outside the image
+  __device__ __forceinline__ float load_cal(int f, int gy, int gx, float er,
+                                            float fs) const {
+    if (gy < 0 || gy >= h0 || gx < 0 || gx >= w0) return 0.0f;
+    size_t o = (size_t)gy * w0 + gx;
+    float v = static_cast<float>(frames[(size_t)f * plane + o]);
+    return masters != nullptr
+               ? cal(v, masters[o], masters[plane + o], masters[2 * plane + o],
+                     er, fs)
+               : cal(v, 0.0f, 0.0f, 0.0f, er, fs);
+  }
+};
+
+// The window rows a warp owns (r_lo + ty + m * by), columns lane and
+// lane + 32: loaded into registers a frame ahead (raw in its own type, so
+// nothing waits on the load before the row is staged), calibrated into
+// the shared window when staged.  Rows past RP and columns past 64 are
+// loaded when staged.
+template <typename T>
+struct Rows {
+  T raw[RP][2];
+  float a[RP][2], b[RP][2], c[RP][2];
+  unsigned in;  // bit 2m+e: element (m, e) lies inside the image
+
+  __device__ __forceinline__ void fetch(const Src<T>& S, int f, int y0, int x0,
+                                        int r_lo, int r_hi, int ty, int by,
+                                        int lane, int wc) {
+    const T* fr = S.frames + (size_t)f * S.plane;
+    in = 0;
+#pragma unroll
+    for (int m = 0; m < RP; ++m) {
+      const int r = r_lo + ty + m * by, gy = y0 + r;
+      if (r < r_hi && gy >= 0 && gy < S.h0) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = lane + 32 * e, gx = x0 + col;
+          if (col < wc && gx >= 0 && gx < S.w0) {
+            const size_t o = (size_t)gy * S.w0 + gx;
+            raw[m][e] = fr[o];
+            if (S.masters != nullptr) {
+              a[m][e] = S.masters[o];
+              b[m][e] = S.masters[S.plane + o];
+              c[m][e] = S.masters[2 * S.plane + o];
+            }
+            in |= 1u << (2 * m + e);
+          }
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void stage(const Src<T>& S, float* win, int f,
+                                        int y0, int x0, int r_lo, int r_hi,
+                                        int ty, int by, int lane, int wc,
+                                        float er, float fs) const {
+#pragma unroll
+    for (int m = 0; m < RP; ++m) {
+      const int r = r_lo + ty + m * by;
+      if (r < r_hi) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = lane + 32 * e;
+          if (col < wc)
+            win[r * wc + col] =
+                (in >> (2 * m + e)) & 1u
+                    ? S.cal(static_cast<float>(raw[m][e]), a[m][e], b[m][e],
+                            c[m][e], er, fs)
+                    : 0.0f;
+        }
+        for (int col = lane + 64; col < wc; col += 32)
+          win[r * wc + col] = S.load_cal(f, y0 + r, x0 + col, er, fs);
+      }
+    }
+    for (int r = r_lo + ty + RP * by; r < r_hi; r += by)
+      for (int col = lane; col < wc; col += 32)
+        win[r * wc + col] = S.load_cal(f, y0 + r, x0 + col, er, fs);
+  }
+};
+
+// ---- the combine's sort: ascending bitonic network -----------------------
+
+// compare-exchange that permutes (never duplicates) its two values
+__device__ __forceinline__ void cswap(float& a, float& b) {
+  bool s = b < a;
+  float lo = s ? b : a;
+  b = s ? a : b;
+  a = lo;
 }
 
-template <typename T>
-__device__ float warp_lowrank(const Source<T>& src, const float* tb,
-                              int vbase, int ubase, float x_out, float ti,
-                              float tj, int rr, int c, int span, int th,
-                              int tw) {
-  const float gx = tb[11], gy = tb[12], g0 = tb[13];
-  const float m11 = tb[4];
-  const int t1hi = min(span, 9);
-  float vb_f = (float)vbase, ub_f = (float)ubase;
-  float bv = add(affine_rn(tb[3], x_out, m11, ti, tb[5]) - vb_f,
-                 mul(m11 - 1.0f, (float)(th - 1) * 0.5f));
-  float acc2 = 0.0f, v0s = 0.0f;
-  for (int s = tap_lo(bv, 1); s <= tap_hi(bv, span - 1); ++s) {
-    float wvt = l3(bv - (float)s);
-    if (wvt == 0.0f) continue;
-    int row = vbase + rr + s;
-    float bu = add(affine_rn(gx, tj, gy, vb_f + (float)(rr + s), g0) - ub_f,
-                   mul(gx - 1.0f, (float)(tw - 1) * 0.5f));
-    float acc0 = 0.0f, w0s = 0.0f;
-    for (int s2 = tap_lo(bu, 1); s2 <= tap_hi(bu, t1hi - 1); ++s2) {
-      float wt = l3(bu - (float)s2);
-      if (wt == 0.0f) continue;
-      acc0 = add(acc0, mul(wt, src(row, ubase + c + s2)));
-      w0s = add(w0s, wt);
-    }
-    float inv0 = fabsf(w0s) > 1e-3f ? 1.0f / w0s : 0.0f;
-    acc2 = add(acc2, mul(wvt, mul(acc0, inv0)));
-    v0s = add(v0s, wvt);
+// stages k = 2..16 of the network on one register block: a full sort
+__device__ __forceinline__ void sort16(float (&v)[SB]) {
+#pragma unroll
+  for (int k = 2; k <= SB; k <<= 1) {
+#pragma unroll
+    for (int i = 0; i < SB; ++i)
+      if (!(i & (k >> 1))) cswap(v[i], v[i ^ (k - 1)]);
+#pragma unroll
+    for (int j = k >> 2; j > 0; j >>= 1)
+#pragma unroll
+      for (int i = 0; i < SB; ++i)
+        if (!(i & j)) cswap(v[i], v[i ^ j]);
   }
-  float inv2 = fabsf(v0s) > 1e-3f ? 1.0f / v0s : 0.0f;
-  return mul(acc2, inv2);
+}
+
+// stages j = 8, 4, 2, 1 of a merge, on one register block
+__device__ __forceinline__ void merge16(float (&v)[SB]) {
+#pragma unroll
+  for (int j = SB >> 1; j > 0; j >>= 1)
+#pragma unroll
+    for (int i = 0; i < SB; ++i)
+      if (!(i & j)) cswap(v[i], v[i ^ j]);
+}
+
+// Sort this thread's column col[0, n) (stride nt) ascending.  The
+// network runs on n padded to a power of two P >= 16 with +inf; every
+// comparator puts its minimum at the lower index, so the padding never
+// moves and a comparator that touches it is skipped.
+template <bool FULL>
+__device__ __forceinline__ void sort_blocks(float* col, int n, int nt) {
+  const float INF = __int_as_float(0x7f800000);
+  for (int b0 = 0; b0 < n; b0 += SB) {
+    float v[SB];
+#pragma unroll
+    for (int q = 0; q < SB; ++q) v[q] = b0 + q < n ? col[(b0 + q) * nt] : INF;
+    if (FULL)
+      sort16(v);
+    else
+      merge16(v);
+#pragma unroll
+    for (int q = 0; q < SB; ++q)
+      if (b0 + q < n) col[(b0 + q) * nt] = v[q];
+  }
+}
+
+__device__ void sort_column(float* col, int n, int nt) {
+  sort_blocks<true>(col, n, nt);
+  int P = SB;
+  while (P < n) P <<= 1;
+  for (int k = 2 * SB; k <= P; k <<= 1) {
+    for (int j = k >> 1; j >= SB; j >>= 1) {
+      const bool flip = j == (k >> 1);  // first stage of a merge: mirror
+#pragma unroll 4
+      for (int t = 0; t < P / 2; ++t) {
+        int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        int l = flip ? (i ^ (k - 1)) : (i + j);
+        if (l < n) {
+          float a = col[i * nt], b = col[l * nt];
+          cswap(a, b);
+          col[i * nt] = a;
+          col[l * nt] = b;
+        }
+      }
+    }
+    sort_blocks<false>(col, n, nt);
+  }
 }
 
 // combine: 0 average, 1 median, 2 sum, 3 mean
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(BX * MAX_BY, 2)
 warp_combine_kernel(const T* __restrict__ frames,
                     const float* __restrict__ masters,
                     const float* __restrict__ ftab,
                     const int* __restrict__ ttab, float* __restrict__ out,
                     int n, int h0, int w0, int th, int tw, int n_tj,
                     int n_tiles, int span, int lowrank, int combine,
-                    float sigma_lo, float sigma_hi) {
-  extern __shared__ float vals[];  // [n][NT]
-  const int tid = threadIdx.y * BX + threadIdx.x;
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= w0 || y >= h0) return;  // no block-wide sync below
-  const int i = y / th, j = x / tw;
-  const int rr = y - i * th, c = x - j * tw;
+                    float sigma_lo, float sigma_hi, int by, int sbx, int sby) {
+  extern __shared__ float smem[];
+  const Layout L = layout(n, by, span);
+  float* vals = smem + L.vals;
+  float* win = smem + L.win;
+  float* midb = smem + L.mid;
+  float* hw = smem + L.hw;
+  float* hinv = smem + L.hinv;
+  float* vwb = smem + L.vw;
+  int* vrb = reinterpret_cast<int*>(smem + L.vr);
+  float* swb = smem + L.sw;
+  float* ring = smem + L.ring;
+  const unsigned FULL = 0xffffffffu;
+  const int nt = L.nt, wc = L.wc, wrn = L.wr;
+  const int lane = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * BX + lane;
+  // block -> (tile, sub-block): rows r0 + [0, by), columns c0 + [0, BX)
+  const int j = blockIdx.x / sbx, c0 = (blockIdx.x - j * sbx) * BX;
+  const int i = blockIdx.y / sby, r0 = (blockIdx.y - i * sby) * by;
   const int tile = i * n_tj + j;
+  const int c = c0 + lane, rr = r0 + ty;
+  const int x = j * tw + c, y = i * th + rr;
+  const bool live = c < tw && rr < th && x < w0 && y < h0;
   const float x_out = (float)x, y_out = (float)y;
   const float ti = (float)(i * th), tj = (float)(j * tw);
-  const size_t plane = (size_t)h0 * w0;
+  // snap taps [t_lo, t_hi) (at most 6); lowrank horizontal taps [1, t1hi)
+  const int t_lo = span >= 7 ? 1 : 0;
+  const int t_hi = span >= 7 ? min(span, 7) : span;
+  const int nk = t_hi - t_lo;
+  const int t1hi = min(span, 9);
+  const Src<T> S{frames, masters, (size_t)h0 * w0, h0, w0};
+  Rows<T> rows;
+
+  // Frame parameters go through a ring of shared-memory slots, three
+  // frames ahead: warp 0 loads frame g's table row and tile entry (one
+  // word per lane) and stores them later in the same frame, so no thread
+  // waits on the table.  A slot holds the 16 floats of the row, then
+  // vbase, ubase, and whether the block uses the frame (window contained
+  // and, for the general bodies, the span / lowrank gate).
+  auto slot = [&](int g) { return ring + (g % PRING) * PSLOT; };
+  auto param_load = [&](int g) -> int {
+    if (lane < 16) return __float_as_int(ftab[16 * g + lane]);
+    if (lane < 19) return ttab[3 * ((size_t)g * n_tiles + tile) + lane - 16];
+    return 0;
+  };
+  auto param_store = [&](int g, int pv) {  // every lane of warp 0
+    const int b8 = __shfl_sync(FULL, pv, 8), b14 = __shfl_sync(FULL, pv, 14);
+    int* sl = reinterpret_cast<int*>(slot(g));
+    if (lane < 18)
+      sl[lane] = pv;
+    else if (lane == 18)
+      sl[18] = pv != 0 && (__int_as_float(b8) > 0.5f ||
+                           __int_as_float(b14) > 0.5f);
+  };
+  auto kind_of = [&](const float* P) {
+    return reinterpret_cast<const int*>(P)[18] == 0
+               ? OFF
+               : (P[8] > 0.5f ? SNAP : (lowrank ? LOW : EXACT));
+  };
+  // the window rows each body reads
+  auto rows_lo = [&](int k) { return k == EXACT ? 0 : (k == SNAP ? t_lo : 1); };
+  auto rows_hi = [&](int k) { return k == SNAP ? by + t_hi - 1 : by + span - 1; };
+  auto fetch = [&](int g) {
+    const float* P = slot(g);
+    const int* Pi = reinterpret_cast<const int*>(P);
+    const int k = kind_of(P);
+    if (k != OFF)
+      rows.fetch(S, g, Pi[16] + r0, Pi[17] + c0, rows_lo(k), rows_hi(k), ty,
+                 by, lane, wc);
+  };
+
+  // snap body weights of frame g, one warp: the 12 tap weights and two
+  // reciprocals (lanes 0-7 horizontal wu, 8-15 vertical wv), scaled, and
+  // the masks of the non-zero taps
+  auto snap_weights = [&](int g) {
+    const float* P = slot(g);
+    const int* Pi = reinterpret_cast<const int*>(P);
+    const int k = lane & 7;
+    const float a = lane < 8 ? (tj + P[13]) - (float)Pi[17]  // tj + g0 - ubase
+                             : (ti + P[5]) - (float)Pi[16];  // ti + m12 - vbase
+    const float w = k < nk ? l3(a - (float)(t_lo + k)) : 0.0f;
+    float ws[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) ws[q] = __shfl_sync(FULL, w, (lane & 8) + q);
+    float sum = ws[0];
+#pragma unroll
+    for (int q = 1; q < 6; ++q)
+      if (q < nk) sum = add(sum, ws[q]);
+    const float inv = fabsf(sum) > 1e-3f ? 1.0f / sum : 0.0f;
+    const unsigned nz = __ballot_sync(FULL, k < nk && w != 0.0f);
+    float* o = swb + (g % 3) * 16;  // [0, 6) hu, [8, 14) hv, masks at 6, 14
+    if (k < nk && lane < 16) o[lane] = mul(w, inv);
+    if (lane == 0) {
+      reinterpret_cast<int*>(o)[6] = nz & 0xffu;
+      reinterpret_cast<int*>(o)[14] = (nz >> 8) & 0xffu;
+    }
+  };
+
+  // coverage of this pixel in frame g: source inside [2, W-4] x [vlo, vhi]
+  // (the window and gate tests hold for the whole block)
+  auto covered = [&](const float* P) {
+    const float v = affine_rn(P[3], x_out, P[4], y_out, P[5]);
+    const float sx = affine_rn(P[0], x_out, P[1], y_out, P[2]);
+    return sx >= 2.0f && sx <= (float)w0 - 4.0f && v >= P[9] && v <= P[10];
+  };
 
   int count = 0;
   float macc = 0.0f;
-  for (int f = 0; f < n; ++f) {
-    const float* tb = ftab + 16 * f;
-    const int* tt = ttab + 3 * ((size_t)f * n_tiles + tile);
-    const int vbase = tt[0], ubase = tt[1];
-    const bool trans = tb[8] > 0.5f;
-    // coverage: source inside [2, W-4] x [vlo, vhi], window contained,
-    // and (general bodies) the frame's span / lowrank gate
-    float v = affine_rn(tb[3], x_out, tb[4], y_out, tb[5]);
-    float sx = affine_rn(tb[0], x_out, tb[1], y_out, tb[2]);
-    bool cover = sx >= 2.0f && sx <= (float)w0 - 4.0f && v >= tb[9] &&
-                 v <= tb[10] && tt[2] != 0 && (trans || tb[14] > 0.5f);
-    float val = BIG;
-    if (cover) {
-      Source<T> src{frames + (size_t)f * plane, masters, plane, h0, w0,
-                    tb[6], tb[7]};
-      if (trans)
-        val = warp_translation(src, tb, vbase, ubase, ti, tj, rr, c, span);
-      else if (lowrank)
-        val = warp_lowrank(src, tb, vbase, ubase, x_out, ti, tj, rr, c, span,
-                           th, tw);
-      else
-        val = warp_exact(src, tb, vbase, ubase, x_out, v, rr, c, span);
-      ++count;
-      macc = add(macc, val);
+  auto take = [&](int g, float val) {  // a covered sample, in frame order
+    ++count;
+    macc = add(macc, val);
+    vals[g * nt + tid] = val;
+  };
+
+  // vertical pass of frame g (snap or lowrank) from its mid rows
+  auto vertical = [&](int g, int kg) {
+    if (!live) return;
+    const float* P = slot(g);
+    if (!covered(P)) {
+      vals[g * nt + tid] = BIG;
+      return;
     }
-    vals[f * NT + tid] = val;
+    const float* mid = midb + (g & 1) * wrn * BX;
+    if (kg == SNAP) {
+      const float* o = swb + (g % 3) * 16;
+      const int vmask = reinterpret_cast<const int*>(o)[14];
+      float acc = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        const float m = mid[(ty + t_lo + q) * BX + lane], wv = o[8 + q];
+        if (q < nk && ((vmask >> q) & 1)) acc = add(acc, mul(wv, m));
+      }
+      take(g, acc);
+    } else {
+      const float* vw = vwb + (g & 1) * HT * BX;
+      const int* vr = vrb + (g & 1) * 2 * BX;
+      const int lo = vr[2 * lane], hi = vr[2 * lane + 1];
+      float acc2 = 0.0f, v0s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < HT; ++q) {  // at most 8 taps in [lo, hi]
+        const int s = max(min(lo + q, hi), 0);
+        const float wvt = vw[q * BX + lane], m = mid[(ty + s) * BX + lane];
+        if (lo + q <= hi && wvt != 0.0f) {
+          acc2 = add(acc2, mul(wvt, m));
+          v0s = add(v0s, wvt);
+        }
+      }
+      float inv2 = fabsf(v0s) > 1e-3f ? 1.0f / v0s : 0.0f;
+      take(g, mul(acc2, inv2));
+    }
+  };
+
+  // 'exact' body of frame f: per-pixel weights on the staged window
+  auto exact = [&](int f) {
+    if (!live) return;
+    const float* P = slot(f);
+    if (!covered(P)) {
+      vals[f * nt + tid] = BIG;
+      return;
+    }
+    const int* Pi = reinterpret_cast<const int*>(P);
+    const float gx = P[11], gy = P[12], g0 = P[13];
+    const float vb_f = (float)Pi[16], ub_f = (float)Pi[17];
+    float v_loc = affine_rn(P[3], x_out, P[4], y_out, P[5]) - vb_f;
+    float acc2 = 0.0f, wsum2 = 0.0f;
+    float vrel = v_loc - (float)rr;
+    for (int s = tap_lo(vrel, 0); s <= tap_hi(vrel, span - 1); ++s) {
+      float wvt = l3(v_loc - (float)(rr + s));
+      if (wvt == 0.0f) continue;
+      const float* src = win + (ty + s) * wc + lane;
+      float u_loc = affine_rn(gx, x_out, gy, vb_f + (float)(rr + s), g0) - ub_f;
+      float acc = 0.0f, wsum = 0.0f;
+      float urel = u_loc - (float)c;
+      for (int s2 = tap_lo(urel, 0); s2 <= tap_hi(urel, span - 1); ++s2) {
+        float wt = l3(u_loc - (float)(c + s2));
+        if (wt == 0.0f) continue;
+        acc = add(acc, mul(wt, src[s2]));
+        wsum = add(wsum, wt);
+      }
+      float m = fabsf(wsum) > 1e-3f ? acc / wsum : 0.0f;
+      acc2 = add(acc2, mul(wvt, m));
+      wsum2 = add(wsum2, wvt);
+    }
+    take(f, fabsf(wsum2) > 1e-3f ? acc2 / wsum2 : 0.0f);
+  };
+
+  if (tid < 32)
+    for (int g = 0; g < min(n, PRING - 2); ++g) param_store(g, param_load(g));
+  __syncthreads();
+  if (ty == 0 && kind_of(slot(0)) == SNAP) snap_weights(0);
+  fetch(0);
+  __syncthreads();
+
+  // One block barrier per frame: each warp stages and filters the window
+  // rows it owns (warp-synchronous), while the vertical pass of the
+  // previous frame reads the other mid buffer.
+  int kp = OFF;  // how the block used frame f-1
+  for (int f = 0; f < n; ++f) {
+    const float* P = slot(f);
+    const int* Pi = reinterpret_cast<const int*>(P);
+    const int k = kind_of(P);
+    const bool ahead = tid < 32 && f + PRING - 2 < n;
+    const int pv = ahead ? param_load(f + PRING - 2) : 0;
+    const float vb_f = (float)Pi[16], ub_f = (float)Pi[17];
+    float* mid = midb + (f & 1) * wrn * BX;
+    if (k != OFF) {
+      rows.stage(S, win, f, Pi[16] + r0, Pi[17] + c0, rows_lo(k), rows_hi(k),
+                 ty, by, lane, wc, P[6], P[7]);
+      __syncwarp();
+    }
+    if (k == SNAP) {
+      // horizontal pass: one mid value per (owned window row, column)
+      const float* o = swb + (f % 3) * 16;
+      const int hmask = reinterpret_cast<const int*>(o)[6];
+      float hu[6];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) hu[q] = o[q];
+      for (int r = t_lo + ty; r < by + t_hi - 1; r += by) {
+        const float* src = win + r * wc + lane + t_lo;
+        float m = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          const float xq = src[q];
+          if (q < nk && ((hmask >> q) & 1)) m = add(m, mul(hu[q], xq));
+        }
+        mid[r * BX + lane] = m;
+      }
+    } else if (k == LOW) {
+      const float gx = P[11], gy = P[12], g0 = P[13];
+      const int r_hi = by + span - 1;
+      // row weights of the owned rows (source row vbase + r0 + r), 8 lanes
+      // per row, the row's sum in tap order by shuffles
+      for (int m0 = 0; 1 + ty + m0 * by < r_hi; m0 += 4) {
+        const int r = 1 + ty + (m0 + (lane >> 3)) * by, s2 = 1 + (lane & 7);
+        float w = 0.0f;
+        if (r < r_hi) {
+          float bu = add(affine_rn(gx, tj, gy, vb_f + (float)(r0 + r), g0) - ub_f,
+                         mul(gx - 1.0f, (float)(tw - 1) * 0.5f));
+          if (s2 >= tap_lo(bu, 1) && s2 <= tap_hi(bu, t1hi - 1))
+            w = l3(bu - (float)s2);
+        }
+        float ws[HT];
+#pragma unroll
+        for (int q = 0; q < HT; ++q)
+          ws[q] = __shfl_sync(FULL, w, (lane & ~(HT - 1)) + q);
+        float w0s = 0.0f;
+#pragma unroll
+        for (int q = 0; q < HT; ++q)
+          if (ws[q] != 0.0f) w0s = add(w0s, ws[q]);
+        if (r < r_hi) {
+          hw[r * HT + s2 - 1] = w;
+          if (s2 == 1) hinv[r] = fabsf(w0s) > 1e-3f ? 1.0f / w0s : 0.0f;
+        }
+      }
+      __syncwarp();
+      for (int r = 1 + ty; r < r_hi; r += by) {
+        const float* src = win + r * wc + lane + 1;
+        const float* w = hw + r * HT;
+        float acc0 = 0.0f;
+#pragma unroll
+        for (int q = 0; q < HT; ++q) {
+          const float xq = src[q], wq = w[q];
+          if (q < t1hi - 1 && wq != 0.0f) acc0 = add(acc0, mul(wq, xq));
+        }
+        mid[r * BX + lane] = mul(acc0, hinv[r]);
+      }
+      // column weights of the block: tap lo + q of column cx
+      const float m11 = P[4];
+      float* vw = vwb + (f & 1) * HT * BX;
+      int* vr = vrb + (f & 1) * 2 * BX;
+      for (int t = tid; t < HT * BX; t += nt) {
+        const int q = t / BX, cx = t - q * BX;
+        const float xo = (float)(j * tw + c0 + cx);
+        float bv = add(affine_rn(P[3], xo, m11, ti, P[5]) - vb_f,
+                       mul(m11 - 1.0f, (float)(th - 1) * 0.5f));
+        const int lo = tap_lo(bv, 1), hi = tap_hi(bv, span - 1);
+        vw[t] = lo + q <= hi ? l3(bv - (float)(lo + q)) : 0.0f;
+        if (q == 0) {
+          vr[2 * cx] = lo;
+          vr[2 * cx + 1] = hi;
+        }
+      }
+    }
+    if (f + 1 < n) {
+      fetch(f + 1);
+      if (ty == f % by && kind_of(slot(f + 1)) == SNAP) snap_weights(f + 1);
+    }
+    if (kp == SNAP || kp == LOW) vertical(f - 1, kp);
+    if (ahead) param_store(f + PRING - 2, pv);
+    __syncthreads();
+    if (k == EXACT) {
+      exact(f);
+      __syncthreads();  // the next frame restages the window
+    } else if (k == OFF && live) {
+      vals[f * nt + tid] = BIG;
+    }
+    kp = k;
   }
+  if (kp == SNAP || kp == LOW) vertical(n - 1, kp);
+  if (!live) return;  // no block-wide sync below
+
   float* o = out + (size_t)y * w0 + x;
   if (count == 0) {
     *o = 0.0f;
@@ -255,28 +631,20 @@ warp_combine_kernel(const T* __restrict__ frames,
     *o = macc / (float)count;
     return;
   }
-  // insertion sort of this thread's column (uncovered BIG sort last)
-  for (int k = 1; k < n; ++k) {
-    float key = vals[k * NT + tid];
-    int m = k - 1;
-    while (m >= 0 && vals[m * NT + tid] > key) {
-      vals[(m + 1) * NT + tid] = vals[m * NT + tid];
-      --m;
-    }
-    vals[(m + 1) * NT + tid] = key;
-  }
+  float* col = vals + tid;
+  sort_column(col, n, nt);  // uncovered BIG sort last
   const int lo = max((count - 1) / 2, 0), hi = max(count / 2, 0);
-  const float med = mul(0.5f, add(vals[lo * NT + tid], vals[hi * NT + tid]));
+  const float med = mul(0.5f, add(col[lo * nt], col[hi * nt]));
   // deviations of the sorted samples fall to the median, then rise: merge
   // the run left of p (walking down) with the run from p (walking up)
   const float INF = __int_as_float(0x7f800000);
   int p = 0;
-  while (p < n && vals[p * NT + tid] < med) ++p;
+  while (p < n && col[p * nt] < med) ++p;
   int a = p - 1, b = p;
   float d_lo = 0.0f, d_hi = 0.0f;
   for (int k = 0; k <= hi; ++k) {
-    float da = a >= 0 ? fabsf(vals[a * NT + tid] - med) : INF;
-    float db = b < n ? fabsf(vals[b * NT + tid] - med) : INF;
+    float da = a >= 0 ? fabsf(col[a * nt] - med) : INF;
+    float db = b < n ? fabsf(col[b * nt] - med) : INF;
     float d;
     if (da <= db) {
       d = da;
@@ -294,7 +662,7 @@ warp_combine_kernel(const T* __restrict__ frames,
   float acc = 0.0f;
   int cnt = 0, below = 0;
   for (int k = 0; k < count; ++k) {
-    float s = vals[k * NT + tid];
+    float s = col[k * nt];
     if (s < lo_b) {
       ++below;
     } else if (s <= hi_b) {
@@ -307,7 +675,7 @@ warp_combine_kernel(const T* __restrict__ frames,
     if (combine == 1) {
       int klo = below + max((cnt - 1) / 2, 0);
       int khi = below + max(cnt / 2, 0);
-      res = mul(0.5f, add(vals[klo * NT + tid], vals[khi * NT + tid]));
+      res = mul(0.5f, add(col[klo * nt], col[khi * nt]));
     } else if (combine == 2) {
       res = acc;
     } else {
@@ -321,18 +689,21 @@ template <typename T>
 cudaError_t launch(const void* frames, const float* masters, const float* ftab,
                    const int* ttab, float* out, int n, int h0, int w0, int th,
                    int tw, int n_ti, int n_tj, int span, int lowrank,
-                   int combine, float sigma_lo, float sigma_hi,
+                   int combine, float sigma_lo, float sigma_hi, int by,
                    cudaStream_t stream) {
-  size_t smem = sizeof(float) * (size_t)n * NT;
+  if (by < 1 || by > MAX_BY) return cudaErrorInvalidValue;
+  size_t smem = sizeof(float) * (size_t)layout(n, by, span).total;
   cudaError_t err = cudaFuncSetAttribute(
       warp_combine_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 block(BX, BY);
-  dim3 grid((w0 + BX - 1) / BX, (h0 + BY - 1) / BY);
+  const int sbx = (tw + BX - 1) / BX, sby = (th + by - 1) / by;
+  dim3 block(BX, by);
+  dim3 grid(n_tj * sbx, n_ti * sby);
   warp_combine_kernel<T><<<grid, block, smem, stream>>>(
       static_cast<const T*>(frames), masters, ftab, ttab, out, n, h0, w0, th,
-      tw, n_tj, n_ti * n_tj, span, lowrank, combine, sigma_lo, sigma_hi);
+      tw, n_tj, n_ti * n_tj, span, lowrank, combine, sigma_lo, sigma_hi, by,
+      sbx, sby);
   return cudaGetLastError();
 }
 
@@ -344,14 +715,14 @@ extern "C" int warp_combine_launch(const void* frames, int is_u16,
                                    int w0, int th, int tw, int n_ti, int n_tj,
                                    int span, int lowrank, int combine,
                                    float sigma_lo, float sigma_hi,
-                                   void* stream) {
+                                   int block_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       is_u16 ? launch<uint16_t>(frames, masters, ftab, ttab, out, n, h0, w0,
                                 th, tw, n_ti, n_tj, span, lowrank, combine,
-                                sigma_lo, sigma_hi, s)
+                                sigma_lo, sigma_hi, block_rows, s)
              : launch<float>(frames, masters, ftab, ttab, out, n, h0, w0, th,
                              tw, n_ti, n_tj, span, lowrank, combine, sigma_lo,
-                             sigma_hi, s);
+                             sigma_hi, block_rows, s);
   return static_cast<int>(err);
 }

@@ -14,12 +14,10 @@ import torch
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
-    """The device to put new tensors on: ``device`` if given (raising
-    when it names CUDA and no card is usable), else CUDA when
-    available, else the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    """The device to put new tensors on: ``device`` if given, else CUDA.
+    Raises when that is CUDA and no card is usable; the CPU is used only
+    when asked for by name."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but "
                            "torch.cuda.is_available() is False")

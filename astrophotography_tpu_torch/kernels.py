@@ -36,8 +36,10 @@ _SOURCES = {"detect_tiles": "detect_tiles.cu",
             "warp_combine": "warp_combine.cu",
             "clip_combine": "clip_combine.cu"}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+#: ``-Xptxas -v`` reports each kernel's registers, shared memory, stack
+#: frame and spills on stderr, kept in ``build_info["ptxas"]``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {name: 0 for name in _SOURCES}
@@ -122,7 +124,7 @@ def _load() -> dict:
             fn.restype = i
             fn = libs["warp_combine"].warp_combine_launch
             fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
-                           f, p]
+                           f, i, p]
             fn.restype = i
             fn = libs["clip_combine"].clip_combine_launch
             fn.argtypes = [p, p, p, i, i, i, f, f, p]
@@ -198,9 +200,36 @@ def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
     return out_max, out_idx, out_yoff, out_xoff
 
 
-#: one thread per output pixel keeps all N samples in 4 B of shared
-#: memory each, 64 threads per block, within the 227 KB a block may use
-_MAX_FRAMES = 232448 // (4 * 64)
+#: the shared memory one block may use (227 KB)
+_SMEM_MAX = 232448
+#: K2's frame limit, kept from its first design (64 pixels per block,
+#: 4 B of shared memory per sample); the redesign meets it with one row
+#: of 32 pixels per block
+_MAX_FRAMES = _SMEM_MAX // (4 * 64)
+#: K2's block: 32 output columns by up to 8 rows (csrc/warp_combine.cu)
+_WARP_BX, _WARP_MAX_ROWS = 32, 8
+
+
+def _warp_smem_bytes(n: int, rows: int, span: int) -> int:
+    """Shared memory of one K2 block of ``rows`` x 32 pixels (mirrors
+    ``layout`` in csrc/warp_combine.cu): the N-sample columns, the
+    calibrated source window, the horizontal pass, the tap weights, the
+    ring of frame parameters."""
+    bx = _WARP_BX
+    wr, wc = rows + span, bx + span
+    words = (n * bx * rows + wr * wc + 2 * wr * bx + wr * 8 + wr
+             + 2 * 8 * bx + 4 * bx + 3 * 16 + 5 * 20)
+    return 4 * words
+
+
+def _warp_block_rows(n: int, span: int) -> int:
+    """The most rows (<= 8) a K2 block can have with ``n`` frames."""
+    for rows in range(_WARP_MAX_ROWS, 0, -1):
+        if _warp_smem_bytes(n, rows, span) <= _SMEM_MAX:
+            return rows
+    raise ValueError(f"warp_combine kernel: span {span} with {n} frames "
+                     f"needs more than {_SMEM_MAX} B of shared memory per "
+                     f"block")
 
 
 def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
@@ -213,6 +242,7 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
     if n > _MAX_FRAMES:
         raise ValueError(f"warp_combine kernel takes at most {_MAX_FRAMES} "
                          f"frames, got {n}")
+    rows = _warp_block_rows(n, plan.span)
     frames, is_u16 = _frames_arg(frames)
     masters = _check(masters, "masters", dev, (3, h0, w0))
     table = _check(plan.table, "plan.table", dev, (n, 16))
@@ -224,7 +254,7 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
     err = lib.warp_combine_launch(
         _ptr(frames), is_u16, _ptr(masters), _ptr(table), _ptr(tiles),
         _ptr(out), n, h0, w0, plan.th, plan.tw, plan.n_ti, plan.n_tj,
-        plan.span, int(lowrank), combine, sigma_lower, sigma_upper,
+        plan.span, int(lowrank), combine, sigma_lower, sigma_upper, rows,
         ctypes.c_void_p(stream))
     _raise_on(err, "warp_combine")
     launch_counts["warp_combine"] += 1
@@ -233,7 +263,7 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
 
 #: K3 keeps each thread's N samples in 4 B of shared memory each, 128
 #: threads per block, within the 227 KB a block may use
-_CLIP_MAX_FRAMES = 232448 // (4 * 128)
+_CLIP_MAX_FRAMES = _SMEM_MAX // (4 * 128)
 
 
 def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float):

@@ -16,17 +16,28 @@ the stacks:
   size (two output bands, the K3 combine);
 * the lean path's chunked detection at 16x1024^2.
 
-Run from the repository root with ``python3 chip_smoke.py``.  Every
-phase raises on failure.  Each phase prints one JSON line; the line
-before the last is the card's ``nvidia-smi`` name and power limit, the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script exits non-zero before printing any result.
+Beside the checks against the plain twins it times K2 at 100x4096^2 with
+``combine='average'`` against ``combine='mean'`` (the same warp without
+the sort and clip): the warp phase against the combine phase.
+
+Run from the repository root with ``python3 chip_smoke.py``; every phase
+runs.  ``--only {k1,k2,k3,lean,unfused,small}`` runs one group of phases
+(the kernel check and timing of K1, K2 or K3 at the main paths' shapes,
+the lean path, the unfused path, or the 16x1024^2 chunked run and the
+small kernel matrix) and prints no ``kernels`` line.  Every phase raises
+on failure.  Each phase prints one JSON line; the build line carries
+ptxas' register, shared-memory and spill report for every kernel; the
+line before the last is the card's ``nvidia-smi`` name and power limit,
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,6 +53,11 @@ SKY = 800.0
 #: 5x5 centre-of-mass centroids carry a sub-pixel-phase bias (the JAX
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
+PHASES = ("k1", "k2", "k3", "lean", "unfused", "small")
+#: published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
+#: memory, and float32 outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 
 
 def _print(obj) -> None:
@@ -175,6 +191,21 @@ def _require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the memory rate, against the
+    operations at the float32 rate; the larger bounds it."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
 def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
     """K1 against detect_tiles_plain: max values within rtol 1e-4, atol
     1e-2; argmax and offsets equal (offsets within 1e-4 bin) on every
@@ -199,20 +230,51 @@ def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
     off = torch.maximum((kyo - pyo).abs(), (kxo - pxo).abs())
     _require(bool((off[same] <= 1e-4).all()), f"{label}: K1 offsets differ")
     ms = _time_ms(lambda: dt.detect_tiles(frames, thr, **args), reps)
+    # per raw pixel: 2-row binning (2 flops), then per binned pixel the
+    # Gaussian and box column and row passes (6 per tap), the density
+    # (5) and the 3x3 peak test (10)
+    ntap = 2 * dt._kernel_params(3.0)[1] + 1
+    n_bytes = _nbytes(frames, thr, mf, a_plane, er, *k)
     res = {"phase": "K1 vs detect_tiles_plain", "case": label,
            "shape": list(frames.shape),
            "max_abs_err": float(err[live].max()) if bool(live.any()) else 0.0,
            "offset_max_abs_err": float(off[same].max()),
            "argmax_ties": int(tie.sum()), "live_tiles": int(live.sum()),
-           "ms": ms, "plain_ms": plain_ms, "card": card}
+           "ms": ms, "plain_ms": plain_ms,
+           **_bound(n_bytes, frames.numel() * (3 * ntap + 9.5)), "card": card}
     _print(res)
     return res
 
 
-def check_warp(frames, mats, masters, er, label, card, reps=2, **kw):
+def _k2_kernel(frames, mats, masters, er, combine="average",
+               general_taps="exact", **kw):
+    """A call of K2's wrapper alone, on a plan made once (the host prep
+    of ``warp_combine`` is left out of the kernel's time)."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+
+    plan = wc.plan_warp_combine(frames.shape, mats, er,
+                                general_taps=general_taps, **kw)
+    return lambda: kernels.warp_combine_cuda(
+        frames, masters, plan, combine=wc._COMBINES.index(combine),
+        lowrank=general_taps == "lowrank", sigma_lower=5.0, sigma_upper=5.0)
+
+
+def _k2_bound(frames, masters, n_out: int) -> dict:
+    """K2 reads the raw stack and the masters once and writes the image;
+    per (frame, pixel) ~30 flops (5 of calibration, 6 horizontal and 6
+    vertical taps at 2 each, 1 to add the sample), plus the log2(N)
+    compares per sample of a comparison sort."""
+    n = frames.shape[0]
+    ops = frames.numel() * (30 + math.log2(max(n, 2)))
+    return _bound(_nbytes(frames, masters) + 4 * n_out, ops)
+
+
+def check_warp(frames, mats, masters, er, label, card, reps=3, **kw):
     """K2 against warp_combine_plain: rtol 1e-4, atol 1e-2, equal
     zero-coverage masks; at most 1e-5 of the pixels may differ (a sample
-    within rounding of a clip bound kept on one side only)."""
+    within rounding of a clip bound kept on one side only).  ``ms`` is
+    the kernel's own time."""
     from astrophotography_tpu_torch.ops import warp_combine as wc
 
     args = dict(masters=masters, exp_ratios=er, **kw)
@@ -228,11 +290,31 @@ def check_warp(frames, mats, masters, er, label, card, reps=2, **kw):
     ok_err = float(err[~bad].max())
     del k, p, err, bad
     torch.cuda.empty_cache()
-    ms = _time_ms(lambda: wc.warp_combine(frames, mats, **args), reps)
+    ms = _time_ms(_k2_kernel(frames, mats, masters, er, **kw), reps)
     res = {"phase": "K2 vs warp_combine_plain", "case": label,
            "shape": list(frames.shape), "max_abs_err": ok_err,
            "pixels_differing": frac, "ms": ms, "plain_ms": plain_ms,
-           "card": card}
+           **_k2_bound(frames, masters, frames[0].numel()), "card": card}
+    _print(res)
+    return res
+
+
+def k2_split(frames, mats, masters, er, label, card, reps=3, **kw):
+    """K2's time with combine='average' against combine='mean' (the same
+    warp; 'mean' skips the sort, the MAD and the clip), in turns
+    average, mean, mean, average on one card: the warp phase against the
+    combine phase."""
+    runs = {c: _k2_kernel(frames, mats, masters, er, combine=c, **kw)
+            for c in ("average", "mean")}
+    times = {"average": [], "mean": []}
+    for c in ("average", "mean", "mean", "average"):
+        times[c].append(_time_ms(runs[c], reps))
+    avg = sum(times["average"]) / 2
+    mean = sum(times["mean"]) / 2
+    res = {"phase": "K2 split, average vs mean", "case": label,
+           "shape": list(frames.shape), "average_ms": times["average"],
+           "mean_ms": times["mean"], "combine_ms": avg - mean,
+           "combine_share": (avg - mean) / avg, "card": card}
     _print(res)
     return res
 
@@ -253,10 +335,16 @@ def check_clip(stack, mask, label, card, reps=5):
     del k, p
     torch.cuda.empty_cache()
     ms = _time_ms(lambda: cc.clip_combine(stack, mask), reps)
+    # per sample: log2(N) compares of a comparison sort, the deviation
+    # (2), the clip tests (2) and the sum (1)
+    n = stack.shape[0]
+    ops = stack.numel() * (5 + math.log2(max(n, 2)))
     res = {"phase": "K3 vs clip_combine_plain", "case": label,
            "shape": list(stack.shape), "masked": mask is not None,
            "max_abs_err": err, "nan_pixels": int(nan_p.sum()),
-           "ms": ms, "plain_ms": plain_ms, "card": card}
+           "ms": ms, "plain_ms": plain_ms,
+           **_bound(_nbytes(stack, mask) + 4 * stack[0].numel(), ops),
+           "card": card}
     _print(res)
     return res
 
@@ -328,8 +416,10 @@ def _check_stack(label, stacked, size):
     return med
 
 
-def run_main_path(rotate: bool, card: str, dev) -> dict:
-    """Kernel checks at the main path's shapes, then the lean path."""
+def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
+    """Kernel checks at the main path's shapes (K1 on snap, K2 with its
+    average-vs-mean split), then the lean path, as far as ``phases``
+    asks."""
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.models import (
         calibrate_register_stack_lean)
@@ -343,18 +433,26 @@ def run_main_path(rotate: bool, card: str, dev) -> dict:
     er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
     masters, b_t, du_t, f_t = _masters(bias, dark, flat, dev)
     checks = {}
-    if not rotate:
+    if "k1" in phases and not rotate:
         # K1 on the main path's input (threshold: nsigma x the 8 ADU noise)
         mf = dt.master_densities(b_t, du_t, f_t, fwhm=cfg.fwhm)
         thr = torch.full((n,), cfg.detect_nsigma * 8.0, device=dev)
         checks["detect_tiles"] = check_detect(
             fr, thr, mf, masters[0], er, f"main path {label}", card)
         del mf
-    checks["warp_combine"] = check_warp(
-        fr, torch.from_numpy(mats.astype(np.float32)).to(dev), masters, er,
-        f"main path {label}", card, span=cfg.warp_span, apron=False,
-        dither_budget=cfg.dither_budget, general_taps=cfg.general_taps)
+    if "k2" in phases:
+        mats_t = torch.from_numpy(mats.astype(np.float32)).to(dev)
+        k2_kw = dict(span=cfg.warp_span, apron=False,
+                     dither_budget=cfg.dither_budget,
+                     general_taps=cfg.general_taps)
+        checks["warp_combine"] = check_warp(
+            fr, mats_t, masters, er, f"main path {label}", card, **k2_kw)
+        torch.cuda.empty_cache()
+        checks["warp_split"] = k2_split(fr, mats_t, masters, er,
+                                        f"main path {label}", card, **k2_kw)
     torch.cuda.empty_cache()
+    if "lean" not in phases:
+        return checks
 
     kw = dict(bias=torch.from_numpy(bias).to(dev),
               dark=torch.from_numpy(dark).to(dev),
@@ -399,6 +497,19 @@ def run_main_path(rotate: bool, card: str, dev) -> dict:
     del fr, stacked, out, masters, kw
     torch.cuda.empty_cache()
     return {"main": res, **checks}
+
+
+def _kernel_entry(name, replaces, launches, check) -> dict:
+    """One kernel's entry of the ``kernels`` line: launches on its main
+    path, error and times of its check at the main path's shape, the
+    bound from that check's inputs.  No single PyTorch call computes any
+    of the three kernels' functions, so ``library_ms`` is null."""
+    return {"name": name, "route": "cuda",
+            "source": f"astrophotography_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": check["max_abs_err"], "ms": check["ms"],
+            "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
+            "bound_by": check["bound_by"], "library_ms": None}
 
 
 def _unfused_split(fr, kw, cfg) -> dict:
@@ -448,20 +559,26 @@ def _unfused_split(fr, kw, cfg) -> dict:
     return split
 
 
-def run_unfused_path(card: str, dev) -> dict:
+def run_unfused_path(card: str, dev, phases) -> dict:
     """K3 against its twin at the unfused path's band shape, then the
-    unfused path (``calibrate_register_stack``) at 24x4096^2."""
+    unfused path (``calibrate_register_stack``) at 24x4096^2, as far as
+    ``phases`` asks."""
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.models import calibrate_register_stack
 
     label = "unfused path snap"
     cfg = unfused_config()
     n = UNFUSED_FRAMES
-    band = (n, SIZE // cfg.n_bands, SIZE)
-    stack, mask = _clip_inputs(*band, dev, seed=1)
-    k3 = check_clip(stack, mask, f"{label} band {band}", card)
-    del stack, mask
-    torch.cuda.empty_cache()
+    checks = {}
+    if "k3" in phases:
+        band = (n, SIZE // cfg.n_bands, SIZE)
+        stack, mask = _clip_inputs(*band, dev, seed=1)
+        checks["clip_combine"] = check_clip(stack, mask,
+                                            f"{label} band {band}", card)
+        del stack, mask
+        torch.cuda.empty_cache()
+    if "unfused" not in phases:
+        return checks
 
     t0 = time.perf_counter()
     frames, bias, dark, flat, exp_ratio, max_off, mats = make_workload(
@@ -518,7 +635,7 @@ def run_unfused_path(card: str, dev) -> dict:
     _print(res)
     del fr, kw
     torch.cuda.empty_cache()
-    return {"main": res, "clip_combine": k3}
+    return {"main": res, **checks}
 
 
 def run_lean_chunked(card: str, dev) -> dict:
@@ -595,10 +712,15 @@ def run_small_matrix(card: str, dev) -> None:
             check_clip(stack, mask, f"{n}x1024^2", card, reps=3)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.device import resolve_device
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=PHASES,
+                    help="run this group of phases alone (default: all)")
+    args = ap.parse_args(argv)
+    phases = set(PHASES) if args.only is None else {args.only}
     dev = resolve_device("cuda")        # raises without a usable card
     card = card_line()
     t0 = time.perf_counter()
@@ -608,41 +730,38 @@ def main() -> int:
     _print({"phase": "build", "libraries": {k: str(v) for k, v in libs.items()},
             "seconds": build_s,
             "nvcc": kernels.build_info.get("nvcc_version"),
+            "ptxas": kernels.build_info.get("ptxas"),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "card": card})
 
-    snap = run_main_path(False, card, dev)
-    rot = run_main_path(True, card, dev)
-    unfused = run_unfused_path(card, dev)
-    run_lean_chunked(card, dev)
-    run_small_matrix(card, dev)
+    snap = rot = unfused = {}
+    if phases & {"k1", "k2", "lean"}:
+        snap = run_main_path(False, card, dev, phases)
+    if phases & {"k2", "lean"}:
+        rot = run_main_path(True, card, dev, phases)
+    if phases & {"k3", "unfused"}:
+        unfused = run_unfused_path(card, dev, phases)
+    if "small" in phases:
+        run_lean_chunked(card, dev)
+        run_small_matrix(card, dev)
 
-    launches = snap["main"]["launches"]
-    kernels_line = {"kernels": [
-        {"name": "detect_tiles", "route": "cuda",
-         "source": "astrophotography_tpu_torch/csrc/detect_tiles.cu",
-         "replaces": "astrophotography_tpu/ops/pallas_detect.py:405",
-         "launches": launches["detect_tiles"],
-         "max_abs_err": snap["detect_tiles"]["max_abs_err"],
-         "ms": snap["detect_tiles"]["ms"],
-         "plain_ms": snap["detect_tiles"]["plain_ms"]},
-        {"name": "warp_combine", "route": "cuda",
-         "source": "astrophotography_tpu_torch/csrc/warp_combine.cu",
-         "replaces": "astrophotography_tpu/ops/pallas_warp_combine.py:658",
-         "launches": launches["warp_combine"],
-         "max_abs_err": max(snap["warp_combine"]["max_abs_err"],
-                            rot["warp_combine"]["max_abs_err"]),
-         "ms": snap["warp_combine"]["ms"],
-         "plain_ms": snap["warp_combine"]["plain_ms"]},
-        {"name": "clip_combine", "route": "cuda",
-         "source": "astrophotography_tpu_torch/csrc/clip_combine.cu",
-         "replaces": "astrophotography_tpu/ops/pallas_combine.py:102",
-         "launches": unfused["main"]["launches"]["clip_combine"],
-         "max_abs_err": unfused["clip_combine"]["max_abs_err"],
-         "ms": unfused["clip_combine"]["ms"],
-         "plain_ms": unfused["clip_combine"]["plain_ms"]},
-    ]}
-    _print(kernels_line)
+    if args.only is None:
+        launches = snap["main"]["launches"]
+        k2 = dict(snap["warp_combine"],
+                  max_abs_err=max(snap["warp_combine"]["max_abs_err"],
+                                  rot["warp_combine"]["max_abs_err"]))
+        _print({"kernels": [
+            _kernel_entry("detect_tiles",
+                          "astrophotography_tpu/ops/pallas_detect.py:405",
+                          launches["detect_tiles"], snap["detect_tiles"]),
+            _kernel_entry("warp_combine",
+                          "astrophotography_tpu/ops/pallas_warp_combine.py:658",
+                          launches["warp_combine"], k2),
+            _kernel_entry("clip_combine",
+                          "astrophotography_tpu/ops/pallas_combine.py:102",
+                          unfused["main"]["launches"]["clip_combine"],
+                          unfused["clip_combine"]),
+        ]})
     print(card, flush=True)
     _print({"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),

@@ -66,33 +66,80 @@ def test_detect_kernel_matches_plain(cuda, masters):
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("combine", ["average", "median", "sum", "mean"])
-@pytest.mark.parametrize("taps", ["exact", "lowrank"])
-def test_warp_combine_kernel_equals_plain(cuda, combine, taps):
-    """The kernel rounds every value operation as its twin does, so the
-    two agree bit for bit."""
-    n, h, w = 6, 128, 256
-    rng = np.random.default_rng(2)
-    raw = torch.from_numpy(_starfield(n, h, w, 3)).to(cuda)
+def _warp_mats(n, seed, rotate=True):
+    """Frame 0 identity, frame 2 a pure translation (both snapped), the
+    rest translations of up to 5 px with, under ``rotate``, rotations of
+    0.002-0.004 rad (the general tap bodies)."""
+    rng = np.random.default_rng(seed)
     mats = []
     for f in range(n):
-        th = 0.0 if f in (0, 2) else rng.choice([-1, 1]) * rng.uniform(0.002,
-                                                                        0.004)
+        th = 0.0 if f in (0, 2) or not rotate else \
+            rng.choice([-1, 1]) * rng.uniform(0.002, 0.004)
         tx, ty = (0.0, 0.0) if f == 0 else rng.uniform(-5, 5, 2)
         c, s = np.cos(th), np.sin(th)
         mats.append([[c, -s, tx], [s, c, ty]])
-    mats = torch.tensor(np.asarray(mats, np.float32), device=cuda)
-    masters = torch.stack([torch.full((h, w), 1.02), torch.full((h, w), 300.0),
-                           torch.full((h, w), 20.0)]).to(cuda)
-    args = dict(masters=masters, exp_ratios=torch.full((n,), 0.5, device=cuda),
-                flux_scales=torch.linspace(0.9, 1.1, n, device=cuda),
-                tile=(32, 128), combine=combine, general_taps=taps)
+    return np.asarray(mats, np.float32)
+
+
+def _warp_check(raw, mats, masters, **kw):
+    """K2 against its twin: bit for bit, one launch, >80% covered."""
+    n = raw.shape[0]
+    dev = raw.device
+    mats = torch.tensor(mats, device=dev)
+    args = dict(masters=masters, exp_ratios=torch.full((n,), 0.5, device=dev),
+                flux_scales=torch.linspace(0.9, 1.1, n, device=dev), **kw)
     before = kernels.launch_counts["warp_combine"]
     got = wc.warp_combine(raw, mats, **args)
     assert kernels.launch_counts["warp_combine"] == before + 1
     want = wc.warp_combine_plain(raw, mats, **args)
     assert torch.equal(got, want)
     assert (got != 0).float().mean() > 0.8
+
+
+def _warp_masters(h, w, dev):
+    return torch.stack([torch.full((h, w), 1.02), torch.full((h, w), 300.0),
+                        torch.full((h, w), 20.0)]).to(dev)
+
+
+@pytest.mark.parametrize("combine", ["average", "median", "sum", "mean"])
+@pytest.mark.parametrize("taps", ["exact", "lowrank"])
+def test_warp_combine_kernel_equals_plain(cuda, combine, taps):
+    """The kernel rounds every value operation as its twin does, so the
+    two agree bit for bit."""
+    n, h, w = 6, 128, 256
+    raw = torch.from_numpy(_starfield(n, h, w, 3)).to(cuda)
+    _warp_check(raw, _warp_mats(n, 2), _warp_masters(h, w, cuda),
+                tile=(32, 128), combine=combine, general_taps=taps)
+
+
+@pytest.mark.parametrize("combine", ["average", "median", "sum", "mean"])
+@pytest.mark.parametrize("taps", ["exact", "lowrank"])
+@pytest.mark.parametrize("tile", [(24, 384), (20, 256), (20, 176)])
+def test_warp_combine_kernel_ragged_blocks(cuda, tile, taps, combine):
+    """Tiles whose height (20) or width (176) the kernel's 8 x 32 block
+    does not divide, on an image the tiles do not divide: the last block
+    of a tile is clipped and still bit-identical, in every body."""
+    n, h, w = 6, 256, 768
+    raw = torch.from_numpy(_starfield(n, h, w, 3)).to(cuda)
+    _warp_check(raw, _warp_mats(n, 2), _warp_masters(h, w, cuda),
+                tile=tile, combine=combine, general_taps=taps)
+
+
+@pytest.mark.parametrize("n,dtype,combine", [
+    (240, torch.uint16, "median"), (908, torch.float32, "average")])
+def test_warp_combine_kernel_many_frames(cuda, n, dtype, combine):
+    """Above the frame counts where the block loses rows (7 rows at 240
+    frames, 1 row at the 908-frame limit, where the window no longer fits
+    the registers it is staged in), uint16 with masters and float32
+    without, snapped translations."""
+    assert kernels._warp_block_rows(n, 12) < 8
+    h, w = 64, 256
+    frames = torch.from_numpy(_starfield(n, h, w, 4)).to(cuda)
+    masters = _warp_masters(h, w, cuda)
+    if dtype == torch.float32:       # pre-calibrated input, no masters
+        frames, masters = frames.to(torch.float32) * 1.02 - 300.0, None
+    _warp_check(frames, _warp_mats(n, 5, rotate=False), masters,
+                combine=combine)
 
 
 def _clip_stack(n, h, w, seed):

@@ -162,11 +162,18 @@ def test_resolve_device_never_falls_back():
     from astrophotography_tpu_torch.device import resolve_device
 
     assert resolve_device("cpu").type == "cpu"
+    assert resolve_device(torch.device("cpu")).type == "cpu"
     if torch.cuda.is_available():
         assert resolve_device("cuda").type == "cuda"
+        assert resolve_device().type == "cuda"
+        assert resolve_device(None).type == "cuda"
     else:
+        # no argument means the card, never a quiet CPU
+        for dev in ("cuda", None):
+            with pytest.raises(RuntimeError, match="cuda"):
+                resolve_device(dev)
         with pytest.raises(RuntimeError, match="cuda"):
-            resolve_device("cuda")
+            resolve_device()
 
 
 def test_unported_paths_raise():

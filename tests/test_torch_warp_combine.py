@@ -231,3 +231,47 @@ def test_rejects_bad_arguments():
         twc.warp_combine(c, m, tile=(32, 64), combine="max")
     with pytest.raises(ValueError, match="exceed span"):
         twc.warp_combine(c, m, tile=(8, 64))
+
+
+def test_kernel_frame_limit_message():
+    """K2's wrapper refuses more frames than its limit before it touches
+    the card, with the limit in the message."""
+    from astrophotography_tpu_torch import kernels
+
+    assert kernels._MAX_FRAMES == 908
+    frames = torch.zeros((909, 4, 4), dtype=torch.uint16)
+    with pytest.raises(ValueError, match=r"^warp_combine kernel takes at "
+                                         r"most 908 frames, got 909$"):
+        kernels.warp_combine_cuda(frames, None, None, combine=0,
+                                  lowrank=False, sigma_lower=5.0,
+                                  sigma_upper=5.0)
+
+
+@pytest.mark.parametrize("n,span,rows", [
+    (1, 12, 8), (100, 8, 8), (100, 12, 8), (226, 12, 7), (400, 12, 4),
+    (908, 12, 1), (908, 100, 1)])
+def test_kernel_block_rows(n, span, rows):
+    """K2's block keeps 8 rows of 32 pixels until the N-sample columns
+    leave no room, then loses rows down to 1 at the frame limit."""
+    from astrophotography_tpu_torch import kernels
+
+    assert kernels._warp_block_rows(n, span) == rows
+    assert kernels._warp_smem_bytes(n, rows, span) <= kernels._SMEM_MAX
+    if rows < 8:
+        assert kernels._warp_smem_bytes(n, rows + 1, span) > kernels._SMEM_MAX
+
+
+def test_kernel_main_shape_fits_two_blocks_per_sm():
+    """At the main path's 100 frames two 256-thread blocks share an SM
+    (233472 B of shared memory, 1 KB of it reserved per block)."""
+    from astrophotography_tpu_torch import kernels
+
+    for span in (8, 12):
+        assert 2 * (kernels._warp_smem_bytes(100, 8, span) + 1024) <= 233472
+
+
+def test_kernel_rejects_span_beyond_shared_memory():
+    from astrophotography_tpu_torch import kernels
+
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels._warp_block_rows(908, 200)
