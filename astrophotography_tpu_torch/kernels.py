@@ -39,7 +39,8 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 #: ``-Xptxas -v`` reports each kernel's registers, shared memory, stack
 #: frame and spills on stderr, kept in ``build_info["ptxas"]``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(_SRC))
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {name: 0 for name in _SOURCES}
@@ -69,8 +70,11 @@ def _nvcc() -> str:
 
 def _library(name: str) -> Path:
     """The shared library of kernel ``name``, named by a hash of its
-    source and the flags."""
+    source, of every header under csrc/ (an edit of a shared header
+    rebuilds every library) and of the flags."""
     h = hashlib.sha256((_SRC / _SOURCES[name]).read_bytes())
+    for header in sorted(_SRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -120,14 +124,15 @@ def _load() -> dict:
                     for name, path in build().items()}
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fn = libs["detect_tiles"].detect_tiles_launch
-            fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                           p]
             fn.restype = i
             fn = libs["warp_combine"].warp_combine_launch
             fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
                            f, i, p]
             fn.restype = i
             fn = libs["clip_combine"].clip_combine_launch
-            fn.argtypes = [p, p, p, i, i, i, f, f, p]
+            fn.argtypes = [p, p, p, i, i, i, f, f, i, p]
             fn.restype = i
             _libs = libs
         return _libs
@@ -159,10 +164,46 @@ def _frames_arg(frames: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _params_on(params: tuple, device: torch.device) -> torch.Tensor:
-    """K1's parameter block on ``device``, copied once: a copy from
-    pageable host memory waits for the stream, on every call."""
-    return torch.tensor(params, dtype=torch.float32, device=device)
+def _params_block(params: tuple):
+    """K1's parameter block as a C float array in host memory: the
+    launch passes it to the kernel by value."""
+    return (ctypes.c_float * len(params))(*params)
+
+
+#: K1's tile (binned rows x columns), the rolling kernel's columns per
+#: thread, its largest block (tile columns) and strip (tiles), and the
+#: blocks that fill the card twice over (132 SMs x 3 blocks x 2)
+_DET_TTY, _DET_TTX, _DET_CPT = 32, 256, 4
+_DET_MAX_TILE_COLS, _DET_MAX_STRIP_TILES, _DET_FILL_BLOCKS = 2, 8, 792
+#: the largest filter radius K1 takes (radii 2 and 3 run the rolling
+#: kernel, any other the staged-tile route; csrc/detect_tiles.cu)
+_DET_MAX_RADIUS = 16
+
+
+def _detect_layout(n: int, h: int, w: int) -> dict:
+    """The rolling K1 kernel's launch shape for ``n`` frames of ``h`` x
+    ``w`` (mirrors ``launch_rolling`` in csrc/detect_tiles.cu): a block
+    owns ``tile_cols`` tile columns (the most, up to 2, that divide the
+    frame's) with 64 threads each plus 2 halo threads, and walks
+    ``strip_tiles`` tiles of 32 binned rows; the strip is halved from 8
+    tiles while the grid has fewer blocks than fill the card.  Its shared
+    memory is 8 rows of the strip with its halo: two buffers of the G
+    and Box rows and a ring of 4 density rows."""
+    tyn, txn = h // (2 * _DET_TTY), w // _DET_TTX
+    tile_cols = next(k for k in range(_DET_MAX_TILE_COLS, 0, -1)
+                     if txn % k == 0)
+    strip_tiles = min(_DET_MAX_STRIP_TILES, tyn)
+
+    def blocks(s):
+        return n * (txn // tile_cols) * -(-tyn // s)
+
+    while strip_tiles > 1 and blocks(strip_tiles) < _DET_FILL_BLOCKS:
+        strip_tiles = (strip_tiles + 1) // 2
+    core = _DET_TTX // _DET_CPT * tile_cols
+    threads = -(-(core + 2) // 32) * 32
+    return {"tile_cols": tile_cols, "strip_tiles": strip_tiles,
+            "threads": threads, "segments": -(-tyn // strip_tiles),
+            "smem_bytes": 4 * 8 * (_DET_CPT * (core + 2) + 8)}
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -176,6 +217,9 @@ def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
     ``ops.detect_tiles.detect_tiles`` for the arguments and results."""
     dev = frames.device
     n, h, w = frames.shape
+    if not 1 <= r <= _DET_MAX_RADIUS:
+        raise ValueError(f"detect_tiles kernel takes filter radii 1 to "
+                         f"{_DET_MAX_RADIUS}, got {r}")
     frames, is_u16 = _frames_arg(frames)
     thr = _check(thresholds, "thresholds", dev, (n,))
     if exp_ratios is None:
@@ -183,7 +227,8 @@ def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
     er = _check(exp_ratios, "exp_ratios", dev, (n,))
     a = _check(a_plane, "a_plane", dev, (h, w))
     mf = _check(mf_bc, "mf_bc", dev, (2, h // 2, w))
-    par = _params_on(tuple(params), dev)
+    par = _params_block(tuple(params))
+    lay = _detect_layout(n, h, w)
     shape = (n, h // 64, w // 256)
     out_max = torch.empty(shape, dtype=torch.float32, device=dev)
     out_idx = torch.empty(shape, dtype=torch.int32, device=dev)
@@ -193,8 +238,9 @@ def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.detect_tiles_launch(
         _ptr(frames), is_u16, _ptr(a), _ptr(mf), _ptr(thr), _ptr(er),
-        _ptr(par), _ptr(out_max), _ptr(out_idx), _ptr(out_yoff),
-        _ptr(out_xoff), n, h, w, r, ctypes.c_void_p(stream))
+        ctypes.cast(par, ctypes.c_void_p), _ptr(out_max), _ptr(out_idx),
+        _ptr(out_yoff), _ptr(out_xoff), n, h, w, r, lay["tile_cols"],
+        lay["strip_tiles"], ctypes.c_void_p(stream))
     _raise_on(err, "detect_tiles")
     launch_counts["detect_tiles"] += 1
     return out_max, out_idx, out_yoff, out_xoff
@@ -261,9 +307,39 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
     return out
 
 
-#: K3 keeps each thread's N samples in 4 B of shared memory each, 128
-#: threads per block, within the 227 KB a block may use
-_CLIP_MAX_FRAMES = _SMEM_MAX // (4 * 128)
+#: K3 sorts N <= 32 samples in registers (padded to 8, 16, 24 or 32);
+#: above, it keeps two columns of shared memory per thread (frame order
+#: and sorted, 4 B per sample each) in blocks of 128, 64 or 32 threads
+#: (csrc/clip_combine.cu)
+_CLIP_REG_FRAMES = (8, 16, 24, 32)
+_CLIP_THREADS = (128, 64, 32)
+_CLIP_MAX_FRAMES = _SMEM_MAX // (2 * 4 * _CLIP_THREADS[-1])
+
+
+def _clip_route(n: int) -> str:
+    """Which of K3's routes ``n`` frames take: 'regs8', 'regs16',
+    'regs24', 'regs32' or 'smem' (mirrors ``clip_combine_launch``)."""
+    for p in _CLIP_REG_FRAMES:
+        if n <= p:
+            return f"regs{p}"
+    return "smem"
+
+
+def _clip_smem_bytes(n: int, threads: int) -> int:
+    """Dynamic shared memory of one K3 block: none on the register
+    routes, two N-sample columns per thread on the shared-memory one."""
+    return 0 if _clip_route(n) != "smem" else 2 * 4 * n * threads
+
+
+def _clip_block_threads(n: int) -> int:
+    """The widest K3 block whose columns fit a block's shared memory."""
+    if n < 1:
+        raise ValueError(f"clip_combine kernel needs at least 1 frame, got {n}")
+    for threads in _CLIP_THREADS:
+        if _clip_smem_bytes(n, threads) <= _SMEM_MAX:
+            return threads
+    raise ValueError(f"clip_combine kernel takes at most {_CLIP_MAX_FRAMES} "
+                     f"frames, got {n}")
 
 
 def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float):
@@ -273,9 +349,7 @@ def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float):
     if stack.dim() != 3:
         raise ValueError(f"stack must be (N, H, W), got {tuple(stack.shape)}")
     n, h, w = stack.shape
-    if not 1 <= n <= _CLIP_MAX_FRAMES:
-        raise ValueError(f"clip_combine kernel takes 1 to {_CLIP_MAX_FRAMES} "
-                         f"frames, got {n}")
+    threads = _clip_block_threads(n)        # raises above the frame limit
     if stack.dtype != torch.float32:
         raise ValueError(f"stack must be float32, got {stack.dtype}")
     stack = _check(stack, "stack", dev)
@@ -289,7 +363,7 @@ def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.clip_combine_launch(
         _ptr(stack), _ptr(mask), _ptr(out), n, h, w, sigma_lower,
-        sigma_upper, ctypes.c_void_p(stream))
+        sigma_upper, threads, ctypes.c_void_p(stream))
     _raise_on(err, "clip_combine")
     launch_counts["clip_combine"] += 1
     return out

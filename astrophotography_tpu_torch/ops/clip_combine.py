@@ -84,6 +84,45 @@ def clip_combine_plain(stack: torch.Tensor,
     return torch.where(cnt > 0, acc / torch.clamp(cnt, min=1.0), torch.nan)
 
 
+def mad_ranks_by_merging(srt: torch.Tensor, count: torch.Tensor,
+                         med: torch.Tensor):
+    """The MAD's two ranks without a second sort, as the K3 kernel takes
+    them; a plain statement of the rule for the tests, used by no path.
+
+    ``srt`` (N, ...) holds each pixel's samples sorted ascending with the
+    invalid ones last, ``count`` (...) the number of valid ones and ``med``
+    (...) their median.  The deviations ``|srt - med|`` of the valid
+    samples fall to the median and rise after it: two monotone runs.
+    Merging them, smallest first, from the median outwards yields the
+    sorted deviations; a deviation past the valid samples is +3.4e38.
+    Returns the deviations at ranks ``max((count - 1) // 2, 0)`` and
+    ``count // 2``, equal to those ranks of the sorted deviations
+    because a rank of a multiset does not depend on its order."""
+    n = srt.shape[0]
+    lo_i = torch.clamp(torch.div(count - 1, 2, rounding_mode="floor"), min=0)
+    hi_i = torch.clamp(torch.div(count, 2, rounding_mode="floor"), min=0)
+    rank = torch.arange(n, device=srt.device).reshape((n,) + (1,) * med.dim())
+    # first valid sample that is not below the median
+    b = ((srt < med) & (rank < count)).sum(dim=0)
+    a = b - 1
+    big = torch.full_like(med, _BIG)
+    d_lo, d_hi = big.clone(), big.clone()
+
+    def dev(i, inside):
+        s = srt.gather(0, i.clamp(0, n - 1)[None])[0]
+        return torch.where(inside, (s - med).abs(), big)
+
+    for k in range(n // 2 + 1):
+        da, db = dev(a, a >= 0), dev(b, b < count)
+        take_a = da <= db
+        d = torch.where(take_a, da, db)
+        a = torch.where(take_a, a - 1, a)
+        b = torch.where(take_a, b, b + 1)
+        d_lo = torch.where(lo_i == k, d, d_lo)
+        d_hi = torch.where(hi_i == k, d, d_hi)
+    return d_lo, d_hi
+
+
 def clip_combine(stack: torch.Tensor, mask: Optional[torch.Tensor] = None,
                  sigma_lower: float = 5.0,
                  sigma_upper: float = 5.0) -> torch.Tensor:

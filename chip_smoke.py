@@ -638,9 +638,76 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     return {"main": res, **checks}
 
 
+def _lean_chunked_split(fr, kw, cfg) -> dict:
+    """Host-clock and device time (ms) of each stage of one lean run with
+    chunked detection, stage by stage as ``calibrate_register_stack_lean``
+    runs them, with a synchronise after every stage: ``host`` is the
+    stage's wall time (launch overhead and the host's waits on device
+    values included), ``device`` the time between its CUDA events,
+    ``cuda_mallocs`` the memory segments PyTorch's caching allocator had
+    to get from ``cudaMalloc`` during the stage (each such call stalls
+    the host and the card)."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.models import pipeline as pl
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+    from astrophotography_tpu_torch.ops.calibrate import calibrate_batch
+
+    host, device, mallocs = {}, {}, {}
+
+    def segments():
+        return torch.cuda.memory_stats()["segment.all.allocated"]
+
+    def stage(name, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s0, t0 = segments(), time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        host[name] = host.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        device[name] = device.get(name, 0.0) + start.elapsed_time(end)
+        mallocs[name] = mallocs.get(name, 0) + segments() - s0
+        return out
+
+    n, h, w = fr.shape
+    c = cfg.detect_chunk
+    parts = []
+    for k in range(0, n, c):
+        calc = stage("calibrate", lambda: calibrate_batch(
+            fr[k:k + c], kw["bias"], kw["dark"], kw["flat"],
+            kw["exp_ratios"][k:k + c],
+            dark_still_biased=cfg.dark_still_biased))
+        ce, s = stage("noise_stats", lambda: pl.frame_noise_stats(
+            calc, center=cfg.noise_center))
+        parts.append(stage("find_stars",
+                           lambda: pl._find_stars(calc, ce, s, cfg)))
+    stars = pl._concat_stars(parts)
+    _sims, mats, _ref = stage(
+        "register", lambda: pl._solve_frame_similarities(stars, n, cfg))
+    planes = stage("masters", lambda: pl._calibration_planes(
+        kw["bias"], kw["dark"], kw["flat"], cfg.dark_still_biased, h, w,
+        fr.device))
+    masters = stage("masters", lambda: torch.stack(planes[:3]))
+    plan = stage("K2 plan", lambda: wc.plan_warp_combine(
+        fr.shape, mats, kw["exp_ratios"], None, tile=cfg.fused_tile,
+        span=cfg.warp_span, apron=cfg.fused_apron or h < 96 or w < 768,
+        dither_budget=cfg.dither_budget, general_taps=cfg.general_taps))
+    stage("K2", lambda: kernels.warp_combine_cuda(
+        fr, masters, plan, combine=wc._COMBINES.index(cfg.combine),
+        lowrank=cfg.general_taps == "lowrank", sigma_lower=cfg.sigma_lower,
+        sigma_upper=cfg.sigma_upper))
+    return {"host_ms": host, "device_ms": device, "cuda_mallocs": mallocs,
+            "host_total_ms": sum(host.values()),
+            "device_total_ms": sum(device.values())}
+
+
 def run_lean_chunked(card: str, dev) -> dict:
     """The lean path with detect_impl='chunked' (calibrate + noise stats
-    + find_stars chunk by chunk, then K2) at 16x1024^2."""
+    + find_stars chunk by chunk, then K2) at 16x1024^2: one timed run
+    after a warm-up, four more to show how far runs spread, then the
+    stage split, twice."""
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.models import (
         calibrate_register_stack_lean)
@@ -668,8 +735,16 @@ def run_lean_chunked(card: str, dev) -> dict:
     min_in, max_rms, t_err = _check_registration(label, diag, mats,
                                                  UNFUSED_T_ERR_PX)
     med = _check_stack(label, stacked, size)
+    later_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        calibrate_register_stack_lean(fr, config=cfg, **kw)
+        torch.cuda.synchronize()
+        later_ms.append((time.perf_counter() - t0) * 1e3)
     res = {"phase": label, "shape": [n, size, size],
-           "single_run_ms": single_ms, "launches": launches,
+           "single_run_ms": single_ms, "later_runs_ms": later_ms,
+           "splits": [_lean_chunked_split(fr, kw, cfg) for _ in range(2)],
+           "launches": launches,
            "min_inliers": min_in, "max_rms_px": max_rms,
            "max_translation_err_px": t_err, "interior_median": med,
            "card": card}
@@ -681,7 +756,11 @@ def run_small_matrix(card: str, dev) -> None:
     """The smaller matrix of kernel cases: K1 at 8x1024^2 with masters;
     K2 at 16x1024^2 with masters for every combine, on snapped
     translations and on rotations under 'exact' and 'lowrank'; K3 at
-    N x 1024^2 for N in 1, 2, 7, 24, 100, with and without a mask."""
+    N x 1024^2 with and without a mask for N in 1, 2, 7, 24, 100 and
+    either side of its route boundaries (registers up to 8, 16, 24 and 32
+    frames, shared memory above), and at N x 256 x 1024 with a mask on
+    either side of its block shapes' limits (128 threads to 227 frames,
+    64 to 454, 32 to 908)."""
     from astrophotography_tpu_torch.ops import detect_tiles as dt
 
     frames, bias, dark, flat, exp_ratio, _off, mats = make_workload(
@@ -705,11 +784,16 @@ def run_small_matrix(card: str, dev) -> None:
                        combine=combine, general_taps=taps, dither_budget=32)
     del fr, rfr, masters, mf
     torch.cuda.empty_cache()
-    for n in (1, 2, 7, 24, 100):
+    for n in (1, 2, 7, 8, 9, 16, 17, 24, 25, 32, 33, 100):
         for masked in (False, True):
             stack, mask = _clip_inputs(n, 1024, 1024, dev, seed=n,
                                        masked=masked)
             check_clip(stack, mask, f"{n}x1024^2", card, reps=3)
+    for n in (227, 228, 454, 455, 908):
+        stack, mask = _clip_inputs(n, 256, 1024, dev, seed=n)
+        check_clip(stack, mask, f"{n}x256x1024", card, reps=3)
+        del stack, mask
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

@@ -12,8 +12,9 @@ import jax.numpy as jnp
 
 from astrophotography_tpu.ops.pallas_combine import pallas_sigma_clip_combine
 from astrophotography_tpu.ops.stack import sigma_clip_combine as jax_combine
-from astrophotography_tpu_torch.ops.clip_combine import (clip_combine,
-                                                         clip_combine_plain)
+from astrophotography_tpu_torch import kernels
+from astrophotography_tpu_torch.ops.clip_combine import (
+    _BIG, clip_combine, clip_combine_plain, mad_ranks_by_merging)
 from astrophotography_tpu_torch.ops.stack import sigma_clip_combine
 
 # one intra-op thread: the suite runs in parallel worker processes, whose
@@ -91,6 +92,59 @@ def test_clip_combine_rejects_bad_shapes():
         clip_combine(torch.zeros((4, 4)))
     with pytest.raises(ValueError, match="mask"):
         clip_combine(torch.zeros((2, 4, 4)), torch.ones((2, 4, 5), dtype=bool))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 8, 16, 17, 24, 33])
+def test_mad_ranks_by_merging_equal_sorted_deviations(n):
+    """The rule K3 uses in place of a second sort: on samples with ties
+    and every valid count from 0 to N, merging the two runs of deviations
+    around the median gives the ranks of the sorted deviations, bit for
+    bit."""
+    rng = np.random.default_rng(n)
+    pix = 40 * (n + 1)
+    stack = np.round(rng.normal(100, 3, (n, pix))).astype(np.float32)
+    stack[:, ::3] += rng.normal(0, 1, (n, len(range(0, pix, 3)))) \
+        .astype(np.float32)
+    count = np.arange(pix) % (n + 1)              # every count, 0 .. n
+    valid = np.stack([rng.permutation(n) < c for c in count], axis=1)
+    st, va = torch.from_numpy(stack), torch.from_numpy(valid)
+    cnt = va.sum(dim=0)
+    lo_i = torch.clamp((cnt - 1) // 2, min=0)[None]
+    hi_i = (cnt // 2)[None]
+    srt = torch.sort(torch.where(va, st, _BIG), dim=0).values
+    med = (0.5 * (srt.gather(0, lo_i) + srt.gather(0, hi_i)))[0]
+    dsrt = torch.sort(torch.where(va, (st - med).abs(), _BIG), dim=0).values
+    d_lo, d_hi = mad_ranks_by_merging(srt, cnt, med)
+    assert torch.equal(d_lo, dsrt.gather(0, lo_i)[0])
+    assert torch.equal(d_hi, dsrt.gather(0, hi_i)[0])
+    assert set(count.tolist()) == set(range(n + 1))
+
+
+def test_clip_kernel_block_shapes():
+    """Every frame count up to the limit gets a route and a block whose
+    shared memory fits the 232,448 bytes a block may use; the limit has
+    not fallen below 454; one frame above it raises."""
+    limit = kernels._CLIP_MAX_FRAMES
+    assert limit >= 454
+    for n in range(1, limit + 1):
+        threads = kernels._clip_block_threads(n)
+        assert threads in (128, 64, 32)
+        assert kernels._clip_smem_bytes(n, threads) <= 232448
+        # the widest block that fits
+        assert threads == 128 or \
+            kernels._clip_smem_bytes(n, 2 * threads) > 232448
+    assert [kernels._clip_route(n) for n in (1, 8, 9, 16, 17, 24, 25, 32, 33,
+                                             limit)] == \
+        ["regs8", "regs8", "regs16", "regs16", "regs24", "regs24", "regs32",
+         "regs32", "smem", "smem"]
+    assert kernels._clip_smem_bytes(24, 128) == 0
+    assert kernels._clip_smem_bytes(100, 128) == 2 * 4 * 100 * 128
+    assert [kernels._clip_block_threads(n) for n in (227, 228, 454, 455)] \
+        == [128, 64, 64, 32]
+    with pytest.raises(ValueError, match="at most"):
+        kernels._clip_block_threads(limit + 1)
+    with pytest.raises(ValueError, match="at least 1"):
+        kernels._clip_block_threads(0)
 
 
 def _stack_case(seed=5):

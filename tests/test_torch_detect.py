@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from astrophotography_tpu import synth
 from astrophotography_tpu.ops import detect as jdetect
 from astrophotography_tpu.ops import pallas_detect as jpd
+from astrophotography_tpu_torch import kernels
 from astrophotography_tpu_torch.ops import detect as tdetect
 from astrophotography_tpu_torch.ops import detect_tiles as tdt
 
@@ -138,3 +139,30 @@ def test_detect_tiles_float_frames_match_uint16():
     b = tdt.detect_tiles(torch.from_numpy(raw.astype(np.float32)), thr)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h", [64, 128, 4096])
+@pytest.mark.parametrize("n,w", [(1, 256), (8, 1024), (100, 4096), (3, 1536)])
+def test_detect_kernel_layout(n, h, w):
+    """The rolling K1 kernel's launch shape: the block's tile columns
+    divide the frame's, its threads are 64 per tile column plus the two
+    halo threads rounded up to warps, the strips cover every tile row,
+    and the shared rows (two buffers of G and Box, a ring of four
+    density rows) stay small."""
+    lay = kernels._detect_layout(n, h, w)
+    tyn, txn = h // 64, w // 256
+    assert lay["tile_cols"] in (1, 2) and txn % lay["tile_cols"] == 0
+    assert lay["tile_cols"] == max(k for k in (1, 2) if txn % k == 0)
+    core = 64 * lay["tile_cols"]
+    assert lay["threads"] % 32 == 0
+    assert core + 2 <= lay["threads"] < core + 2 + 32 and lay["threads"] <= 160
+    assert 1 <= lay["strip_tiles"] <= min(8, tyn)
+    assert (lay["segments"] - 1) * lay["strip_tiles"] < tyn \
+        <= lay["segments"] * lay["strip_tiles"]
+    assert lay["smem_bytes"] == 4 * 8 * (4 * (core + 2) + 8) <= 17 * 1024
+    # a grid that fills the card keeps the longest strip
+    if n * (txn // lay["tile_cols"]) * -(-tyn // 8) >= 792:
+        assert lay["strip_tiles"] == min(8, tyn)
+    assert kernels._detect_layout(100, 4096, 4096) == {
+        "tile_cols": 2, "strip_tiles": 8, "threads": 160, "segments": 8,
+        "smem_bytes": 16896}

@@ -66,6 +66,145 @@ def test_detect_kernel_matches_plain(cuda, masters):
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-4)
 
 
+def _detect_check(fr, thr, fwhm=3.0, **args):
+    """K1 against its twin at the tolerances of chip_smoke.check_detect:
+    maxima rtol 1e-4 / atol 1e-2, equal argmax, offsets within 1e-4; one
+    launch.  Returns the kernel's results."""
+    before = kernels.launch_counts["detect_tiles"]
+    got = dt.detect_tiles(fr, thr, fwhm=fwhm, **args)
+    assert kernels.launch_counts["detect_tiles"] == before + 1
+    want = dt.detect_tiles_plain(fr, thr, fwhm=fwhm, **args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-2)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-4)
+    return got
+
+
+def _detect_masters(n, h, w, dev, fwhm=3.0):
+    rng = np.random.default_rng(1)
+    bias = torch.from_numpy((250 + rng.normal(0, 2, (h, w)))
+                            .astype(np.float32)).to(dev)
+    dark = torch.full((h, w), 3.0, device=dev)
+    flat = 1.0 + 0.1 * torch.sin(torch.arange(h, device=dev) * 0.7)[:, None] \
+        * torch.ones((1, w), device=dev)
+    return dict(mf_bc=dt.master_densities(bias, dark, flat, fwhm=fwhm),
+                a_plane=1.0 / flat,
+                exp_ratios=torch.full((n,), 2.0, device=dev))
+
+
+def _long_strips(monkeypatch, strip_tiles=8):
+    """Keep K1's strip at ``strip_tiles`` tiles however few blocks the
+    small test frames give (the wrapper would shorten it to fill the
+    card)."""
+    monkeypatch.setattr(kernels, "_DET_FILL_BLOCKS", 0)
+    monkeypatch.setattr(kernels, "_DET_MAX_STRIP_TILES", strip_tiles)
+
+
+@pytest.mark.parametrize("long_strips", [False, True])
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.float32])
+@pytest.mark.parametrize("h,w", [(64, 512), (256, 256), (576, 512),
+                                 (448, 1536)])
+def test_detect_kernel_frame_shapes(cuda, monkeypatch, h, w, dtype,
+                                    long_strips):
+    """A single tile row (H = 64), a single tile column (W = 256), a
+    height that the strip of 8 tiles does not divide (576 = 9 tiles) or
+    that a strip of 3 does not (448 = 7 tiles), blocks of 1 and 2 tile
+    columns; uint16 and float32 frames."""
+    if long_strips:
+        _long_strips(monkeypatch, 3 if h == 448 else 8)
+        lay = kernels._detect_layout(2, h, w)
+        assert lay["strip_tiles"] == min(3 if h == 448 else 8, h // 64)
+        assert h != 576 or lay["segments"] == 2
+    n = 2
+    fr = torch.from_numpy(_starfield(n, h, w, 7)).to(cuda)
+    if dtype == torch.float32:
+        fr = fr.to(torch.float32)
+    got = _detect_check(fr, torch.full((n,), 60.0, device=cuda),
+                        **_detect_masters(n, h, w, cuda))
+    assert int((got[0] > -1e37).sum()) >= 4
+
+
+@pytest.mark.parametrize("with_mf", [False, True])
+@pytest.mark.parametrize("with_a", [False, True])
+def test_detect_kernel_optional_planes(cuda, with_a, with_mf):
+    n, h, w = 2, 128, 512
+    fr = torch.from_numpy(_starfield(n, h, w, 8)).to(cuda)
+    args = _detect_masters(n, h, w, cuda)
+    if not with_a:
+        args["a_plane"] = None
+    if not with_mf:
+        args["mf_bc"] = None
+    _detect_check(fr, torch.full((n,), 60.0, device=cuda), **args)
+
+
+def _placed_stars(h, w, centres, amp=20000.0, background=500.0):
+    """One float32 frame: a constant background plus Gaussian stars
+    (sigma^2 = 1.6) at the given (y, x) centres, no noise."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.full((h, w), background)
+    for y0, x0 in centres:
+        img += amp * np.exp(-0.5 * ((xx - x0) ** 2 + (yy - y0) ** 2) / 1.6)
+    return img.astype(np.float32)
+
+
+@pytest.mark.parametrize("strip_tiles", [1, 2, 8])
+def test_detect_kernel_boundary_stars(cuda, monkeypatch, strip_tiles):
+    """Stars on a tile corner (raw row 64, column 256), on a strip corner
+    (raw rows 128 and 256 = the ends of 2-tile strips, column 1024 = the
+    end of a 2-tile-column block), on either side of them, and inside the border
+    mask (never reported): every one lands in the right tile with its
+    cross neighbours taken across the boundary."""
+    _long_strips(monkeypatch, strip_tiles)
+    h, w = 512, 2048
+    centres = [(64, 256), (63, 700), (128, 1024), (255, 1023), (129.4, 1500.3),
+               (192, 1279), (300, 1024), (255.3, 511.6), (1, 40), (2, 2),
+               (510, 2044), (400, 3), (320, 2045)]
+    fr = torch.from_numpy(_placed_stars(h, w, centres))[None].to(cuda)
+    got = _detect_check(fr, torch.full((1,), 60.0, device=cuda))
+    live = got[0][0] > -1e37
+    # the tile whose first pixel is the star at (64, 256): binned row 32
+    assert bool(live[1, 1]) and int(got[1][0, 1, 1]) == 0
+    assert bool(live[2, 4]) and int(got[1][0, 2, 4]) == 0
+    # and the one whose last pixel is the star at (255, 1023)
+    assert bool(live[3, 3]) and int(got[1][0, 3, 3]) == 32 * 256 - 1
+    assert int(live.sum()) == 8          # the 5 stars in the border: none
+
+
+def test_detect_kernel_equal_peaks_lowest_index(cuda):
+    """Identical stars on a constant background give bit-equal peaks; the
+    tile reports the one with the lowest row-major index."""
+    h, w = 128, 512
+    centres = [(20, 140), (20, 40),                  # tile (0, 0)
+               (104, 300), (84, 300), (84, 420)]     # tile (1, 1)
+    fr = torch.from_numpy(_placed_stars(h, w, centres))[None].to(cuda)
+    got = _detect_check(fr, torch.full((1,), 60.0, device=cuda))
+    assert int(got[1][0, 0, 0]) == 10 * 256 + 40
+    assert int(got[1][0, 1, 1]) == 10 * 256 + (300 - 256)
+    assert float(got[0][0, 0, 0]) == float(got[0][0, 1, 1])
+
+
+def test_detect_kernel_flat_plateau(cuda):
+    """A constant frame under a negative threshold: every interior
+    density is equal, so the raster tie-break (strict against earlier
+    neighbours) decides every peak, as in the twin."""
+    fr = torch.full((2, 192, 512), 1000, dtype=torch.uint16, device=cuda)
+    fr[1] = 3000
+    _detect_check(fr, torch.full((2,), -1.0, device=cuda))
+
+
+@pytest.mark.parametrize("fwhm,r", [(4.0, 3), (5.0, 4), (8.0, 6)])
+def test_detect_kernel_other_fwhm(cuda, fwhm, r):
+    """Radius 3 takes the rolling kernel's second instance, larger radii
+    the staged-tile route."""
+    assert dt._kernel_params(fwhm)[1] == r <= kernels._DET_MAX_RADIUS
+    n, h, w = 2, 256, 512
+    fr = torch.from_numpy(_starfield(n, h, w, 9)).to(cuda)
+    _detect_check(fr, torch.full((n,), 60.0, device=cuda), fwhm=fwhm,
+                  **_detect_masters(n, h, w, cuda, fwhm=fwhm))
+
+
 def _warp_mats(n, seed, rotate=True):
     """Frame 0 identity, frame 2 a pure translation (both snapped), the
     rest translations of up to 5 px with, under ``rotate``, rotations of
@@ -143,22 +282,40 @@ def test_warp_combine_kernel_many_frames(cuda, n, dtype, combine):
 
 
 def _clip_stack(n, h, w, seed):
-    """Normal samples with outliers, ~20% masked samples and a fully
-    masked pixel column."""
+    """Normal samples with outliers, ~20% masked samples, a fully masked
+    pixel, pixels with exactly 1 and 2 valid samples, and a masked +inf
+    and a masked NaN sample."""
     rng = np.random.default_rng(seed)
     stack = rng.normal(800.0, 8.0, (n, h, w)).astype(np.float32)
     stack[rng.uniform(size=stack.shape) < 0.02] = 40000.0
     mask = rng.uniform(size=stack.shape) > 0.2
     mask[:, 3, 5] = False
+    mask[:, 4, 5] = False
+    mask[n // 2, 4, 5] = True
+    mask[:, 5, 5] = False
+    mask[[0, n - 1], 5, 5] = True
+    stack[0, 6, 6], mask[0, 6, 6] = np.inf, False
+    stack[n - 1, 7, 7], mask[n - 1, 7, 7] = np.nan, False
     return stack, mask
 
 
+#: K3's route and block-shape boundaries: registers up to 8, 16, 24 and
+#: 32 frames, then shared memory in blocks of 128 (to 227 frames), 64 (to
+#: 454) and 32 threads (to the limit, 908)
+CLIP_FRAMES = [1, 2, 3, 7, 8, 9, 16, 17, 24, 25, 32, 33, 100, 227, 228, 454,
+               455, 908]
+
+
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("n", [1, 2, 24, 100])
+@pytest.mark.parametrize("n", CLIP_FRAMES)
 def test_clip_combine_kernel_equals_plain(cuda, n, masked):
     """K3 rounds every value operation as its twin does, so the two agree
-    bit for bit, NaN where nothing is kept included."""
+    bit for bit, NaN where nothing is kept included; the width (300) is
+    no multiple of any block's."""
+    assert kernels._CLIP_MAX_FRAMES == CLIP_FRAMES[-1]
     stack, mask = _clip_stack(n, 96, 300, n)
+    if not masked:           # valid non-finite samples are outside the contract
+        stack = np.where(np.isfinite(stack), stack, np.float32(800.0))
     st = torch.from_numpy(stack).to(cuda)
     mk = torch.from_numpy(mask).to(cuda) if masked else None
     before = kernels.launch_counts["clip_combine"]
@@ -171,6 +328,10 @@ def test_clip_combine_kernel_equals_plain(cuda, n, masked):
     assert torch.equal(got[ok], want[ok])
     assert bool(torch.isnan(got[3, 5])) == masked
     if masked:
+        # one valid sample is its own mean; masked inf / NaN add nothing
+        assert float(got[4, 5]) == float(stack[n // 2, 4, 5])
+        for y, x in ((6, 6), (7, 7)):
+            assert bool(torch.isfinite(got[y, x])) == bool(mask[:, y, x].any())
         # a float mask (> 0.5 valid) is the same as the bool one
         fm = mk.to(torch.float32) * 0.75
         assert torch.equal(torch.nan_to_num(cc.clip_combine(st, fm, 3.0, 4.0)),
