@@ -355,7 +355,9 @@ def calibrate_register_stack(
     device, and the masters (H, W), ``exp_ratios`` (N,) and
     ``flux_scales`` (N,) (multiplying each calibrated frame: swarp's
     FSCALE) may be tensors on that device or numpy arrays.
-    ``badpix_mask`` raises: its repair is not ported.
+    ``badpix_mask`` (H, W), True or non-zero = bad, repairs every
+    calibrated frame by the median of the good pixels within +-2
+    (``ops/badpix.fix_bad_pixels``) before detection.
     ``config.combine_impl`` is 'xla' (``sigma_clip_combine``), 'pallas'
     (the K3 kernel for 'average') or 'fused' (the warp+combine kernel on
     the calibrated stack); the non-fused paths warp ``config.n_bands``
@@ -372,6 +374,7 @@ def calibrate_register_stack(
                         for m in (bias, dark, flat))
     exp_ratios = on_device(exp_ratios, dev, torch.float32)
     flux_scales = on_device(flux_scales, dev, torch.float32)
+    badpix_mask = on_device(badpix_mask, dev)
     n, h, w = frames.shape
     cal = calibrate_batch(frames, bias, dark, flat, exp_ratios,
                           dark_still_biased=config.dark_still_biased,

@@ -18,16 +18,7 @@ from typing import Optional
 import torch
 
 from ..device import to_float32
-
-#: where the bad-pixel repair (ops/badpix) is queued
-_BADPIX_ITEM = "ROADMAP.md, 'Remaining port work', item 2 (ops/badpix)"
-
-
-def _no_badpix(badpix_mask) -> None:
-    if badpix_mask is not None:
-        raise NotImplementedError(
-            "badpix_mask needs the bad-pixel repair of ops/badpix, not "
-            f"ported yet: {_BADPIX_ITEM}")
+from .badpix import fix_bad_pixels
 
 
 def calibrate_frame(
@@ -38,10 +29,12 @@ def calibrate_frame(
     exp_ratio: float = 1.0,
     dark_still_biased: bool = True,
     badpix_mask: Optional[torch.Tensor] = None,
+    deltapix: int = 2,
 ) -> torch.Tensor:
-    """Calibrate one frame (or a batch the masters broadcast against) to
-    float32.  ``badpix_mask`` raises: its repair is not ported."""
-    _no_badpix(badpix_mask)
+    """Calibrate one (H, W) frame (or, without ``badpix_mask``, a batch
+    the masters broadcast against) to float32.  ``badpix_mask`` (True =
+    bad) adds the masked neighbourhood-median repair within +-``deltapix``
+    after the arithmetic."""
     out = to_float32(img)
     if bias is not None:
         out = out - bias
@@ -52,6 +45,8 @@ def calibrate_frame(
                                     device=out.device) * dark_use
     if flat is not None:
         out = torch.where(flat != 0, out / flat, out)
+    if badpix_mask is not None:
+        out, _ = fix_bad_pixels(out, badpix_mask, deltapix=deltapix)
     return out
 
 
@@ -63,11 +58,13 @@ def calibrate_batch(
     exp_ratios: Optional[torch.Tensor] = None,
     dark_still_biased: bool = True,
     badpix_mask: Optional[torch.Tensor] = None,
+    deltapix: int = 2,
 ) -> torch.Tensor:
     """Calibrate an (N, H, W) stack against shared (H, W) masters;
     ``exp_ratios`` (N,) scales the dark per frame (default 1).
-    ``badpix_mask`` raises: its repair is not ported."""
-    _no_badpix(badpix_mask)
+    ``badpix_mask`` (H, W) (True = bad) repairs every frame after the
+    arithmetic, one frame at a time: a frame's neighbourhood stack is
+    (2 * deltapix + 1)^2 planes."""
     out = to_float32(imgs)
     if bias is not None:
         out = out - bias[None]
@@ -80,4 +77,10 @@ def calibrate_batch(
         out = out - ratios[:, None, None] * dark_use[None]
     if flat is not None:
         out = torch.where(flat[None] != 0, out / flat[None], out)
+    if badpix_mask is not None:
+        if out is imgs:             # float32 input without masters
+            out = out.clone()
+        for f in range(out.shape[0]):
+            out[f] = fix_bad_pixels(out[f], badpix_mask,
+                                    deltapix=deltapix)[0]
     return out

@@ -346,3 +346,66 @@ def find_stars(
         sharpness=torch.where(valid, sharp, zero),
         roundness=torch.where(valid, rounds, zero), valid=valid)
     return Stars(*(f[0] for f in stars)) if single else stars
+
+
+def find_saturated(
+    data: torch.Tensor,
+    sat_thresh: float,
+    max_peaks: int = 256,
+    box: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Local maxima (>= every neighbour of the ``box`` x ``box``
+    neighbourhood) above the saturation threshold, strongest first and in
+    raster order among equal values, so a saturated plateau is listed
+    from its first pixel on.
+
+    Returns (x, y, valid) fixed-capacity (max_peaks,) tensors."""
+    data = to_float32(data)
+    h, w = data.shape
+    half = box // 2
+    pad = F.pad(data, (half, half, half, half), value=-torch.inf)
+    neigh_max = torch.full_like(data, -torch.inf)
+    for dy in range(box):
+        for dx in range(box):
+            if dy == half and dx == half:
+                continue
+            neigh_max = torch.maximum(neigh_max, pad[dy:dy + h, dx:dx + w])
+    is_peak = (data >= neigh_max) & (data > sat_thresh)
+    score = torch.where(is_peak, data, -torch.inf).reshape(-1)
+    vals, idx = _top_k(score, max_peaks)
+    valid = torch.isfinite(vals)
+    return ((idx % w).to(torch.float32),
+            torch.div(idx, w, rounding_mode="floor").to(torch.float32), valid)
+
+
+def mask_boxes(
+    shape: Tuple[int, int],
+    xs: torch.Tensor,
+    ys: torch.Tensor,
+    valid: torch.Tensor,
+    half_width: int,
+) -> torch.Tensor:
+    """Boolean (H, W) mask with a (2 * half_width + 1)^2 box set around
+    each valid point: pixel (row, col) is set when |row - y| and
+    |col - x| are both <= half_width for some point.  Built as a 2-D
+    difference array (four corner marks per box) and two running sums,
+    so no (H, W, K) intermediate exists."""
+    h, w = shape
+    dev = xs.device
+    ok = valid.to(torch.bool)
+
+    def span(c, size):
+        c = torch.where(ok, c.to(torch.float32), 0.0)
+        lo = torch.ceil(c - half_width).clamp(0, size).long()
+        hi = (torch.floor(c + half_width) + 1).clamp(0, size).long()
+        return lo, hi
+
+    r0, r1 = span(ys, h)
+    c0, c1 = span(xs, w)
+    one = ok.to(torch.int32)
+    grid = torch.zeros(((h + 1) * (w + 1),), dtype=torch.int32, device=dev)
+    for rr, cc, sign in ((r0, c0, 1), (r0, c1, -1), (r1, c0, -1),
+                         (r1, c1, 1)):
+        grid.index_add_(0, rr * (w + 1) + cc, sign * one)
+    grid = grid.reshape(h + 1, w + 1).cumsum(dim=0).cumsum(dim=1)
+    return grid[:h, :w] > 0

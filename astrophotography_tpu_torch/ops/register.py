@@ -45,6 +45,20 @@ class Similarity(NamedTuple):
         return torch.stack([torch.stack([c, -s, self.tx], dim=-1),
                             torch.stack([s, c, self.ty], dim=-1)], dim=-2)
 
+    def apply(self, x: torch.Tensor, y: torch.Tensor):
+        c = self.scale * torch.cos(self.theta)
+        s = self.scale * torch.sin(self.theta)
+        return c * x - s * y + self.tx, s * x + c * y + self.ty
+
+    def inverse(self) -> "Similarity":
+        inv_scale = 1.0 / self.scale
+        c = torch.cos(-self.theta) * inv_scale
+        s = torch.sin(-self.theta) * inv_scale
+        tx = -(c * self.tx - s * self.ty)
+        ty = -(s * self.tx + c * self.ty)
+        return Similarity(inv_scale, -self.theta, tx, ty,
+                          self.n_inliers, self.rms)
+
 
 def _top_k_stars(x, y, flux, valid, k):
     """The k brightest valid stars of each row (ties and invalid

@@ -121,6 +121,15 @@ def _median_int(x: torch.Tensor) -> torch.Tensor:
     return torch.trunc(mid).to(torch.int32)
 
 
+def _vector(x, size: int, name: str, device) -> torch.Tensor:
+    """``x`` as a (size,) float32 tensor on ``device``."""
+    t = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if tuple(t.shape) != (size,):
+        raise ValueError(f"{name} must have shape ({size},), got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
 def plan_warp_combine(
     shape: Tuple[int, int, int],
     matrices: torch.Tensor,
@@ -132,11 +141,17 @@ def plan_warp_combine(
     dither_budget: int = 64,
     snap_tol: float = 0.05,
     general_taps: str = "exact",
+    v_bounds: Optional[torch.Tensor] = None,
+    snap_geom: Optional[torch.Tensor] = None,
 ) -> WarpPlan:
     """Host prep of the warp+combine: the TPU kernel's tile, delivery
     blocks, window extents and origins, translation snap and tables,
     ported exactly (see the module docstring).  ``matrices`` (N, 2, 3)
-    output->source maps; the tables land on its device."""
+    output->source maps; the tables land on its device.  ``v_bounds``
+    (2,) = (vlo, vhi) source-row coverage bounds (default (2, H - 4)) and
+    ``snap_geom`` (4,) = (cx, cy, rx, ry), the snap centre and
+    half-extents (default the frame's centre twice), let a caller that
+    works on a row band keep the whole image's coverage and snap."""
     if general_taps not in ("exact", "lowrank"):
         raise ValueError(f"unknown general_taps '{general_taps}'")
     if general_taps == "lowrank" and not snap_tol > 0.0:
@@ -177,10 +192,14 @@ def plan_warp_combine(
     if snap_tol > 0.0:
         # a frame within snap_tol px of a pure translation everywhere on
         # the grid is replaced by that translation (scalar-weight taps)
-        cx = float((w0 - 1) * 0.5)
-        cy = float((h0 - 1) * 0.5)
-        err_u = (m6[:, 0] - 1.0).abs() * cx + m6[:, 1].abs() * cy
-        err_v = m6[:, 3].abs() * cx + (m6[:, 4] - 1.0).abs() * cy
+        if snap_geom is None:
+            cx = float((w0 - 1) * 0.5)
+            cy = float((h0 - 1) * 0.5)
+            rx, ry = cx, cy
+        else:
+            cx, cy, rx, ry = _vector(snap_geom, 4, "snap_geom", dev).unbind(0)
+        err_u = (m6[:, 0] - 1.0).abs() * rx + m6[:, 1].abs() * ry
+        err_v = m6[:, 3].abs() * rx + (m6[:, 4] - 1.0).abs() * ry
         is_t = torch.maximum(err_u, err_v) < snap_tol
         tx = m6[:, 0] * cx + m6[:, 1] * cy + m6[:, 2] - cx
         ty = m6[:, 3] * cx + m6[:, 4] * cy + m6[:, 5] - cy
@@ -210,9 +229,13 @@ def plan_warp_combine(
         gate = (((gx - 1.0).abs() * ((tw - 1) * 0.5) < snap_tol)
                 & ((m6[:, 4] - 1.0).abs() * ((th - 1) * 0.5) < snap_tol)
                 & (su_lr <= t1hi - 7.0 - _SP_EPS) & span_ok_v)
+    if v_bounds is None:
+        vlo, vhi = torch.full_like(er, 2.0), torch.full_like(er, h0 - 4.0)
+    else:
+        vlo, vhi = (b.expand(n) for b in
+                    _vector(v_bounds, 2, "v_bounds", dev).unbind(0))
     table = torch.stack(
-        [*m6.unbind(1), er, fs, trans,
-         torch.full_like(er, 2.0), torch.full_like(er, h0 - 4.0),
+        [*m6.unbind(1), er, fs, trans, vlo, vhi,
          gx, gy, g0, gate.to(torch.float32), torch.zeros_like(er)], dim=1)
 
     # per-(frame, tile) bases and the shared windows' containment test
@@ -426,6 +449,8 @@ def warp_combine_plain(
     dither_budget: int = 64,
     snap_tol: float = 0.05,
     general_taps: str = "exact",
+    v_bounds: Optional[torch.Tensor] = None,
+    snap_geom: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch twin of the warp+combine kernel, on any device
     (one warped (H, W) frame at a time, then the combine over the
@@ -435,7 +460,8 @@ def warp_combine_plain(
     plan = plan_warp_combine(frames.shape, matrices, exp_ratios, flux_scales,
                              tile=tile, span=span, apron=apron,
                              dither_budget=dither_budget, snap_tol=snap_tol,
-                             general_taps=general_taps)
+                             general_taps=general_taps, v_bounds=v_bounds,
+                             snap_geom=snap_geom)
     masters = None if masters is None else masters.to(torch.float32)
     return _run_plain(frames, masters, plan, combine, sigma_lower,
                       sigma_upper, general_taps)
@@ -456,6 +482,8 @@ def warp_combine(
     dither_budget: int = 64,
     snap_tol: float = 0.05,
     general_taps: str = "exact",
+    v_bounds: Optional[torch.Tensor] = None,
+    snap_geom: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Warp every frame by its matrix and sigma-clip-combine, fused,
     calibrating raw frames on the fly.
@@ -470,7 +498,9 @@ def warp_combine(
     samples) or 'mean' (no clipping).  ``tile``, ``span``, ``apron``,
     ``dither_budget``, ``snap_tol`` and ``general_taps`` have the JAX
     kernel's meaning and decide the same coverage (see
-    :func:`plan_warp_combine`).  Pixels no frame covers are 0.
+    :func:`plan_warp_combine`), and so have ``v_bounds`` and
+    ``snap_geom``, which a row-banded caller sets (``parallel/fused``).
+    Pixels no frame covers are 0.
     Returns (H, W) float32.
 
     CUDA tensors run the hand-written kernel; CPU tensors run
@@ -481,7 +511,8 @@ def warp_combine(
     plan = plan_warp_combine(frames.shape, matrices, exp_ratios, flux_scales,
                              tile=tile, span=span, apron=apron,
                              dither_budget=dither_budget, snap_tol=snap_tol,
-                             general_taps=general_taps)
+                             general_taps=general_taps, v_bounds=v_bounds,
+                             snap_geom=snap_geom)
     masters = None if masters is None else masters.to(torch.float32)
     if frames.device.type == "cpu":
         return _run_plain(frames, masters, plan, combine, sigma_lower,

@@ -14,17 +14,27 @@ the stacks:
 * the unfused path (``calibrate_register_stack``, kernel K3) on the
   first 24 of those dithered frames, with bench.py's own config for that
   size (two output bands, the K3 combine);
-* the lean path's chunked detection at 16x1024^2.
+* the lean path's chunked detection at 16x1024^2;
+* the row-banded warp+combine (``parallel.banded_warp_combine``, K2 once
+  per band with ``v_bounds`` and ``snap_geom`` set) on both lean
+  workloads with the matrices the lean path solved, against the
+  whole-frame K2;
+* the unfused path once more with a bad-pixel mask (the workload's hot
+  pixels), which repairs every calibrated frame;
+* the repair and measurement ops on a synthetic 4008x2672 starfield:
+  bad-pixel mask and repair, L.A.Cosmic, source mask and background,
+  detection, aperture photometry, PSF fits, the colour stretch.
 
 Beside the checks against the plain twins it times K2 at 100x4096^2 with
 ``combine='average'`` against ``combine='mean'`` (the same warp without
 the sort and clip): the warp phase against the combine phase.
 
 Run from the repository root with ``python3 chip_smoke.py``; every phase
-runs.  ``--only {k1,k2,k3,lean,unfused,small}`` runs one group of phases
-(the kernel check and timing of K1, K2 or K3 at the main paths' shapes,
-the lean path, the unfused path, or the 16x1024^2 chunked run and the
-small kernel matrix) and prints no ``kernels`` line.  Every phase raises
+runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure}`` runs one
+group of phases (the kernel check and timing of K1, K2 or K3 at the main
+paths' shapes, the lean path, the unfused path with and without the
+mask, the 16x1024^2 chunked run and the small kernel matrix, the band
+loop, or the measurement ops) and prints no ``kernels`` line.  Every phase raises
 on failure.  Each phase prints one JSON line; the build line carries
 ptxas' register, shared-memory and spill report for every kernel; the
 line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -53,7 +63,14 @@ SKY = 800.0
 #: 5x5 centre-of-mass centroids carry a sub-pixel-phase bias (the JAX
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
-PHASES = ("k1", "k2", "k3", "lean", "unfused", "small")
+PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure")
+#: the band loop: 4 bands of 1024 rows with a halo of one K2 tile row
+N_BANDS, HALO = 4, 64
+#: the clip-tie rule of the JAX package's band tests: a pixel may differ
+#: by more than TIE_ATOL + TIE_RTOL * |ref| (a sample at a clip bound
+#: kept in one arithmetic order only) on under TIE_FRAC of the pixels,
+#: and the median difference stays under TIE_MEDIAN
+TIE_ATOL, TIE_RTOL, TIE_FRAC, TIE_MEDIAN = 0.5, 1e-4, 1e-4, 1e-3
 #: published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
 #: memory, and float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -451,7 +468,7 @@ def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
         checks["warp_split"] = k2_split(fr, mats_t, masters, er,
                                         f"main path {label}", card, **k2_kw)
     torch.cuda.empty_cache()
-    if "lean" not in phases:
+    if not phases & {"lean", "bands"}:
         return checks
 
     kw = dict(bias=torch.from_numpy(bias).to(dev),
@@ -474,6 +491,10 @@ def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
     _check_launches(label, launches, {"detect_tiles": None,
                                       "warp_combine": None})
     _require("jax" not in sys.modules, "jax was imported")
+    if "bands" in phases:
+        checks["bands"] = run_bands(fr, diag, masters, er, cfg, label, card)
+    if "lean" not in phases:
+        return checks
     k = 3
     t0 = time.perf_counter()
     for _ in range(k):
@@ -499,14 +520,319 @@ def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
     return {"main": res, **checks}
 
 
-def _kernel_entry(name, replaces, launches, check) -> dict:
-    """One kernel's entry of the ``kernels`` line: launches on its main
-    path, error and times of its check at the main path's shape, the
-    bound from that check's inputs.  No single PyTorch call computes any
-    of the three kernels' functions, so ``library_ms`` is null."""
+def _tie_rule(label, got, ref) -> dict:
+    """Hold ``got`` against ``ref`` by the clip-tie rule: equal zero
+    masks, the median difference and the fraction of pixels beyond the
+    tolerance under their limits.  Returns the figures."""
+    _require(bool(((got == 0) == (ref == 0)).all()),
+             f"{label}: zero coverage differs")
+    both = (got != 0) & (ref != 0)
+    err = (got - ref).abs()[both]
+    frac = float((err > TIE_ATOL + TIE_RTOL * ref[both].abs()).float().mean())
+    med = float(err.median())
+    _require(frac < TIE_FRAC, f"{label}: {frac:.2e} of the pixels beyond "
+                              f"{TIE_ATOL} + {TIE_RTOL} |ref|")
+    _require(med < TIE_MEDIAN, f"{label}: median difference {med}")
+    return {"max_abs_err": float(err.max()), "median_abs_err": med,
+            "fraction_beyond_tolerance": frac,
+            "covered": float(both.float().mean())}
+
+
+def run_bands(fr, diag, masters, er, cfg, label, card) -> dict:
+    """``banded_warp_combine`` (4 bands, halo 64) on the lean workload's
+    raw stack with the matrices the lean path just solved, against the
+    whole-frame ``warp_combine`` of the same inputs: equal zero masks and
+    the clip-tie rule (a band sums the snapped translation next to another
+    row offset, so its float32 rounding differs), and on the snap
+    workload also with those translations rounded to 1/64 px, which both
+    sum exactly: bit for bit.  K2 must be launched once per band."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.ops.register import Similarity
+    from astrophotography_tpu_torch.ops.warp_combine import warp_combine
+    from astrophotography_tpu_torch.parallel import banded_warp_combine
+
+    mats = Similarity(*(diag[k] for k in ("scale", "theta", "tx", "ty",
+                                          "n_inliers", "rms"))).matrix()
+    kw = dict(span=cfg.warp_span, tile=cfg.fused_tile, apron=False,
+              dither_budget=cfg.dither_budget,
+              general_taps=cfg.general_taps)
+
+    def whole(m):
+        return warp_combine(fr, m, masters=masters, exp_ratios=er, **kw)
+
+    def banded(m):
+        return banded_warp_combine(fr, m, N_BANDS, masters=masters,
+                                   exp_ratios=er, halo=HALO, **kw)
+
+    whole(mats), banded(mats)               # warm-up
+    ref, whole_ms = _timed(lambda: whole(mats))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got, banded_ms = _timed(lambda: banded(mats))
+    launches = dict(kernels.launch_counts)
+    _check_launches(f"bands {label}", launches, {"warp_combine": N_BANDS})
+    res = {"phase": f"bands {label}", "shape": list(fr.shape),
+           "n_bands": N_BANDS, "halo": HALO, "launches": launches,
+           "whole_frame_ms": whole_ms, "banded_ms": banded_ms,
+           "ms_per_band": banded_ms / N_BANDS,
+           **_tie_rule(f"bands {label}", got, ref), "card": card}
+    del got, ref
+    if label == "snap":
+        exact = torch.zeros_like(mats)
+        exact[:, 0, 0] = exact[:, 1, 1] = 1.0
+        exact[:, :, 2] = torch.round(mats[:, :, 2] * 64.0) / 64.0
+        ref, got = whole(exact), banded(exact)
+        _require(bool(((got == 0) == (ref == 0)).all()),
+                 "bands snap, 1/64 px translations: zero coverage differs")
+        err = float((got - ref).abs().max())
+        _require(err == 0.0, f"bands snap, 1/64 px translations: banded "
+                             f"differs from the whole frame by {err}")
+        res["exact_translations_max_abs_err"] = err
+        del got, ref
+    torch.cuda.empty_cache()
+    _print(res)
+    return res
+
+
+def check_bounds_geom(card, dev) -> None:
+    """K2 with ``v_bounds`` and ``snap_geom`` set to other values than
+    their defaults at 16x1024^2, snap and rotated lowrank, against
+    ``warp_combine_plain``: bit for bit, and the bounds must cut rows.
+    The half-extents of 20 px snap the rotations under 0.0025 rad about
+    an off-centre point and leave the others to the lowrank body."""
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+
+    geo = dict(v_bounds=torch.tensor([100.5, 900.0], device=dev),
+               snap_geom=torch.tensor([400.0, 300.0, 20.0, 20.0], device=dev))
+    for rotate in (False, True):
+        frames, bias, dark, flat, exp_ratio, _off, mats = make_workload(
+            16, 1024, rotate=rotate)
+        fr = torch.from_numpy(frames).to(dev)
+        masters = _masters(bias, dark, flat, dev)[0]
+        args = dict(masters=masters,
+                    exp_ratios=torch.full((16,), exp_ratio, device=dev),
+                    general_taps="lowrank", dither_budget=32)
+        m = torch.from_numpy(mats.astype(np.float32)).to(dev)
+        k = wc.warp_combine(fr, m, **args, **geo)
+        p, plain_ms = _timed(lambda: wc.warp_combine_plain(fr, m, **args,
+                                                           **geo))
+        full = wc.warp_combine(fr, m, **args)
+        err = float((k - p).abs().max())
+        label = f"16x1024^2 {'rotated' if rotate else 'snap'}"
+        _require(err == 0.0 and bool(((k == 0) == (p == 0)).all()),
+                 f"K2 with v_bounds / snap_geom, {label}: differs from its "
+                 f"twin by {err}")
+        _require(bool((k[:90] == 0).all()) and bool((k[910:] == 0).all())
+                 and int((k != 0).sum()) < int((full != 0).sum()),
+                 f"K2 with v_bounds, {label}: rows beyond the bounds covered")
+        _print({"phase": "K2 with v_bounds and snap_geom vs "
+                         "warp_combine_plain", "case": label,
+                "max_abs_err": err, "plain_ms": plain_ms,
+                "covered": float((k != 0).float().mean()),
+                "covered_default": float((full != 0).float().mean()),
+                "card": card})
+
+
+#: the measurement phase's frame: a 4008 x 2672 sensor, stars of
+#: MEASURE_FWHM on a jittered grid, Poisson-like noise on the sky
+MEASURE_SHAPE = (2672, 4008)
+MEASURE_FWHM = 3.5
+
+
+def make_starfield(seed: int = 0, shape=MEASURE_SHAPE, grid=(20, 30)):
+    """A synthetic float32 starfield, (2672, 4008) by default: a sky of
+    800 ADU with a 5 % gradient, one Gaussian star of FWHM 3.5 px in
+    each cell of a 20 x 30 grid, jittered by 30 px (600 stars, isolated
+    by construction) with fluxes of 2e4 to 2e5 ADU, and Gaussian noise
+    of sqrt(800) ADU.
+
+    Returns (image, sky, star x, star y, star flux)."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    n = grid[0] * grid[1]
+    yy = np.linspace(-1.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(-1.0, 1.0, w, dtype=np.float32)[None, :]
+    sky = (SKY * (1.0 + 0.03 * xx + 0.02 * yy)).astype(np.float32)
+    gy, gx = np.meshgrid((np.arange(grid[0]) + 0.5) * (h / grid[0]),
+                         (np.arange(grid[1]) + 0.5) * (w / grid[1]),
+                         indexing="ij")
+    xs = gx.ravel() + rng.uniform(-30, 30, n)
+    ys = gy.ravel() + rng.uniform(-30, 30, n)
+    fl = rng.uniform(2e4, 2e5, n)
+    fl[:2] = (1.5e5, 1.0e5)             # the pair whose flux ratio is held
+    img = sky.copy()
+    for x, y, f in zip(xs, ys, fl):
+        x0, y0 = int(x) - 12, int(y) - 12
+        img[y0:y0 + 25, x0:x0 + 25] += _gaussian_star(
+            (25, 25), x - x0, y - y0, f, MEASURE_FWHM).astype(np.float32)
+    img += rng.normal(0, np.sqrt(SKY), (h, w)).astype(np.float32)
+    return img, sky, xs, ys, fl
+
+
+def _op(times, peaks, name, fn):
+    """fn()'s result, with its device ms (CUDA events, after a warm-up
+    call) and its peak memory recorded under ``name``."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, times[name] = _timed(fn)
+    peaks[name] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def run_measure(card: str, dev) -> dict:
+    """The repair and measurement ops on one 4008 x 2672 frame, each
+    checked against what was planted and timed: bad-pixel mask and
+    repair, L.A.Cosmic, source mask and background (both upsamples),
+    detection, aperture photometry, PSF fits, the colour stretch."""
+    from astrophotography_tpu_torch.ops import (
+        aperture_photometry, aperture_radii, background2d, find_stars,
+        fix_bad_pixels, isolated_mask, measure_fwhm, median_fwhm,
+        sigmaclip_badpix_mask, source_mask)
+    from astrophotography_tpu_torch.ops.composite import stretch_channels
+    from astrophotography_tpu_torch.ops.cosmic import lacosmic
+
+    t0 = time.perf_counter()
+    img_np, sky_np, xs, ys, fl = make_starfield()
+    rng = np.random.default_rng(1)
+    h, w = img_np.shape
+    sigma = float(np.sqrt(SKY))
+    near_star = np.zeros((h, w), bool)
+    for x, y in zip(xs, ys):
+        near_star[int(y) - 12:int(y) + 13, int(x) - 12:int(x) + 13] = True
+    # ~0.1 % hot pixels: in a master dark, and on top of the light frame
+    hot = rng.random((h, w)) < 1e-3
+    dark_np = (40.0 + rng.normal(0, 3.0, (h, w))).astype(np.float32)
+    dark_np[hot] += rng.uniform(200, 5000, int(hot.sum())).astype(np.float32)
+    hot_img = img_np.copy()
+    hot_img[hot] += dark_np[hot]
+    # single-pixel cosmic-ray hits off the stars
+    hits = (rng.random((h, w)) < 2e-4) & ~near_star
+    cr_img = img_np.copy()
+    cr_img[hits] += rng.uniform(1000, 8000, int(hits.sum())).astype(np.float32)
+    gen_s = time.perf_counter() - t0
+    img, sky, dark, hot_t, hits_t, hot_in, cr_in = (
+        torch.from_numpy(a).to(dev)
+        for a in (img_np, sky_np, dark_np, hot, hits, hot_img, cr_img))
+    times, peaks, res = {}, {}, {}
+
+    # bad pixels: every planted one flagged, and repaired to within the
+    # noise of its neighbours' median against the frame without it
+    mask = _op(times, peaks, "sigmaclip_badpix_mask",
+               lambda: sigmaclip_badpix_mask(dark, sigma=4.0))
+    _require(bool(mask[hot_t].bool().all()), "planted hot pixels not flagged")
+    fixed, still = _op(times, peaks, "fix_bad_pixels",
+                       lambda: fix_bad_pixels(hot_in, mask))
+    _op(times, peaks, "fix_bad_pixels_deltapix2",
+        lambda: fix_bad_pixels(hot_in, mask, deltapix=2))
+    _require(not bool(still.any()), "bad pixels left unrepaired")
+    off_star = hot_t & ~torch.from_numpy(near_star).to(dev)
+    err = (fixed - img).abs()
+    _require(float(err[off_star].max()) < 6.0 * sigma,
+             f"repaired pixels off by {float(err[off_star].max())} ADU")
+    _require(bool((fixed[hot_t] < hot_in[hot_t]).all())
+             and bool(torch.equal(fixed[mask == 0], hot_in[mask == 0])),
+             "repair touched good pixels or raised a bad one")
+    res["badpix"] = {"planted": int(hot.sum()), "flagged": int(mask.sum()),
+                     "max_err_off_stars_adu": float(err[off_star].max()),
+                     "noise_adu": sigma}
+    del mask, fixed, still, err, hot_in, dark
+
+    # cosmic rays: >= 90 % of the planted hits flagged, no star core
+    clean, crmask = _op(times, peaks, "lacosmic", lambda: lacosmic(
+        cr_in, readnoise=0.0, satlevel_e=65535.0))
+    found = float(crmask[hits_t].float().mean())
+    cores = crmask[torch.from_numpy(np.rint(ys).astype(np.int64)).to(dev),
+                   torch.from_numpy(np.rint(xs).astype(np.int64)).to(dev)]
+    _require(found >= 0.9, f"only {found:.3f} of the cosmic-ray hits flagged")
+    _require(not bool(cores.any()), f"{int(cores.sum())} star cores flagged")
+    _require(float((clean - img).abs()[hits_t & crmask].max()) < 6.0 * sigma,
+             "a flagged hit was not cleaned to the noise")
+    res["cosmic"] = {"planted": int(hits.sum()), "flagged_fraction": found,
+                     "flagged_in_all": int(crmask.sum()),
+                     "star_cores_flagged": int(cores.sum())}
+    del clean, crmask, cr_in
+
+    # background: within 1 % of the synthetic sky everywhere
+    smask = _op(times, peaks, "source_mask", lambda: source_mask(img))
+    res["background"] = {"masked_fraction": float(smask.float().mean())}
+    for upsample in ("bilinear", "spline"):
+        bkg = _op(times, peaks, f"background2d_{upsample}",
+                  lambda: background2d(img, smask, nboxes_y=16, nboxes_x=24,
+                                       upsample=upsample))
+        rel = float(((bkg - sky).abs() / sky).max())
+        _require(rel < 0.01, f"background2d {upsample} off by {rel:.4f}")
+        res["background"][f"{upsample}_max_rel_err"] = rel
+    sub = img - bkg
+    del smask
+
+    # stars: detection, photometry, PSF
+    stars = _op(times, peaks, "find_stars", lambda: find_stars(
+        sub, fwhm=MEASURE_FWHM, threshold=5.0 * sigma, max_stars=1024))
+    px, py = (torch.from_numpy(a.astype(np.float32)).to(dev)
+              for a in (xs, ys))
+    d2 = (stars.x[None, :] - px[:, None]) ** 2 \
+        + (stars.y[None, :] - py[:, None]) ** 2
+    d2 = torch.where(stars.valid[None, :], d2, torch.inf)
+    nearest = d2.argmin(dim=1)                   # detection of each planted
+    matched = d2.amin(dim=1) < 1.0
+    _require(float(matched.float().mean()) > 0.98,
+             f"only {int(matched.sum())} of {len(xs)} planted stars detected")
+    r_ap, r_out = aperture_radii(MEASURE_FWHM)
+    phot = _op(times, peaks, "aperture_photometry",
+               lambda: aperture_photometry(img, stars.x, stars.y, stars.valid,
+                                           r_ap, r_out, exposure=30.0))
+    ratio = float(phot.aperture_sum[nearest[0]] / phot.aperture_sum[nearest[1]])
+    _require(abs(ratio / (fl[0] / fl[1]) - 1.0) < 0.02,
+             f"flux ratio {ratio} against {fl[0] / fl[1]}")
+    flux_err = float((phot.aperture_sum[nearest][matched]
+                      / torch.from_numpy(fl.astype(np.float32)).to(dev)[matched]
+                      - 1.0).abs().median())
+    iso = isolated_mask(stars.x, stars.y, stars.valid, 16.0)
+    fits = _op(times, peaks, "measure_fwhm", lambda: measure_fwhm(
+        sub, stars.x, stars.y, iso, init_fwhm=3.0))
+    (mfx, sfx), (mfy, sfy) = _op(times, peaks, "median_fwhm",
+                                 lambda: median_fwhm(fits))
+    for m in (mfx, mfy):
+        _require(abs(float(m) / MEASURE_FWHM - 1.0) < 0.1,
+                 f"median FWHM {float(m)} against {MEASURE_FWHM}")
+    res["stars"] = {"detected": int(stars.valid.sum()),
+                    "planted_matched": int(matched.sum()),
+                    "flux_ratio": ratio, "flux_ratio_planted": fl[0] / fl[1],
+                    "median_flux_rel_err": flux_err,
+                    "fits_valid": int(fits.valid.sum()),
+                    "median_fwhm_x": float(mfx), "median_fwhm_y": float(mfy),
+                    "fwhm_madstd_x": float(sfx), "fwhm_planted": MEASURE_FWHM}
+
+    # colour stretch of three scaled copies
+    chans = torch.stack([sub, 0.8 * sub, 1.2 * sub])
+    rgb = _op(times, peaks, "stretch_channels",
+              lambda: stretch_channels(chans))
+    _require(tuple(rgb.shape) == (h, w, 3) and bool(torch.isfinite(rgb).all())
+             and float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
+             and 0.02 < float(rgb.mean()) < 0.9, "stretch out of range")
+    res["stretch_mean"] = float(rgb.mean())
+    out = {"phase": "measure", "shape": [h, w], "ms": times,
+           "peak_memory_bytes": peaks,
+           "max_peak_memory_bytes": max(peaks.values()),
+           "workload_gen_s": gen_s, **res, "card": card}
+    _print(out)
+    del chans, rgb, sub, img
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_entry(name, replaces, by_path, check) -> dict:
+    """One kernel's entry of the ``kernels`` line: launches on each path
+    that runs it (``launches`` is the last one's, each counted from 0 in
+    that path's own run), error and times of its check at the main
+    path's shape, the bound from that check's inputs.  No single PyTorch
+    call computes any of the three kernels' functions, so ``library_ms``
+    is null."""
     return {"name": name, "route": "cuda",
             "source": f"astrophotography_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": list(by_path.values())[-1],
+            "launches_by_path": by_path,
             "max_abs_err": check["max_abs_err"], "ms": check["ms"],
             "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
             "bound_by": check["bound_by"], "library_ms": None}
@@ -618,6 +944,28 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     med = _check_stack(label, stacked, SIZE)
     del out, stacked
     split = _unfused_split(fr, kw, cfg)
+
+    # once more with a bad-pixel mask: the workload's planted hot pixels,
+    # repaired in every calibrated frame (deltapix 2) before detection
+    hot = torch.from_numpy(dark - bias > 1000.0).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stacked, bdiag = calibrate_register_stack(fr, badpix_mask=hot, config=cfg,
+                                              **kw)
+    torch.cuda.synchronize()
+    badpix_ms = (time.perf_counter() - t0) * 1e3
+    blaunches = dict(kernels.launch_counts)
+    _check_launches(label + " badpix", blaunches,
+                    {"clip_combine": cfg.n_bands})
+    b_in, b_rms, b_terr = _check_registration(label + " badpix", bdiag, mats,
+                                              UNFUSED_T_ERR_PX)
+    b_med = _check_stack(label + " badpix", stacked, SIZE)
+    badpix = {"single_run_ms": badpix_ms, "hot_pixels": int(hot.sum()),
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "launches": blaunches, "min_inliers": b_in, "max_rms_px": b_rms,
+              "max_translation_err_px": b_terr, "interior_median": b_med}
+    del stacked, hot
     res = {"phase": label, "shape": [n, SIZE, SIZE],
            "config": {"max_stars": cfg.max_stars, "match_k": cfg.match_k,
                       "interp": cfg.interp, "n_bands": cfg.n_bands,
@@ -627,7 +975,7 @@ def run_unfused_path(card: str, dev, phases) -> dict:
            "sustained_gpix_s": n * SIZE * SIZE / sustained_s / 1e9,
            "sustained_ms": sustained_s * 1e3,
            "max_memory_allocated_bytes": peak, "launches": launches,
-           "device_ms_split": split,
+           "device_ms_split": split, "with_badpix_mask": badpix,
            "min_inliers": min_in, "max_rms_px": max_rms,
            "max_translation_err_px": t_err, "interior_median": med,
            "sky": SKY, "max_offset_px": max_off, "workload_gen_s": gen_s,
@@ -819,15 +1167,19 @@ def main(argv=None) -> int:
             "card": card})
 
     snap = rot = unfused = {}
-    if phases & {"k1", "k2", "lean"}:
+    if phases & {"k1", "k2", "lean", "bands"}:
         snap = run_main_path(False, card, dev, phases)
-    if phases & {"k2", "lean"}:
+    if phases & {"k2", "lean", "bands"}:
         rot = run_main_path(True, card, dev, phases)
     if phases & {"k3", "unfused"}:
         unfused = run_unfused_path(card, dev, phases)
     if "small" in phases:
         run_lean_chunked(card, dev)
         run_small_matrix(card, dev)
+    if "bands" in phases:
+        check_bounds_geom(card, dev)
+    if "measure" in phases:
+        run_measure(card, dev)
 
     if args.only is None:
         launches = snap["main"]["launches"]
@@ -837,13 +1189,19 @@ def main(argv=None) -> int:
         _print({"kernels": [
             _kernel_entry("detect_tiles",
                           "astrophotography_tpu/ops/pallas_detect.py:405",
-                          launches["detect_tiles"], snap["detect_tiles"]),
+                          {"lean": launches["detect_tiles"]},
+                          snap["detect_tiles"]),
             _kernel_entry("warp_combine",
                           "astrophotography_tpu/ops/pallas_warp_combine.py:658",
-                          launches["warp_combine"], k2),
+                          {"lean": launches["warp_combine"],
+                           "bands": snap["bands"]["launches"]["warp_combine"]},
+                          k2),
             _kernel_entry("clip_combine",
                           "astrophotography_tpu/ops/pallas_combine.py:102",
-                          unfused["main"]["launches"]["clip_combine"],
+                          {"unfused": unfused["main"]["launches"]["clip_combine"],
+                           "unfused with badpix_mask":
+                               unfused["main"]["with_badpix_mask"]["launches"]
+                               ["clip_combine"]},
                           unfused["clip_combine"]),
         ]})
     print(card, flush=True)

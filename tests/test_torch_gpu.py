@@ -281,6 +281,67 @@ def test_warp_combine_kernel_many_frames(cuda, n, dtype, combine):
                 combine=combine)
 
 
+@pytest.mark.parametrize("taps", ["exact", "lowrank"])
+@pytest.mark.parametrize("v_bounds,snap_geom", [
+    ((20.0, 100.5), (60.0, 30.0, 4.0, 4.0)),       # every frame snaps
+    ((-40.0, 300.0), (127.5, -70.0, 127.5, 63.5)),  # an interior band's
+])
+def test_warp_combine_kernel_bounds_and_geom(cuda, taps, v_bounds, snap_geom):
+    """K2 with ``v_bounds`` and ``snap_geom`` set reads the row bounds
+    from its table as its twin does: bit for bit; bounds inside the image
+    cut rows the default keeps."""
+    n, h, w = 6, 128, 256
+    raw = torch.from_numpy(_starfield(n, h, w, 3)).to(cuda)
+    mats = torch.tensor(_warp_mats(n, 2), device=cuda)
+    kw = dict(masters=_warp_masters(h, w, cuda), tile=(32, 128),
+              general_taps=taps,
+              exp_ratios=torch.full((n,), 0.5, device=cuda))
+    geo = dict(v_bounds=torch.tensor(v_bounds, device=cuda),
+               snap_geom=torch.tensor(snap_geom, device=cuda))
+    before = kernels.launch_counts["warp_combine"]
+    got = wc.warp_combine(raw, mats, **kw, **geo)
+    assert kernels.launch_counts["warp_combine"] == before + 1
+    assert torch.equal(got, wc.warp_combine_plain(raw, mats, **kw, **geo))
+    full = wc.warp_combine(raw, mats, **kw)
+    if v_bounds[0] > 2.0:
+        assert (got != 0).sum() < (full != 0).sum()
+        assert (got[40:90] != 0).float().mean() > 0.8
+    else:
+        # wider bounds than the image's keep every row the default keeps
+        assert bool(((got != 0) | (full == 0)).all())
+
+
+@pytest.mark.parametrize("rotate,taps", [(False, "exact"), (True, "exact"),
+                                         (True, "lowrank")])
+def test_banded_warp_combine_matches_whole_frame(cuda, rotate, taps):
+    """The band loop launches K2 once per band.  Translations that are
+    multiples of 1/64 px give the whole-frame result bit for bit;
+    rotations follow the clip-tie rule (equal zero masks, median |diff|
+    < 1e-3, beyond 0.5 + 1e-4 |ref| on under 1e-4 of the pixels)."""
+    from astrophotography_tpu_torch.parallel import banded_warp_combine
+
+    n, h, w = 6, 512, 256
+    raw = torch.from_numpy(_starfield(n, h, w, 3)).to(cuda)
+    mats = _warp_mats(n, 2, rotate=rotate)
+    mats[:, :, 2] = np.round(mats[:, :, 2] * 64) / 64
+    mats = torch.tensor(mats, device=cuda)
+    kw = dict(masters=_warp_masters(h, w, cuda), tile=(32, 128),
+              general_taps=taps,
+              exp_ratios=torch.full((n,), 0.5, device=cuda))
+    whole = wc.warp_combine(raw, mats, **kw)
+    before = kernels.launch_counts["warp_combine"]
+    banded = banded_warp_combine(raw, mats, 4, halo=32, **kw)
+    assert kernels.launch_counts["warp_combine"] == before + 4
+    assert torch.equal(banded == 0, whole == 0)
+    if not rotate:
+        assert torch.equal(banded, whole)
+        return
+    both = (banded != 0) & (whole != 0)
+    err = (banded - whole).abs()[both]
+    assert float(err.median()) < 1e-3
+    assert float((err > 0.5 + 1e-4 * whole[both].abs()).float().mean()) < 1e-4
+
+
 def _clip_stack(n, h, w, seed):
     """Normal samples with outliers, ~20% masked samples, a fully masked
     pixel, pixels with exactly 1 and 2 valid samples, and a masked +inf

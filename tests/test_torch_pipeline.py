@@ -177,17 +177,34 @@ def test_resolve_device_never_falls_back():
 
 
 def test_unported_paths_raise():
-    """What is still queued raises and names ROADMAP.md: the bad-pixel
-    repair of the unfused path.  A fused detector the geometry or the
-    config cannot take is a ValueError."""
+    """The unfused path takes a ``badpix_mask`` (a tensor or a numpy
+    array) and repairs the flagged pixels before it detects, and no
+    ``NotImplementedError`` is left in the port's ``ops/``.  A fused
+    detector the geometry or the config cannot take is a ValueError."""
     from astrophotography_tpu_torch.models import calibrate_register_stack
 
     raw, kw = _inputs("bias")
+    hot = np.zeros((H, W), bool)
+    hot[40:200:16, 50:700:50] = True
+    raw = raw.copy()
+    raw[:, hot] = 60000
     frames = torch.from_numpy(raw)
     bias = torch.from_numpy(kw["bias"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calibrate_register_stack(frames, bias=bias,
-                                 badpix_mask=torch.zeros((H, W), dtype=bool))
+    cfg = PipelineConfig(max_stars=24, match_k=10, detect_nsigma=7.0)
+    clean, diag = calibrate_register_stack(frames, bias=bias,
+                                           badpix_mask=hot, config=cfg)
+    as_tensor, _ = calibrate_register_stack(
+        frames, bias=bias, badpix_mask=torch.from_numpy(hot), config=cfg)
+    assert torch.equal(clean, as_tensor)
+    assert (diag["n_inliers"].numpy() >= 5).all()
+    # the reference frame is warped by the identity: its hot pixels stay
+    # at 60000 in one of four samples unless they were repaired
+    assert float(clean[torch.from_numpy(hot)].max()) < 5000.0
+    ops_dir = os.path.join(REPO, "astrophotography_tpu_torch", "ops")
+    for name in sorted(os.listdir(ops_dir)):
+        if name.endswith(".py"):
+            with open(os.path.join(ops_dir, name)) as f:
+                assert "NotImplementedError" not in f.read(), name
     with pytest.raises(ValueError, match="detect_impl='fused'"):
         calibrate_register_stack_lean(frames, bias=bias, config=PipelineConfig(
             **{**BASE, "detect_fast": False}))
@@ -239,6 +256,17 @@ def test_port_never_imports_jax():
             max_stars=4, match_k=4, n_bands=2, combine_impl="pallas",
             noise_center="median"))
         assert out.shape == (h, w) and bool(torch.isfinite(out).all())
+        import importlib
+        import pkgutil
+        import astrophotography_tpu_torch as port
+        for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+            importlib.import_module(mod.name)
+        from astrophotography_tpu_torch import ops, parallel
+        for name in ("badpix", "background", "composite", "cosmic",
+                     "imarith", "photometry", "psf"):
+            assert hasattr(ops, name), name
+        assert callable(parallel.banded_warp_combine)
+        import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "astrophotography_tpu"

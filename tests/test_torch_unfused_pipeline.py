@@ -184,6 +184,10 @@ def test_calibrate_matches_jax(dark_still_biased):
                                 *map(torch.from_numpy, args), exp_ratio=1.5,
                                 dark_still_biased=dark_still_biased).numpy()
     np.testing.assert_allclose(got1, one, rtol=1e-6, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcal.calibrate_batch(torch.from_numpy(raw),
-                             badpix_mask=torch.zeros((H, W), dtype=bool))
+    # a mask with nothing flagged repairs nothing
+    same = tcal.calibrate_batch(torch.from_numpy(raw),
+                                *map(torch.from_numpy, args),
+                                torch.from_numpy(er),
+                                dark_still_biased=dark_still_biased,
+                                badpix_mask=torch.zeros((H, W), dtype=bool))
+    np.testing.assert_array_equal(same.numpy(), got)
