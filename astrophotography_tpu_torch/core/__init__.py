@@ -1,0 +1,27 @@
+"""High-level engine classes mirroring the reference core surface
+(reference core/__init__.py:6-34) on top of the device ops layer: RAW
+conversion, master calibration frames, file-level calibration and the
+bad-pixel workflows."""
+
+from .raw_conv import RawConv
+from .masters import (MasterCalError, calc_read_noise, check_consistency,
+                      collect_frames, make_master)
+from .calibrator import Calibrator, find_exptime, find_gain
+from .badpix_engine import (auto_badcol_file, find_badpix, fix_badpix_files,
+                            read_user_badpix)
+
+__all__ = [
+    "RawConv",
+    "MasterCalError",
+    "calc_read_noise",
+    "check_consistency",
+    "collect_frames",
+    "make_master",
+    "Calibrator",
+    "find_exptime",
+    "find_gain",
+    "auto_badcol_file",
+    "find_badpix",
+    "fix_badpix_files",
+    "read_user_badpix",
+]

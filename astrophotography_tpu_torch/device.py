@@ -24,6 +24,16 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     return dev
 
 
+def native_contiguous(x) -> np.ndarray:
+    """``x`` as a C-contiguous numpy array in the machine's byte order.
+    FITS data is big-endian on disk and ``torch.from_numpy`` refuses an
+    array whose byte order is not native."""
+    arr = np.ascontiguousarray(x)
+    if not arr.dtype.isnative:
+        arr = arr.astype(arr.dtype.newbyteorder("="))
+    return arr
+
+
 def on_device(x, device: torch.device,
               dtype: Optional[torch.dtype] = None) -> Optional[torch.Tensor]:
     """``x`` (tensor, numpy array or None) as a tensor on ``device``.
@@ -36,10 +46,19 @@ def on_device(x, device: torch.device,
         if x.device != device:
             raise ValueError(f"tensor on {x.device}, expected {device}")
         return x if dtype is None else x.to(dtype)
-    t = torch.from_numpy(np.ascontiguousarray(x))
+    t = torch.from_numpy(native_contiguous(x))
     if dtype is not None:
         t = t.to(dtype)
     return t.to(device)
+
+
+def to_uint16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float, any shape) clipped to [0, 65535], truncated and
+    returned as uint16.  The cast goes through int32 and an int16 view,
+    for the same reason as :func:`to_float32`."""
+    i = x.clamp(0, 65535).to(torch.int32)
+    return torch.where(i >= 32768, i - 65536, i).to(torch.int16) \
+        .view(torch.uint16)
 
 
 def to_float32(x: torch.Tensor) -> torch.Tensor:

@@ -14,15 +14,19 @@ from ..device import resolve_device, to_float32
 
 
 def _percentile(rows: torch.Tensor, pct: float) -> torch.Tensor:
-    """``pct``-th percentile of each row of an (C, M) float32 tensor by
-    linear interpolation between the two nearest order statistics
-    (numpy's 'linear' method), from a sort.  The position
+    """:func:`_percentile_sorted` of unsorted rows."""
+    return _percentile_sorted(torch.sort(rows, dim=1).values, pct)
+
+
+def _percentile_sorted(srt: torch.Tensor, pct: float) -> torch.Tensor:
+    """``pct``-th percentile of each row of an (C, M) float32 tensor whose
+    rows are sorted ascending, by linear interpolation between the two
+    nearest order statistics (numpy's 'linear' method).  The position
     pct / 100 * (M - 1) is computed in float64 as numpy does; in float32
     it would be off by up to an index on a 16-megapixel channel.
     ``torch.quantile`` is avoided: it limits the input size and
     interpolates in another order.  NaN for a row that holds a NaN."""
-    m = rows.shape[1]
-    srt = torch.sort(rows, dim=1).values
+    m = srt.shape[1]
     pos = min(max(pct / 100.0 * (m - 1), 0.0), m - 1.0)
     low = int(math.floor(pos))
     high = min(low + 1, m - 1)
@@ -50,8 +54,9 @@ def stretch_channels(
         raise ValueError(f"unknown stretch mode {mode!r}")
     chans = to_float32(channels)
     rows = chans.reshape(3, -1)
-    lo = _percentile(rows, black_pct)
-    hi = _percentile(rows, white_pct)
+    srt = torch.sort(rows, dim=1).values        # one sort, two reads
+    lo = _percentile_sorted(srt, black_pct)
+    hi = _percentile_sorted(srt, white_pct)
     scaled = (chans - lo[:, None, None]) \
         / (hi - lo)[:, None, None].clamp(min=1e-9)
     scaled = scaled.clamp(min=0.0)

@@ -23,18 +23,33 @@ the stacks:
   pixels), which repairs every calibrated frame;
 * the repair and measurement ops on a synthetic 4008x2672 starfield:
   bad-pixel mask and repair, L.A.Cosmic, source mask and background,
-  detection, aperture photometry, PSF fits, the colour stretch.
+  detection, aperture photometry, PSF fits, the colour stretch;
+* the RAW half (``raw``): one planted 3904^2 scene through
+  ``synth`` -> lossless-JPEG DNG -> ``RawConv`` with every demosaic
+  algorithm and white-balance method, the card against the port's own
+  CPU run, then 24 such DNGs -> grey FITS through ``api.grey`` and
+  through the three-stage loop (decode thread -> ``RawConv.grey(fetch=
+  False)`` -> ``AsyncWriter``), with frames/s and the decode / upload /
+  device / download / write split, and the device ms of each
+  ``ops/demosaic`` function;
+* the calibration-file engines (``files``): 9 bias, 9 dark and 9 flat
+  frames and 8 lights of 4008x2672 as uint16 FITS in a temp directory,
+  then ``make_master`` x3, ``calc_read_noise``, ``find_badpix``,
+  ``auto_badcol_file``, ``Calibrator.calibrate`` on the lights (one with
+  ``fix_cosmic``) and ``fix_badpix_files``, each held to what was
+  planted and split into read, device and write time.
 
 Beside the checks against the plain twins it times K2 at 100x4096^2 with
 ``combine='average'`` against ``combine='mean'`` (the same warp without
 the sort and clip): the warp phase against the combine phase.
 
 Run from the repository root with ``python3 chip_smoke.py``; every phase
-runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure}`` runs one
-group of phases (the kernel check and timing of K1, K2 or K3 at the main
-paths' shapes, the lean path, the unfused path with and without the
-mask, the 16x1024^2 chunked run and the small kernel matrix, the band
-loop, or the measurement ops) and prints no ``kernels`` line.  Every phase raises
+runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files}``
+runs one group of phases (the kernel check and timing of K1, K2 or K3 at
+the main paths' shapes, the lean path, the unfused path with and without
+the mask, the 16x1024^2 chunked run and the small kernel matrix, the
+band loop, the measurement ops, the RAW half, or the calibration-file
+engines) and prints no ``kernels`` line.  Every phase raises
 on failure.  Each phase prints one JSON line; the build line carries
 ptxas' register, shared-memory and spill report for every kernel; the
 line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -48,8 +63,13 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import queue
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -63,7 +83,12 @@ SKY = 800.0
 #: 5x5 centre-of-mass centroids carry a sub-pixel-phase bias (the JAX
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
-PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure")
+PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure",
+          "raw", "files")
+#: the RAW half: 24 lossless-JPEG DNGs of 3904^2 uint16, black level 128
+RAW_FRAMES, RAW_SIZE, RAW_BLACK = 24, 3904, 128
+#: the calibration-file engines: frames per master, light frames
+CAL_FRAMES, LIGHT_FRAMES = 9, 8
 #: the band loop: 4 bands of 1024 rows with a halo of one K2 tile row
 N_BANDS, HALO = 4, 64
 #: the clip-tie rule of the JAX package's band tests: a pixel may differ
@@ -822,6 +847,794 @@ def run_measure(card: str, dev) -> dict:
     return out
 
 
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _ahd_tie_rule(label, got, want, cands) -> dict:
+    """AHD on two devices: equal within 1e-5 * |ref| + 0.05 on all but a
+    small share of the pixels, and at every differing pixel the value is
+    one of the three the function could have chosen there (the
+    horizontal candidate, the vertical one, or their mean)."""
+    bad = ((got - want).abs() > 1e-5 * want.abs() + 0.05).any(dim=-1)
+    share = float(bad.float().mean())
+    _require(share <= 1e-3, f"{label}: AHD differs on {share:.2e} of the "
+             "pixels")
+    if bool(bad.any()):
+        ch, cv = cands
+        options = torch.stack([ch[bad], cv[bad], 0.5 * (ch[bad] + cv[bad])])
+        err = (options - got[bad][None]).abs().amax(dim=-1).amin(dim=0)
+        tol = 1e-5 * got[bad].abs().amax(dim=-1) + 0.05
+        _require(bool((err <= tol).all()),
+                 f"{label}: an AHD pixel is none of its three candidates")
+    return {"pixels_differing": int(bad.sum()), "share": share,
+            "max_abs": float((got - want).abs().max())}
+
+
+def _raw_correctness(tmp: str, card: str, dev) -> dict:
+    """One planted 3904^2 scene -> mosaic -> lossless-JPEG DNG ->
+    ``RawConv``: every algorithm against the scene at the bounds of the
+    JAX package's own tests, measured sites kept exactly, grey = the
+    CCIR-601 sum of rgb, split zero off-band, every white-balance
+    method, and the card against the port's own CPU run."""
+    from astrophotography_tpu_torch import synth
+    from astrophotography_tpu_torch.core.raw_conv import RawConv
+    from astrophotography_tpu_torch.device import to_uint16
+    from astrophotography_tpu_torch.io.raw import write_dng
+    from astrophotography_tpu_torch.ops import demosaic as dk
+
+    t0 = time.perf_counter()
+    shape = (RAW_SIZE, RAW_SIZE)
+    blacks = (512, 500, 520, 508)
+    gains = (2.0, 1.0, 1.5, 1.0)
+    scene = synth.make_rgb_scene(shape, seed=5, peak=30000)
+    mosaic = synth.mosaic_from_rgb(scene, black_levels=blacks,
+                                   wb_gains=gains)
+    path = os.path.join(tmp, "scene.dng")
+    write_dng(path, mosaic, black_levels=blacks, white_level=65535,
+              camera_wb=gains, compression=7)
+    gen_s = time.perf_counter() - t0
+    conv = RawConv(path, device=dev)
+    host = RawConv(path, device="cpu")
+    _require(torch.equal(conv._mosaic.cpu(), torch.from_numpy(mosaic)),
+             "raw: the DNG decodes to the mosaic that was written")
+    res = {"phase": "raw correctness", "shape": list(shape),
+           "dng_bytes": os.path.getsize(path), "make_scene_s": gen_s}
+
+    # each algorithm against the scene, on the card, and against the CPU
+    scale = 65535.0 / (65535.0 - max(blacks))
+    inner = (slice(2, -2), slice(2, -2))
+    truth = torch.from_numpy((scene * scale).astype(np.float32)).to(dev)
+    cmap = conv._color_map
+    chans = ((0, 0), (1, 1), (3, 1), (2, 2))      # colour index -> channel
+    for algorithm, rtol in (("mhc", 0.25), ("bilinear", 0.15),
+                            ("ahd", 0.25)):
+        out, _ = conv.rgb(wb_method="camera", demosaic=algorithm)
+        _require(out.dtype == np.uint16 and out.shape == shape + (3,),
+                 f"raw {algorithm}: uint16 (H, W, 3)")
+        got = torch.from_numpy(out.astype(np.float32)).to(dev)
+        ratio = got[inner] / truth[inner]
+        means = [float(ratio[..., c].mean()) for c in range(3)]
+        stds = [float(ratio[..., c].std()) for c in range(3)]
+        outside = float(((got[inner] - truth[inner]).abs()
+                         > rtol * truth[inner].abs() + 101.0)
+                        .float().mean())
+        # the bounds are wider than on the 32 x 32 case below: this
+        # scene has 238,000 cells of 8 px, among them every sharp kink,
+        # where a demosaic overshoots (AHD most: ratio 1.009 +- 0.073 in
+        # red at 1024^2 on the CPU, 0.9 % of the pixels outside)
+        _require(all(abs(m - 1.0) < 0.02 for m in means)
+                 and all(sd < 0.12 for sd in stds) and outside < 0.03,
+                 f"raw {algorithm}: scene recovered ({means}, {stds}, "
+                 f"{outside})")
+        # float results of the same call on both devices
+        args_d = (conv._mosaic, cmap, conv._black_levels,
+                  conv._wb_array("camera"), 65535.0)
+        args_h = (host._mosaic, host._color_map, host._black_levels,
+                  host._wb_array("camera"), 65535.0)
+        f_d = dk.raw_to_rgb(*args_d, algorithm=algorithm)
+        f_h = dk.raw_to_rgb(*args_h, algorithm=algorithm).to(dev)
+        # measured sites keep their own (scaled) sample exactly
+        sites = dk.raw_to_grey_direct(*args_d[:4]) * _range_scale(conv)
+        for color, chan in chans:
+            m = cmap == color
+            _require(torch.equal(f_d[..., chan][m], sites[m]),
+                     f"raw {algorithm}: colour {color} sites kept exactly")
+        if algorithm == "ahd":
+            cmp_ = _ahd_tie_rule("raw", f_d, f_h,
+                                 dk._ahd_candidates(sites, cmap))
+        else:
+            cmp_ = {"max_abs": float((f_d - f_h).abs().max())}
+            _require(cmp_["max_abs"] <= 0.05, f"raw {algorithm}: card "
+                     f"against CPU max |d| {cmp_['max_abs']}")
+        cmp_["pixels_differing_after_cast"] = int(
+            (to_uint16(f_d).view(torch.int16)
+             != to_uint16(f_h).view(torch.int16)).any(dim=-1).sum())
+        res[algorithm] = {"ratio_mean": means, "ratio_std": stds,
+                          "share_outside_pixel_bound": outside,
+                          "card_vs_cpu": cmp_}
+        del f_h, got, ratio
+    # grey linear is the three-term CCIR-601 sum of the clipped rgb
+    rgb = dk.raw_to_rgb(*args_d).clamp(0.0, 65535.0)
+    luma = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]) + 0.114 * rgb[..., 2]
+    grey_d = dk.raw_to_grey_linear(*args_d)
+    _require(torch.equal(grey_d, luma), "raw: grey = CCIR-601 sum of rgb")
+    grey_h = dk.raw_to_grey_linear(*args_h).to(dev)
+    res["grey_linear"] = {
+        "card_vs_cpu_max_abs": float((grey_d - grey_h).abs().max()),
+        "pixels_differing_after_cast": int(
+            (to_uint16(grey_d).view(torch.int16)
+             != to_uint16(grey_h).view(torch.int16)).sum())}
+    _require(res["grey_linear"]["card_vs_cpu_max_abs"] <= 0.05,
+             "raw: grey on the card against the CPU")
+    del rgb, luma, grey_h
+    # split: each band keeps its own sites, zero elsewhere
+    bands = conv.split(subtract_black=True)[:4]
+    sub = np.maximum(mosaic.astype(np.int64)
+                     - np.asarray(blacks)[host._raw.color_map], 0)
+    for color, band in enumerate(bands):
+        m = host._raw.color_map == color
+        _require(not band[~m].any() and np.array_equal(band[m], sub[m]),
+                 f"raw: split band {color}")
+    # every white-balance method, the card against the CPU
+    wb = {}
+    n = RAW_SIZE
+    for method in ("daylight", "camera", "auto",
+                   f"region[{n // 32},{3 * n // 4},{n // 16},{7 * n // 8}]",
+                   "user[2.0,1.0,1.5]"):
+        a = np.asarray(conv.get_whitebalance(method))
+        b = np.asarray(host.get_whitebalance(method))
+        wb[method] = {"card": a.tolist(),
+                      "rel_diff_vs_cpu": float(np.abs(a / b - 1).max())}
+        _require(wb[method]["rel_diff_vs_cpu"] < 1e-5,
+                 f"raw: white balance {method} on the card against the CPU")
+        img, _ = conv.grey(wb_method=method)
+        _require(img.shape == shape and img.dtype == np.uint16
+                 and img.max() > 1000, f"raw: grey with {method}")
+    # the scene's channels were divided by the gains: 'auto' finds them
+    res["whitebalance"] = wb
+    direct, _ = conv.grey(luminance_method="direct", wb_method="camera")
+    stretched, _ = conv.grey(wb_method="camera", renorm=True)
+    _require(direct.shape == shape and stretched.max() == 65535,
+             "raw: direct grey and the percentile stretch")
+    res["small_scene"] = _raw_small_scene(tmp, dev)
+    res["card"] = card
+    _print(res)
+    return res
+
+
+def _raw_small_scene(tmp: str, dev) -> dict:
+    """The 32 x 32 scene of the JAX package's own demosaic test through
+    DNG and ``RawConv`` on the card, at that test's bounds: ratio to the
+    scene 1 +- 0.01 in the mean, under 0.03 in spread, every interior
+    pixel within rtol (0.15 bilinear, 0.25 mhc) and 100 ADU, one more
+    for the uint16 cast."""
+    from astrophotography_tpu_torch import synth
+    from astrophotography_tpu_torch.core.raw_conv import RawConv
+    from astrophotography_tpu_torch.io.raw import write_dng
+
+    blacks, gains = (512, 500, 520, 508), (2.0, 1.0, 1.5, 1.0)
+    scene = synth.make_rgb_scene((32, 32), seed=5, peak=30000)
+    path = os.path.join(tmp, "small.dng")
+    write_dng(path, synth.mosaic_from_rgb(scene, black_levels=blacks,
+                                          wb_gains=gains),
+              black_levels=blacks, white_level=65535, camera_wb=gains,
+              compression=7)
+    conv = RawConv(path, device=dev)
+    os.remove(path)
+    truth = scene * (65535.0 / (65535.0 - max(blacks)))
+    inner = (slice(2, -2), slice(2, -2))
+    res = {}
+    for algorithm, rtol in (("bilinear", 0.15), ("mhc", 0.25)):
+        out = conv.rgb(wb_method="camera", demosaic=algorithm)[0] \
+            .astype(np.float64)
+        ratio = out[inner] / truth[inner]
+        means = ratio.mean(axis=(0, 1))
+        stds = ratio.std(axis=(0, 1))
+        excess = float((np.abs(out[inner] - truth[inner])
+                        - rtol * truth[inner]).max())
+        _require(bool((np.abs(means - 1.0) < 0.01).all())
+                 and bool((stds < 0.03).all()) and excess <= 101.0,
+                 f"raw {algorithm}: the 32 x 32 scene at the test's bounds "
+                 f"({means}, {stds}, {excess})")
+        res[algorithm] = {"ratio_mean": means.tolist(),
+                          "ratio_std": stds.tolist(),
+                          "worst_excess_over_rtol": excess}
+    return res
+
+
+def _range_scale(conv) -> torch.Tensor:
+    """The range scale ``raw_to_rgb`` applies, as it computes it."""
+    white = torch.tensor(float(conv._raw.white_level), dtype=torch.float32,
+                         device=conv._device)
+    return 65535.0 / (white - conv._black_levels.max()).clamp(min=1.0)
+
+
+def _raw_pipeline(tmp: str, card: str, dev) -> dict:
+    """24 lossless-JPEG DNGs of 3904^2 -> grey FITS: ``api.grey`` frame
+    by frame, the three-stage loop (one warm pass, two timed), and one
+    serial pass with a sync after every stage for the split."""
+    from astrophotography_tpu_torch import api
+    from astrophotography_tpu_torch.core.raw_conv import RawConv
+    from astrophotography_tpu_torch.device import to_uint16
+    from astrophotography_tpu_torch.io import losslessjpeg
+    from astrophotography_tpu_torch.io.fits import (Header, read_image,
+                                                    write_image)
+    from astrophotography_tpu_torch.io.raw import load_raw, write_dng
+    from astrophotography_tpu_torch.ops import demosaic as dk
+    from astrophotography_tpu_torch.parallel import AsyncWriter
+
+    rng = np.random.default_rng(0)
+    # sky statistics (background + noise), not 16-bit white noise: the
+    # entropy decoder's cost follows real camera frames
+    base = np.clip(rng.normal(900.0, 35.0, (RAW_SIZE, RAW_SIZE)),
+                   0, 65535).astype(np.uint16)
+    t0 = time.perf_counter()
+    payload = losslessjpeg.encode_lossless_jpeg(base)
+    encode_s = time.perf_counter() - t0
+    paths = []
+    for i in range(RAW_FRAMES):
+        p = os.path.join(tmp, f"f{i:03d}.dng")
+        write_dng(p, base, black_levels=(RAW_BLACK,) * 4, compression=7,
+                  strip_payload=payload)
+        paths.append(p)
+    mpix = RAW_SIZE * RAW_SIZE / 1e6
+
+    # what every output must hold: the conversion of the decoded mosaic
+    first = RawConv(paths[0], device=dev)
+    _require(np.array_equal(first._raw.mosaic, base),
+             "raw: the DNG decodes to the frame that was encoded")
+    want = to_uint16(dk.raw_to_grey_linear(
+        first._mosaic, first._color_map, first._black_levels,
+        first._wb_array("daylight"), first._raw.white_level)).cpu().numpy()
+    del first
+
+    def verify(names, what):
+        for name in names:
+            got, _ = read_image(name, as_float32=False)
+            _require(got.dtype == np.uint16 and np.array_equal(got, want),
+                     f"raw: {what} {os.path.basename(name)} holds the "
+                     "conversion of its mosaic")
+
+    # api.grey, file -> FITS, frame by frame
+    api.grey(paths[0], os.path.join(tmp, "warm.fits"), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [p[:-4] + "_api.fits" for p in paths]
+    for p, o in zip(paths, outs):
+        api.grey(p, o, device=dev)
+    api_s = time.perf_counter() - t0
+    verify(outs, "api.grey output")
+    for o in outs + [os.path.join(tmp, "warm.fits")]:
+        os.remove(o)
+
+    # the three-stage loop: decode thread -> device convert -> writer
+    def run_once() -> dict:
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        writer = AsyncWriter()
+        decoded: "queue.Queue" = queue.Queue(maxsize=2)
+        busy = {"decode_s": 0.0}
+
+        def decode_ahead():
+            for p in paths:
+                t = time.perf_counter()
+                raw = load_raw(p)
+                busy["decode_s"] += time.perf_counter() - t
+                decoded.put((p, raw))
+            decoded.put(None)
+
+        thread = threading.Thread(target=decode_ahead, daemon=True)
+        thread.start()
+        wait_s = 0.0
+        while True:
+            t = time.perf_counter()
+            item = decoded.get()
+            wait_s += time.perf_counter() - t
+            if item is None:
+                break
+            p, raw = item
+            conv = RawConv(p, raw_image=raw, device=dev)
+            img, _exif = conv.grey(wb_method="daylight", renorm=False,
+                                   fetch=False)
+            writer.submit(p[:-4] + ".fits", img, Header())
+        thread.join()
+        t = time.perf_counter()
+        writer.close()
+        drain_s = time.perf_counter() - t
+        total = time.perf_counter() - t_start
+        return {"seconds": total, "frames_per_s": RAW_FRAMES / total,
+                "decode_thread_busy_s": busy["decode_s"],
+                "main_waits_for_decode_s": wait_s,
+                "writer_drain_s": drain_s}
+
+    run_once()                                          # warm
+    torch.cuda.reset_peak_memory_stats()
+    passes = [run_once() for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    verify([p[:-4] + ".fits" for p in paths], "loop output")
+
+    # the split: the same stages in turn, a sync after each
+    split = {k: 0.0 for k in ("decode_s", "upload_ms", "device_ms",
+                              "download_ms", "write_s")}
+    for p in paths:
+        t = time.perf_counter()
+        raw = load_raw(p)
+        split["decode_s"] += time.perf_counter() - t
+        conv, ms = _timed(lambda: RawConv(p, raw_image=raw, device=dev))
+        split["upload_ms"] += ms
+        (img, _), ms = _timed(lambda: conv.grey(wb_method="daylight",
+                                                fetch=False))
+        split["device_ms"] += ms
+        t = time.perf_counter()
+        arr = img.cpu().numpy()
+        split["download_ms"] += (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        write_image(p[:-4] + ".fits", arr, Header())
+        split["write_s"] += time.perf_counter() - t
+    split = {k: v / RAW_FRAMES for k, v in split.items()}
+    per_frame_s = (split["decode_s"] + split["write_s"]
+                   + (split["upload_ms"] + split["device_ms"]
+                      + split["download_ms"]) / 1e3)
+    res = {"phase": "raw pipeline", "frames": RAW_FRAMES,
+           "frame": [RAW_SIZE, RAW_SIZE], "mpix": mpix,
+           "dng_bytes": os.path.getsize(paths[0]),
+           "encode_s": encode_s,
+           "api_grey": {"seconds": api_s,
+                        "frames_per_s": RAW_FRAMES / api_s},
+           "loop_passes": passes,
+           "loop_frames_per_s": max(r["frames_per_s"] for r in passes),
+           "split_per_frame": split, "split_sum_s": per_frame_s,
+           "device_share_of_frame": split["device_ms"] / 1e3 / per_frame_s,
+           "peak_bytes": peak, "temp_bytes": _dir_bytes(tmp), "card": card}
+    _print(res)
+    return res
+
+
+def _raw_functions(card: str, dev) -> dict:
+    """Device ms (CUDA events after a warm-up) and peak memory of each
+    ``ops/demosaic`` function on one 3904^2 mosaic."""
+    from astrophotography_tpu_torch import synth
+    from astrophotography_tpu_torch.device import to_float32
+    from astrophotography_tpu_torch.ops import demosaic as dk
+
+    rng = np.random.default_rng(2)
+    shape = (RAW_SIZE, RAW_SIZE)
+    mosaic = torch.from_numpy(np.clip(
+        rng.normal(4000.0, 600.0, shape), 0, 16383).astype(np.uint16)).to(dev)
+    cmap = torch.from_numpy(synth.bayer_color_map(shape)).to(dev) \
+        .to(torch.int64)
+    blacks = torch.tensor([512.0, 500.0, 520.0, 508.0], device=dev)
+    wb = torch.tensor([2.0, 1.0, 1.5, 1.0], device=dev)
+    vals = to_float32(mosaic)
+    sub = dk.safe_subtract_black(mosaic, cmap, blacks)
+    times, peaks = {}, {}
+    for name in ("demosaic_bilinear", "demosaic_mhc", "demosaic_ahd"):
+        out = _op(times, peaks, name, lambda: getattr(dk, name)(vals, cmap))
+        _require(out.shape == shape + (3,)
+                 and bool(torch.isfinite(out).all()), f"raw: {name}")
+        del out
+    for name in ("raw_to_rgb", "raw_to_grey_linear"):
+        out = _op(times, peaks, name, lambda: getattr(dk, name)(
+            mosaic, cmap, blacks, wb, 16383.0))
+        _require(bool(torch.isfinite(out).all()), f"raw: {name}")
+        del out
+    _op(times, peaks, "raw_to_grey_direct",
+        lambda: dk.raw_to_grey_direct(mosaic, cmap, blacks, wb))
+    _op(times, peaks, "safe_subtract_black",
+        lambda: dk.safe_subtract_black(mosaic, cmap, blacks))
+    out = _op(times, peaks, "split_channels",
+              lambda: dk.split_channels(mosaic, cmap, blacks))
+    _require(out.shape == (4,) + shape, "raw: split_channels")
+    del out
+    region = [0, RAW_SIZE - 1, 0, RAW_SIZE - 1]
+    got = _op(times, peaks, "wb_from_region",
+              lambda: dk.wb_from_region(sub, cmap, region))
+    # 15 M float32 values a band: the card's sum against the CPU's, and
+    # both against a float64 sum
+    on_cpu = dk.wb_from_region(sub.cpu(), cmap.cpu(), region)
+    sub64, cmap_np = sub.cpu().numpy().astype(np.float64), cmap.cpu().numpy()
+    avg = np.array([sub64[cmap_np == c].mean() for c in range(4)])
+    exact = avg.max() / avg
+    wb_cmp = {"card_vs_cpu": float((got.cpu() / on_cpu - 1).abs().max()),
+              "card_vs_float64": float(np.abs(got.cpu().numpy() / exact
+                                              - 1).max()),
+              "cpu_vs_float64": float(np.abs(on_cpu.numpy() / exact
+                                             - 1).max())}
+    _require(wb_cmp["card_vs_cpu"] < 1e-5 and wb_cmp["card_vs_float64"] < 1e-5,
+             f"raw: wb_from_region sums {wb_cmp}")
+    out = _op(times, peaks, "percentile_renorm",
+              lambda: dk.percentile_renorm(sub))
+    lo, hi = np.percentile(sub64, [0.01, 99.99])
+    ref = (sub64 - lo) * (65535.0 / (hi - lo))
+    pct_err = float(np.abs(out.cpu().numpy() - ref).max())
+    _require(pct_err <= 3e-5 * 65535.0,
+             f"raw: percentile_renorm against float64 numpy ({pct_err})")
+    res = {"phase": "raw functions", "frame": list(shape), "ms": times,
+           "peak_bytes": peaks, "wb_from_region": wb_cmp,
+           "percentile_renorm_max_abs_vs_float64": pct_err, "card": card}
+    _print(res)
+    return res
+
+
+def run_raw(card: str, dev) -> dict:
+    """The RAW half at 24 x 3904^2 (lossless-JPEG DNG, black 128)."""
+    from astrophotography_tpu_torch import kernels
+
+    from astrophotography_tpu_torch.io import losslessjpeg
+
+    before = dict(kernels.launch_counts)
+    t0 = time.perf_counter()
+    losslessjpeg._load()                  # builds with g++ at first use
+    _require(losslessjpeg.native_loaded(),
+             "raw: the native lossless-JPEG library is loaded")
+    _print({"phase": "raw native codec", "library": losslessjpeg._so_path(),
+            "build_or_load_s": time.perf_counter() - t0, "card": card})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_raw_")
+    try:
+        res = {"correctness": _raw_correctness(tmp, card, dev)}
+        os.remove(os.path.join(tmp, "scene.dng"))
+        res["pipeline"] = _raw_pipeline(tmp, card, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["functions"] = _raw_functions(card, dev)
+    _require(dict(kernels.launch_counts) == before,
+             "raw: the RAW half launches none of K1-K3")
+    return res
+
+
+class _IoSplit:
+    """Times one engine call by where it spends it: ``read_image`` and
+    ``write_image`` of the engine's module are wrapped (host seconds),
+    and CUDA events bracket what lies between, from the first
+    ``on_device`` upload to the first write (or the call's end): the
+    uploads, the device work, the download and the host work among
+    them."""
+
+    def __init__(self, module):
+        self.module = module
+        self.read_s = self.write_s = 0.0
+        self.first_upload = self.first_write = None
+
+    def __enter__(self):
+        mod = self.module
+        self.saved = (mod.read_image, mod.write_image, mod.on_device)
+
+        def read(*a, **k):
+            t = time.perf_counter()
+            out = self.saved[0](*a, **k)
+            self.read_s += time.perf_counter() - t
+            return out
+
+        def write(*a, **k):
+            if self.first_write is None:
+                self.first_write = torch.cuda.Event(enable_timing=True)
+                self.first_write.record()
+            t = time.perf_counter()
+            self.saved[1](*a, **k)
+            self.write_s += time.perf_counter() - t
+
+        def upload(*a, **k):
+            if self.first_upload is None:
+                self.first_upload = torch.cuda.Event(enable_timing=True)
+                self.first_upload.record()
+            return self.saved[2](*a, **k)
+
+        mod.read_image, mod.write_image, mod.on_device = read, write, upload
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        mod = self.module
+        mod.read_image, mod.write_image, mod.on_device = self.saved
+        end = self.first_write
+        if end is None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        torch.cuda.synchronize()
+        self.total_s = time.perf_counter() - self.t0
+        self.device_ms = (self.first_upload.elapsed_time(end)
+                          if self.first_upload is not None else 0.0)
+        self.peak = torch.cuda.max_memory_allocated()
+
+    def report(self) -> dict:
+        return {"seconds": self.total_s, "read_s": self.read_s,
+                "device_ms": self.device_ms, "write_s": self.write_s,
+                "peak_bytes": self.peak}
+
+
+def run_files(card: str, dev) -> dict:
+    """The calibration-file engines on uint16 FITS frames of 4008 x 2672
+    in a temp directory: masters, read noise, the bad-pixel mask and
+    column, eight calibrated lights (one cleaned of cosmic rays) and one
+    repaired raw light, each held to what was planted."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.core import (badpix_engine, calibrator,
+                                                 masters)
+    from astrophotography_tpu_torch.io.fits import (Header, read_image,
+                                                    write_image)
+
+    before = dict(kernels.launch_counts)
+    t0 = time.perf_counter()
+    img, sky, xs, ys, _fl = make_starfield()
+    h, w = img.shape
+    rng = np.random.default_rng(7)
+    read_noise, gain = 6.0, 1.5                 # ADU, e-/ADU: 9 e-
+    bias_level, dark_rate, dark_exp, light_exp = 300.0, 0.5, 60.0, 120.0
+    yy = np.linspace(-1.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(-1.0, 1.0, w, dtype=np.float32)[None, :]
+    vig = 1.0 - 0.08 * (xx * xx + yy * yy) / 2.0
+    vig = (vig / vig.mean()).astype(np.float32)
+    rate = np.full((h, w), dark_rate, np.float32)
+    near_star = np.zeros((h, w), bool)
+    for x, y in zip(xs, ys):
+        near_star[int(y) - 12:int(y) + 13, int(x) - 12:int(x) + 13] = True
+    hot = (rng.random((h, w)) < 1e-4) & ~near_star
+    hot[:3] = hot[-3:] = False
+    hot[:, :3] = hot[:, -3:] = False
+    rate[hot] = rng.uniform(20.0, 60.0, int(hot.sum())).astype(np.float32)
+    bad_col = (4 * w) // 9
+    hot[:, bad_col] = False
+    # the readout's fixed pattern: an offset of its own for every column
+    # and row (0.5 ADU rms), in every frame.  Without it the column
+    # medians of integer frames fall on a few levels, whole windows of
+    # them are equal, and the bad-column test (>= sigma * std) fires on
+    # a spread of zero
+    pattern = (bias_level + rng.normal(0.0, 0.5, (1, w))
+               + rng.normal(0.0, 0.5, (h, 1))).astype(np.float32)
+
+    def noise():
+        return rng.standard_normal((h, w), dtype=np.float32) * read_noise
+
+    def u16(a):
+        return np.clip(np.rint(a), 0, 65535).astype(np.uint16)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        def put(folder, name, data, **keys):
+            hdr = Header()
+            for k, v in keys.items():
+                hdr[k.replace("_", "-")] = v
+            os.makedirs(os.path.join(tmp, folder), exist_ok=True)
+            path = os.path.join(tmp, folder, name)
+            write_image(path, data, hdr)      # uint16: BZERO 32768
+            return path
+
+        temps = {"SET_TEMP": -10.0, "CCD_TEMP": -10.1}
+        dark_signal = rate * dark_exp
+        dark_signal[:, bad_col] += 60.0
+        for i in range(CAL_FRAMES):
+            put("bias", f"bias{i}.fits", u16(pattern + noise()),
+                IMAGETYP="BIAS", EXPTIME=0.0, GAIN=gain, **temps)
+            off = i == CAL_FRAMES - 1             # one dark 2 C off
+            put("dark", f"dark{i}.fits",
+                u16(pattern + dark_signal * (3.0 if off else 1.0)
+                    + noise()),
+                IMAGETYP="DARK", EXPTIME=dark_exp, SET_TEMP=-10.0,
+                CCD_TEMP=-8.0 if off else -10.1)
+            put("flat", f"flat{i}.fits",
+                u16(pattern + 20000.0 * vig + noise() * 12.0),
+                IMAGETYP="FLAT", EXPTIME=2.0, **temps)
+        lights = []
+        light_signal = rate * light_exp
+        light_signal[:, bad_col] += 120.0
+        hits = (rng.random((h, w)) < 2e-4) & ~near_star & ~hot
+        hits[:, bad_col - 3:bad_col + 4] = False
+        for i in range(LIGHT_FRAMES):
+            frame = img * vig + pattern + light_signal + noise()
+            if i == 0:
+                frame[hits] += rng.uniform(1500, 8000, int(hits.sum()))
+            lights.append(put("light", f"light{i}.fits", u16(frame),
+                              IMAGETYP="LIGHT", EXPTIME=light_exp,
+                              GAIN=gain, **temps))
+        gen_s = time.perf_counter() - t0
+        res = {"phase": "files", "frame": [h, w],
+               "frames_written": 3 * CAL_FRAMES + LIGHT_FRAMES,
+               "make_frames_s": gen_s, "hot_pixels": int(hot.sum()),
+               "cosmic_hits": int(hits.sum()), "engines": {}}
+        eng = res["engines"]
+
+        # masters
+        paths = {}
+        for kind in ("bias", "dark", "flat"):
+            paths[kind] = os.path.join(tmp, f"master_{kind}.fits")
+            with _IoSplit(masters) as sp:
+                hdr = masters.make_master(os.path.join(tmp, kind),
+                                          paths[kind], device=dev)
+            eng[f"make_master {kind}"] = sp.report()
+            want_n = CAL_FRAMES - 1 if kind == "dark" else CAL_FRAMES
+            names = [hdr.get(f"IFILE{n:03d}") for n in range(want_n)]
+            _require(hdr["NCOMBINE"] == want_n
+                     and hdr["IMAGETYP"] == f"MASTER {kind.upper()}"
+                     and names == [f"{kind}{n}.fits" for n in range(want_n)]
+                     and f"IFILE{want_n:03d}" not in hdr,
+                     f"files: master {kind} header ({hdr['NCOMBINE']})")
+        mbias, _ = read_image(paths["bias"])
+        mdark, _ = read_image(paths["dark"])
+        _require(abs(float(np.median(mbias)) - bias_level) < 0.5
+                 and abs(float(np.median(mdark))
+                         - bias_level - dark_rate * dark_exp) < 0.5,
+                 "files: master levels (the warm dark was left out)")
+
+        # read noise from two bias frames
+        with _IoSplit(masters) as sp:
+            rn = masters.calc_read_noise(
+                os.path.join(tmp, "bias", "bias0.fits"),
+                os.path.join(tmp, "bias", "bias1.fits"), device=dev)
+        eng["calc_read_noise"] = dict(sp.report(), **rn)
+        _require(abs(rn["read_noise_e"] / (read_noise * gain) - 1.0) < 0.05
+                 and rn["gain"] == gain,
+                 f"files: read noise {rn['read_noise_e']} e- against "
+                 f"{read_noise * gain}")
+
+        # the bad-pixel mask and the bad column
+        mask_path = os.path.join(tmp, "badpix.fits")
+        with _IoSplit(badpix_engine) as sp:
+            mhdr = badpix_engine.find_badpix(paths["dark"], mask_path,
+                                             sigma=5.0, device=dev)
+        eng["find_badpix"] = sp.report()
+        mask, _ = read_image(mask_path, as_float32=False)
+        _require(mask.dtype == np.uint8 and bool(mask[hot].all())
+                 and bool(mask[:, bad_col].all()),
+                 "files: every planted hot pixel and the column flagged")
+        eng["find_badpix"]["flagged"] = int(mhdr["BPIXNAUT"])
+        _require(mhdr["BPIXNAUT"] < 2 * (int(hot.sum()) + h),
+                 "files: few pixels flagged beside the planted ones")
+        with _IoSplit(badpix_engine) as sp:
+            cols, rows = badpix_engine.auto_badcol_file(paths["dark"],
+                                                        device=dev)
+        eng["auto_badcol_file"] = dict(sp.report(), columns=cols.tolist(),
+                                       rows=rows.tolist())
+        # an 11-sample window's own spread is noisy: a few more columns
+        # or rows of the 6,680 may pass 5 sigma by chance
+        _require(bad_col in cols.tolist() and cols.size <= 8
+                 and rows.size <= 8,
+                 f"files: the bad column found ({cols.tolist()[:12]}, "
+                 f"{rows.tolist()[:12]}; {cols.size} and {rows.size})")
+
+        # the lights, the first with cosmic-ray cleaning
+        cal = calibrator.Calibrator(
+            master_bias=paths["bias"], master_dark=paths["dark"],
+            master_flat=paths["flat"], master_badpix=mask_path, device=dev)
+        inner = (slice(64, -64), slice(64, -64))
+        sky_med = float(np.median(sky[inner]))
+        per_light = []
+        for i, light in enumerate(lights):
+            out = os.path.join(tmp, f"cal{i}.fits")
+            with _IoSplit(calibrator) as sp:
+                hdr = cal.calibrate(light, out, fix_cosmic=(i == 0))
+            per_light.append(sp.report())
+            data, fhdr = read_image(out)
+            for key in ("BIASCORR", "DARKCORR", "FLATCORR"):
+                _require(fhdr[key] is True, f"files: {key}")
+            _require(fhdr["BPIXFILE"] == "badpix.fits"
+                     and fhdr["BUNIT"] == "adu"
+                     and any("master_flat.fits" in t for t in fhdr.history),
+                     "files: provenance of the calibrated light")
+            med = float(np.median(data[inner]))
+            _require(abs(med / sky_med - 1.0) < 0.01,
+                     f"files: light {i} interior median {med} against the "
+                     f"sky {sky_med}")
+            resid = (data - sky)[~near_star & ~hot]
+            sigma = 1.4826 * float(np.median(np.abs(
+                resid - np.median(resid))))
+            worst = float(np.abs(data[hot] - sky[hot]).max())
+            _require(worst < 6.0 * sigma + 0.01 * SKY,
+                     f"files: light {i} hot pixels repaired ({worst} "
+                     f"against sigma {sigma})")
+            per_light[-1].update(interior_median=med, sigma=sigma,
+                                 worst_hot_residual=worst)
+            if i == 0:
+                _require(fhdr["CR_CLEAN"] is True and fhdr["CR_NPIX"] > 0,
+                         "files: CR_CLEAN / CR_NPIX")
+                cleaned = float((np.abs(data[hits] - sky[hits])
+                                 < 6.0 * sigma).mean())
+                _require(cleaned >= 0.9,
+                         f"files: cosmic-ray hits cleaned ({cleaned})")
+                per_light[-1].update(cr_npix=int(fhdr["CR_NPIX"]),
+                                     hits_cleaned=cleaned)
+        eng["calibrate fix_cosmic"] = per_light[0]
+        rest = per_light[1:]
+        eng["calibrate (mean of 7)"] = {
+            k: float(np.mean([r[k] for r in rest]))
+            for k in ("seconds", "read_s", "device_ms", "write_s")}
+        eng["calibrate (mean of 7)"]["peak_bytes"] = max(
+            r["peak_bytes"] for r in rest)
+
+        # one more light under the profiler: how long the card is busy
+        from astrophotography_tpu_torch.utils import device_trace
+        trace_dir = os.path.join(tmp, "trace")
+        with device_trace(trace_dir):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cal.calibrate(lights[2], os.path.join(tmp, "cal_traced.fits"))
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t
+        with open(os.path.join(trace_dir, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+        busy = {"kernel": 0.0, "gpu_memcpy": 0.0, "gpu_memset": 0.0}
+        n_kernels = 0
+        for ev in events:
+            if ev.get("cat") in busy and "dur" in ev:
+                busy[ev["cat"]] += ev["dur"] / 1e3
+                n_kernels += ev["cat"] == "kernel"
+        _require(n_kernels > 0, "files: the trace holds the card's kernels")
+        eng["calibrate under device_trace"] = {
+            "seconds": traced_s, "kernel_ms": busy["kernel"],
+            "memcpy_ms": busy["gpu_memcpy"] + busy["gpu_memset"],
+            "kernel_events": n_kernels,
+            "card_idle_share": 1.0 - sum(busy.values()) / 1e3 / traced_s}
+        shutil.rmtree(trace_dir)
+
+        # the frame loaders: a frame moved at its native width, and the
+        # lights streamed in chunks through pinned buffers
+        from astrophotography_tpu_torch.io import read_image_device
+        from astrophotography_tpu_torch.parallel import stream_stacks
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        host, _ = read_image(lights[0])
+        host = torch.from_numpy(host).to(dev)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t
+        t = time.perf_counter()
+        frame, _ = read_image_device(lights[0], device=dev)
+        torch.cuda.synchronize()
+        native_s = time.perf_counter() - t
+        _require(torch.equal(frame, host),
+                 "files: read_image_device gives read_image's frame")
+        t = time.perf_counter()
+        chunks = list(stream_stacks(lights, chunk=3, depth=4, workers=4,
+                                    device=dev))
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t
+        _require([c[1].shape[0] for c in chunks] == [3, 3, 2]
+                 and [n for c in chunks for n in c[0]] == lights,
+                 "files: stream_stacks keeps order and chunk sizes")
+        for names, stack, _headers in chunks:
+            for k, name in enumerate(names):
+                want = torch.from_numpy(read_image(name)[0]).to(dev)
+                _require(torch.equal(stack[k], want),
+                         f"files: streamed {os.path.basename(name)}")
+        eng["loaders"] = {
+            "read_image_then_upload_s": host_s,
+            "read_image_device_s": native_s,
+            "stream_stacks_8_frames_s": stream_s,
+            "stream_frames_per_s": LIGHT_FRAMES / stream_s}
+        del chunks, host, frame
+
+        # one raw light repaired in place of its flagged pixels
+        fixed = os.path.join(tmp, "fixed.fits")
+        with _IoSplit(badpix_engine) as sp:
+            fhdr = badpix_engine.fix_badpix_files(lights[1], mask_path,
+                                                  fixed, deltapix=2,
+                                                  device=dev)
+        eng["fix_badpix_files"] = sp.report()
+        data, _ = read_image(fixed)
+        raw_light, _ = read_image(lights[1])
+        _require(fhdr["BPIXCORR"] is True
+                 and fhdr["BPIXNBAD"] == int((mask != 0).sum())
+                 and fhdr["BPIXNFIX"] + fhdr["BPIXNREM"] == fhdr["BPIXNBAD"]
+                 and fhdr["BPIXNREM"] == 0,
+                 "files: repair counts")
+        _require(bool((raw_light[hot] - data[hot] > 0.5 * light_exp
+                       * 20.0).all())
+                 and np.array_equal(data[mask == 0], raw_light[mask == 0]),
+                 "files: flagged pixels repaired, the rest untouched")
+        res["temp_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(tmp) for f in fs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _require(dict(kernels.launch_counts) == before,
+             "files: the engines launch none of K1-K3")
+    res["card"] = card
+    _print(res)
+    return res
+
+
 def _kernel_entry(name, replaces, by_path, check) -> dict:
     """One kernel's entry of the ``kernels`` line: launches on each path
     that runs it (``launches`` is the last one's, each counted from 0 in
@@ -1180,6 +1993,10 @@ def main(argv=None) -> int:
         check_bounds_geom(card, dev)
     if "measure" in phases:
         run_measure(card, dev)
+    if "raw" in phases:
+        run_raw(card, dev)
+    if "files" in phases:
+        run_files(card, dev)
 
     if args.only is None:
         launches = snap["main"]["launches"]

@@ -410,3 +410,169 @@ def test_kernel_wrapper_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="frames"):
         cc.clip_combine(torch.zeros((kernels._CLIP_MAX_FRAMES + 1, 2, 2),
                                     device=cuda))
+
+
+# -- RAW conversion and the calibration engine: the card against the CPU --
+
+def _bayer(h, w, seed):
+    """A uint16 RGGB mosaic with real edges, its colour map, black
+    levels and white balance."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cmap = (2 * (yy % 2) + (xx % 2)).astype(np.uint8)
+    cmap = np.array([0, 1, 3, 2], np.uint8)[cmap]
+    base = 2000 + 1500 * np.sin(xx / 9.0) * np.cos(yy / 7.0) \
+        + 900 * (xx > w // 2)
+    gains = np.array([0.5, 1.0, 0.7, 1.0])[cmap]
+    mosaic = base * gains + rng.normal(0, 25, (h, w)) + 512
+    return (np.clip(mosaic, 0, 16383).astype(np.uint16), cmap,
+            np.array([512, 500, 520, 508], np.float32),
+            np.array([2.0, 1.0, 1.4, 1.0], np.float32))
+
+
+DEMOSAIC_CASES = ["demosaic_bilinear", "demosaic_mhc", "demosaic_ahd",
+                  "safe_subtract_black", "raw_to_rgb", "raw_to_grey_linear",
+                  "raw_to_grey_direct", "split_channels", "wb_from_region",
+                  "percentile_renorm"]
+
+
+@pytest.mark.parametrize("name", DEMOSAIC_CASES)
+def test_demosaic_functions_card_equals_cpu(cuda, name):
+    """Each of the ten RAW-conversion functions gives on the card what
+    it gives on the CPU: elementwise float32 work rounds alike (AHD by
+    the tie rule: a pixel whose homogeneity test flips takes another of
+    its three candidate values), the reductions of ``wb_from_region`` to
+    1e-5 relative."""
+    from astrophotography_tpu_torch.ops import demosaic as dk
+
+    mosaic, cmap, blacks, wb = _bayer(192, 256, 0)
+    cpu = [torch.from_numpy(a) for a in (mosaic, cmap, blacks, wb)]
+    dev = [t.to(cuda) for t in cpu]
+
+    def call(m, c, b, w):
+        if name in ("demosaic_bilinear", "demosaic_mhc", "demosaic_ahd"):
+            return getattr(dk, name)(m, c)
+        if name == "safe_subtract_black":
+            return dk.safe_subtract_black(m, c, b)
+        if name in ("raw_to_rgb", "raw_to_grey_linear"):
+            return getattr(dk, name)(m, c, b, w, 16383.0)
+        if name == "raw_to_grey_direct":
+            return dk.raw_to_grey_direct(m, c, b, w)
+        if name == "split_channels":
+            return dk.split_channels(m, c, b)
+        sub = dk.safe_subtract_black(m, c, b)
+        if name == "wb_from_region":
+            return dk.wb_from_region(sub, c, [3, 150, 10, 200])
+        return dk.percentile_renorm(sub)
+
+    want = call(*cpu)
+    got = call(*dev)
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    got = got.cpu()
+    if name == "wb_from_region":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    elif name == "demosaic_ahd":
+        bad = ((got - want).abs() > 1e-5 * want.abs() + 0.05).any(dim=-1)
+        assert bad.float().mean() <= 2e-3
+        if bad.any():
+            ch, cv = dk._ahd_candidates(cpu[0], cpu[1])
+            options = torch.stack([ch, cv, 0.5 * (ch + cv)])[:, bad]
+            err = (options - got[bad][None]).abs().amax(dim=-1)
+            assert (err.amin(dim=0) <= 0.05 + 1e-5 * got[bad].abs()
+                    .amax(dim=-1)).all()
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.05)
+
+
+def test_calibrator_round_trip_card_equals_cpu(cuda, tmp_path):
+    """Masters built, a mask found and a light calibrated through the
+    file engines on the card give the files the CPU run gives."""
+    from astrophotography_tpu_torch.core import (Calibrator, find_badpix,
+                                                 make_master)
+    from astrophotography_tpu_torch.io.fits import (Header, read_image,
+                                                    write_image)
+
+    rng = np.random.default_rng(3)
+    h, w = 96, 128
+    rate = np.full((h, w), 0.5)
+    rate[[9, 40, 77], [15, 100, 60]] = 200.0
+    folders = {}
+    for kind, level, exp in (("bias", 0.0, 0.0), ("dark", 60.0, 60.0)):
+        folders[kind] = tmp_path / kind
+        folders[kind].mkdir()
+        for i in range(5):
+            hdr = Header()
+            hdr["IMAGETYP"] = kind.upper()
+            hdr["EXPTIME"] = exp
+            data = 300 + rate * level + rng.normal(0, 4, (h, w))
+            write_image(str(folders[kind] / f"{kind}{i}.fits"),
+                        data.round().astype(np.uint16), hdr)
+    hdr = Header()
+    hdr["IMAGETYP"] = "LIGHT"
+    hdr["EXPTIME"] = 120.0
+    light = str(tmp_path / "light.fits")
+    write_image(light, (900 + 300 + rate * 120 + rng.normal(0, 6, (h, w)))
+                .round().astype(np.uint16), hdr)
+    outs = {}
+    for name in ("cpu", "cuda"):
+        bias = str(tmp_path / f"mbias_{name}.fits")
+        dark = str(tmp_path / f"mdark_{name}.fits")
+        mask = str(tmp_path / f"mask_{name}.fits")
+        make_master(str(folders["bias"]), bias, device=name)
+        make_master(str(folders["dark"]), dark, device=name)
+        find_badpix(dark, mask, sigma=5.0, device=name)
+        out = str(tmp_path / f"cal_{name}.fits")
+        Calibrator(master_bias=bias, master_dark=dark, master_badpix=mask,
+                   device=name).calibrate(light, out)
+        outs[name] = [read_image(p, as_float32=False)[0]
+                      for p in (bias, dark, mask, out)]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-3)
+    assert outs["cuda"][2][[9, 40, 77], [15, 100, 60]].all()
+    repaired = outs["cuda"][3][[9, 40, 77], [15, 100, 60]]
+    assert (np.abs(repaired - 900) < 40).all()
+
+
+def test_frame_loaders_and_writer_on_the_card(cuda, tmp_path):
+    """``read_image_device``, ``stream_stacks`` (pinned buffers, a copy
+    stream, an event per chunk) and ``AsyncWriter`` with a device tensor:
+    what arrives on the card, and what is written from it, is what the
+    host reader gives."""
+    from astrophotography_tpu_torch.io import read_image_device
+    from astrophotography_tpu_torch.io.fits import (Header, read_image,
+                                                    write_image)
+    from astrophotography_tpu_torch.parallel import (AsyncWriter,
+                                                     stream_stacks)
+
+    rng = np.random.default_rng(5)
+    paths, frames = [], []
+    for i in range(7):
+        data = rng.integers(0, 65536, (96, 160)).astype(np.uint16)
+        hdr = Header()
+        hdr["FRAMEIDX"] = i
+        hdr["PEDESTAL"] = -100
+        paths.append(str(tmp_path / f"f{i}.fits"))
+        write_image(paths[-1], data, hdr)
+        frames.append(data.astype(np.float32) - 100)
+    got, hdr = read_image_device(paths[3], device=cuda)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert "PEDESTAL" not in hdr
+    np.testing.assert_array_equal(got.cpu().numpy(), frames[3])
+    sizes, at = [], 0
+    with AsyncWriter() as writer:
+        for names, stack, headers in stream_stacks(paths, chunk=3, depth=2,
+                                                   workers=2, device=cuda):
+            assert stack.device.type == "cuda"
+            sizes.append(stack.shape[0])
+            want = torch.from_numpy(np.stack(frames[at:at + len(names)]))
+            assert torch.equal(stack.cpu(), want)
+            assert [h["FRAMEIDX"] for h in headers] \
+                == list(range(at, at + len(names)))
+            # work enqueued on the consumer's stream, then handed over
+            doubled = stack[0] * 2.0
+            writer.submit(str(tmp_path / f"out{at}.fits"), doubled)
+            at += len(names)
+    assert sizes == [3, 3, 1]
+    for at in (0, 3, 6):
+        data, _ = read_image(str(tmp_path / f"out{at}.fits"))
+        np.testing.assert_array_equal(data, frames[at] * 2.0)

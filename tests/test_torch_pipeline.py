@@ -280,3 +280,52 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_imports_without_optional_packages():
+    """Every sub-package of the port (and the dksraw tool) imports in a
+    fresh interpreter in which ``yaml``, ``imageio``, ``matplotlib`` and
+    ``rawpy`` cannot be imported: they are needed only by the functions
+    that parse or write a YAML file, write a graphics format other than
+    PNG, plot, or read a camera's own RAW format.  The FITS / DNG / PNG
+    path then runs end to end."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("yaml", "imageio", "imageio.v3", "matplotlib", "rawpy"):
+            sys.modules[name] = None
+        import importlib
+        for mod in ("", ".io", ".core", ".api", ".ops", ".models",
+                    ".parallel", ".utils", ".cli.dksraw", ".synth",
+                    ".cli.ap_calibrate", ".cli.ap_combine_darks",
+                    ".cli.ap_calc_read_noise", ".cli.ap_fix_badpix"):
+            importlib.import_module("astrophotography_tpu_torch" + mod)
+        import os, tempfile
+        import numpy as np
+        from astrophotography_tpu_torch import synth
+        from astrophotography_tpu_torch.cli.dksraw import main
+        from astrophotography_tpu_torch.io.raw import write_dng
+        from astrophotography_tpu_torch.io.fits import read_image
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = synth.make_rgb_scene((16, 24), seed=1)
+            dng = os.path.join(tmp, "a.dng")
+            write_dng(dng, synth.mosaic_from_rgb(scene), compression=7)
+            for out in ("a.fits", "a.png"):
+                assert main(["grey", dng, "-o", os.path.join(tmp, out),
+                             "--device", "cpu", "-l", "ERROR"]) == 0
+            assert read_image(os.path.join(tmp, "a.fits"))[0].shape == (16, 24)
+            # a format that needs imageio fails as an error of that call
+            assert main(["grey", dng, "-o", os.path.join(tmp, "a.tiff"),
+                         "--device", "cpu", "-l", "CRITICAL"]) == 1
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "astrophotography_tpu"
+                     or m.startswith("astrophotography_tpu."))
+        assert not bad, bad
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("ok")
