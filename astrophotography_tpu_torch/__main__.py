@@ -4,8 +4,12 @@
 import sys
 
 _TOOLS = (
-    "dksraw", "ap_calibrate", "ap_combine_darks", "ap_find_badpix",
-    "ap_fix_badpix", "ap_auto_badcol", "ap_calc_read_noise",
+    "dksraw", "ap_reduce", "ap_calibrate", "ap_combine_darks",
+    "ap_find_stars", "ap_astrometry", "ap_measure_background",
+    "ap_find_badpix", "ap_fix_badpix", "ap_auto_badcol",
+    "ap_fix_cosmic_rays", "ap_calc_read_noise", "ap_imarith",
+    "ap_add_metadata", "ap_quality_summary", "ap_composite",
+    "ap_tidy_files",
 )
 
 

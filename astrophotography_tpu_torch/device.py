@@ -69,3 +69,10 @@ def to_float32(x: torch.Tensor) -> torch.Tensor:
         return x.view(torch.int16).to(torch.int32).bitwise_and_(0xFFFF) \
             .to(torch.float32)
     return x.to(torch.float32)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU), so a
+    host-clock stage ends when its device work does."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -375,7 +375,6 @@ def calibrate_register_stack(
     exp_ratios = on_device(exp_ratios, dev, torch.float32)
     flux_scales = on_device(flux_scales, dev, torch.float32)
     badpix_mask = on_device(badpix_mask, dev)
-    n, h, w = frames.shape
     cal = calibrate_batch(frames, bias, dark, flat, exp_ratios,
                           dark_still_biased=config.dark_still_biased,
                           badpix_mask=badpix_mask)
@@ -383,7 +382,15 @@ def calibrate_register_stack(
         cal = cal * flux_scales[:, None, None]
 
     stars, sims, matrices, ref_idx = register_frames(cal, config)
-    diagnostics = {
+    return (stack_registered(cal, matrices, config),
+            diagnostics(stars, sims, matrices, ref_idx))
+
+
+def diagnostics(stars: Stars, sims: Similarity, matrices: torch.Tensor,
+                ref_idx: int) -> dict:
+    """The diagnostics dict of :func:`calibrate_register_stack` from what
+    :func:`register_frames` returns."""
+    return {
         "scale": sims.scale, "theta": sims.theta,
         "tx": sims.tx, "ty": sims.ty,
         "n_inliers": sims.n_inliers, "rms": sims.rms,
@@ -392,6 +399,14 @@ def calibrate_register_stack(
         "matrices": matrices,
     }
 
+
+def stack_registered(cal: torch.Tensor, matrices: torch.Tensor,
+                     config: PipelineConfig = PipelineConfig()) -> torch.Tensor:
+    """The stacking half of :func:`calibrate_register_stack`: warp an
+    (N, H, W) calibrated stack by its (N, 2, 3) matrices and sigma-clip
+    combine it, with the fused warp+combine kernel
+    (``combine_impl='fused'``) or band by band (``config.n_bands``)."""
+    _n, h, w = cal.shape
     if config.combine_impl == "fused":
         if config.n_bands > 1:
             raise ValueError("combine_impl='fused' subsumes banding; "
@@ -399,13 +414,12 @@ def calibrate_register_stack(
         # apron-free needs >= 3 tile blocks per axis; small frames have
         # no memory pressure, so they keep the apron
         apron = config.fused_apron or h < 96 or w < 768
-        stacked = warp_combine(
+        return warp_combine(
             cal, matrices, span=config.warp_span, tile=config.fused_tile,
             sigma_lower=config.sigma_lower, sigma_upper=config.sigma_upper,
             apron=apron, combine=config.combine,
             dither_budget=config.dither_budget,
             general_taps=config.general_taps)
-        return stacked, diagnostics
 
     n_bands = max(config.n_bands, 1)
     if h % n_bands:
@@ -417,7 +431,7 @@ def calibrate_register_stack(
             cal, band_matrices(matrices, float(b * band_h)), band_h, config)
         bands.append(combine_band(warped, weights, config))
         del warped, weights
-    return torch.cat(bands, dim=0), diagnostics
+    return torch.cat(bands, dim=0)
 
 
 def calibrate_register_stack_lean(

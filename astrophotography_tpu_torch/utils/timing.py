@@ -33,17 +33,22 @@ class StageTimer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            rec = {"stage": name, "seconds": dt}
-            msg = f"{name}: {dt:.3f} s"
-            if pixels:
-                rec["gpix_per_s"] = pixels / dt / 1e9
-                msg += f" ({rec['gpix_per_s']:.2f} GPix/s)"
-            if bytes_:
-                rec["mb_per_s"] = bytes_ / dt / 1e6
-                msg += f" ({rec['mb_per_s']:.1f} MB/s)"
-            self.records.append(rec)
-            logger.info(msg)
+            self.add(name, time.perf_counter() - t0, pixels, bytes_)
+
+    def add(self, name: str, dt: float, pixels: Optional[int] = None,
+            bytes_: Optional[int] = None) -> None:
+        """Record a stage timed elsewhere (``dt`` seconds), e.g. the sum
+        of a loop's per-item times."""
+        rec = {"stage": name, "seconds": dt}
+        msg = f"{name}: {dt:.3f} s"
+        if pixels:
+            rec["gpix_per_s"] = pixels / dt / 1e9
+            msg += f" ({rec['gpix_per_s']:.2f} GPix/s)"
+        if bytes_:
+            rec["mb_per_s"] = bytes_ / dt / 1e6
+            msg += f" ({rec['mb_per_s']:.1f} MB/s)"
+        self.records.append(rec)
+        logger.info(msg)
 
     def report(self) -> str:
         lines = [f"{'stage':<32} {'seconds':>10} {'GPix/s':>8}"]

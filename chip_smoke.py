@@ -37,19 +37,27 @@ the stacks:
   then ``make_master`` x3, ``calc_read_noise``, ``find_badpix``,
   ``auto_badcol_file``, ``Calibrator.calibrate`` on the lights (one with
   ``fix_cosmic``) and ``fix_badpix_files``, each held to what was
-  planted and split into read, device and write time.
+  planted and split into read, device and write time;
+* the file-to-file reduction (``reduce``): a synthetic night of 24
+  uint16 lights of 4008x2672 in two filters with masters in a temp
+  directory (``make_observing_run``), ``ap_reduce --astrometry
+  --stack_engine fused`` in process (calibrate, quality, the network-free
+  navigate stage, K2 per group; then again, rewriting nothing),
+  ``ap_stack`` with each engine and the union canvas, every product held
+  to what was planted, K2 (snap and 'exact' bodies) and K3 against their
+  twins at that shape, the per-stage split, and the entry point's twin.
 
 Beside the checks against the plain twins it times K2 at 100x4096^2 with
 ``combine='average'`` against ``combine='mean'`` (the same warp without
 the sort and clip): the warp phase against the combine phase.
 
 Run from the repository root with ``python3 chip_smoke.py``; every phase
-runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files}``
+runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce}``
 runs one group of phases (the kernel check and timing of K1, K2 or K3 at
 the main paths' shapes, the lean path, the unfused path with and without
 the mask, the 16x1024^2 chunked run and the small kernel matrix, the
-band loop, the measurement ops, the RAW half, or the calibration-file
-engines) and prints no ``kernels`` line.  Every phase raises
+band loop, the measurement ops, the RAW half, the calibration-file
+engines, or the file-to-file reduction) and prints no ``kernels`` line.  Every phase raises
 on failure.  Each phase prints one JSON line; the build line carries
 ptxas' register, shared-memory and spill report for every kernel; the
 line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -84,7 +92,7 @@ SKY = 800.0
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
 PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure",
-          "raw", "files")
+          "raw", "files", "reduce")
 #: the RAW half: 24 lossless-JPEG DNGs of 3904^2 uint16, black level 128
 RAW_FRAMES, RAW_SIZE, RAW_BLACK = 24, 3904, 128
 #: the calibration-file engines: frames per master, light frames
@@ -1635,6 +1643,511 @@ def run_files(card: str, dev) -> dict:
     return res
 
 
+#: the reduce phase: group V (4 lights of 60 s, then 12 of 120 s, the
+#: first carrying the planted WCS) and group R (8 lights of 90 s with
+#: 0.02-0.05 deg field rotations), one target, 4008 x 2672 uint16
+REDUCE_GROUPS = (("V", 16, (60.0,) * 4 + (120.0,) * 12, 0.0),
+                 ("R", 8, (90.0,) * 8, 0.05))
+#: the planted TAN WCS: M42, 0.9 arcsec/px, CRPIX at the frame centre
+REDUCE_CRVAL, REDUCE_SCALE = (83.8221, -5.3911), 0.9 / 3600.0
+#: the bias level, dark current (ADU/s) and read noise (ADU) of the run
+REDUCE_BIAS, REDUCE_DARK, REDUCE_RN = 300.0, 0.05, 6.0
+#: the brightest star's flux per 60 s: the n-th brightest has n^(-2/3) of
+#: it (Euclidean star counts, N(>F) ~ F^-1.5), down to 1/71 for the 600th.
+#: make_starfield's uniform fluxes give no such ladder: the brightest
+#: dozen of one light and of the next then differ by sub-pixel phase, and
+#: registration fails on some lights (3 of 16 on an H100 80GB HBM3)
+REDUCE_FLUX_MAX = 3.0e5
+
+
+def _reduce_wcs():
+    from astrophotography_tpu_torch.wcs import TanWCS
+
+    h, w = MEASURE_SHAPE
+    th = np.deg2rad(0.3)
+    s = REDUCE_SCALE
+    cd = np.array([[-s * np.cos(th), s * np.sin(th)],
+                   [s * np.sin(th), s * np.cos(th)]])
+    return TanWCS(REDUCE_CRVAL, ((w + 1) / 2.0, (h + 1) / 2.0), cd)
+
+
+def make_observing_run(root: str, seed: int = 11) -> dict:
+    """A synthetic night of one target in ``root``: ``data/`` holds the
+    uint16 lights of REDUCE_GROUPS (the scene of ``make_starfield`` per
+    60 s, the sky and the stars scaled by exposure, dithered by +-4 px
+    and, in R, rotated about the centre; through a vignetting flat, with
+    bias, dark current, 8 hot pixels in 10^4 and Gaussian noise), the
+    first light of each group carrying the planted TAN WCS; ``cal/``
+    holds master_bias, master_dark (60 s), master_flat_V, master_flat_R
+    and master_badpix.  The stars sit where make_starfield puts them, with
+    fluxes on the REDUCE_FLUX_MAX ladder in a random order.  Returns the
+    truth: the reference star positions, their RA / Dec, each light's star
+    positions, the sky per 60 s."""
+    from astrophotography_tpu_torch.io.fits import Header, write_image
+
+    rng = np.random.default_rng(seed)
+    h, w = MEASURE_SHAPE
+    _img, sky, xs, ys, _fl = make_starfield(seed)
+    del _img
+    fl = rng.permutation(REDUCE_FLUX_MAX
+                         * np.arange(1.0, len(xs) + 1.0) ** (-2.0 / 3.0))
+    wcs = _reduce_wcs()
+    ra, dec = wcs.pix2world(xs + 1.0, ys + 1.0)
+    yy = np.linspace(-1.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(-1.0, 1.0, w, dtype=np.float32)[None, :]
+    pattern = (REDUCE_BIAS + rng.normal(0.0, 0.5, (1, w))
+               + rng.normal(0.0, 0.5, (h, 1))).astype(np.float32)
+    rate = np.full((h, w), REDUCE_DARK, np.float32)
+    hot = rng.random((h, w)) < 8e-5
+    rate[hot] = rng.uniform(2.0, 8.0, int(hot.sum())).astype(np.float32)
+    data, cal = os.path.join(root, "data"), os.path.join(root, "cal")
+    os.makedirs(data)
+    os.makedirs(cal)
+
+    def put(path, arr, **keys):
+        hdr = Header()
+        for k, v in keys.items():
+            hdr[k.replace("_", "-")] = v
+        write_image(path, arr, hdr)
+        return hdr
+
+    put(os.path.join(cal, "master_bias.fits"), pattern, IMAGETYP="MASTER BIAS")
+    put(os.path.join(cal, "master_dark.fits"), pattern + rate * 60.0,
+        IMAGETYP="MASTER DARK", EXPTIME=60.0)
+    put(os.path.join(cal, "master_badpix.fits"), hot.astype(np.uint8),
+        IMAGETYP="BADPIX")
+    flats = {}
+    for filt, amp in (("V", 0.08), ("R", 0.06)):
+        flat = 1.0 - amp * (xx * xx + yy * yy) / 2.0
+        flats[filt] = (flat / flat.mean()).astype(np.float32)
+        put(os.path.join(cal, f"master_flat_{filt}.fits"), flats[filt],
+            IMAGETYP="MASTER FLAT", FILTER=filt)
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    truth = {"x": xs, "y": ys, "ra": ra, "dec": dec, "sky60": sky,
+             "wcs": wcs, "frames": {}, "exptimes": {}}
+    for filt, n, exps, rot in REDUCE_GROUPS:
+        for i in range(n):
+            dx, dy = (0.0, 0.0) if i == 0 else rng.uniform(-4.0, 4.0, 2)
+            th = 0.0 if (i == 0 or not rot) else float(
+                rng.choice([-1.0, 1.0]) * np.deg2rad(rng.uniform(0.02, rot)))
+            c, s = np.cos(th), np.sin(th)
+            px = c * (xs - cx) - s * (ys - cy) + cx + dx
+            py = s * (xs - cx) + c * (ys - cy) + cy + dy
+            k = exps[i] / 60.0
+            scene = sky * k
+            for x, y, f in zip(px, py, fl):
+                x0, y0 = int(x) - 12, int(y) - 12
+                scene[y0:y0 + 25, x0:x0 + 25] += _gaussian_star(
+                    (25, 25), x - x0, y - y0, f * k, MEASURE_FWHM) \
+                    .astype(np.float32)
+            noise = rng.standard_normal((h, w), dtype=np.float32) \
+                * np.sqrt(scene + REDUCE_RN ** 2)
+            raw = scene * flats[filt] + pattern + rate * exps[i] + noise
+            name = f"light{filt}{i:02d}"
+            keys = dict(IMAGETYP="LIGHT", EXPTIME=exps[i], OBJECT="M42",
+                        TELESCOP="T05", FILTER=filt,
+                        DATE_OBS=f"2026-01-15T0{i // 10}:{i % 10}0:00")
+            hdr = Header()
+            for kk, v in keys.items():
+                hdr[kk.replace("_", "-")] = v
+            if i == 0:
+                wcs.to_header(hdr)
+            write_image(os.path.join(data, name + ".fits"),
+                        np.clip(np.rint(raw), 0, 65535).astype(np.uint16),
+                        hdr)
+            truth["frames"][name] = (px, py)
+            truth["exptimes"][name] = exps[i]
+    return truth
+
+
+class _Recorder:
+    """Patches ``StageTimer`` in the given modules with a subclass whose
+    instances are kept, so the stages a call timed can be read back."""
+
+    def __init__(self, *modules):
+        from astrophotography_tpu_torch.utils.timing import StageTimer
+
+        self.modules = modules
+        self.timers = []
+        timers = self.timers
+
+        class Recording(StageTimer):
+            def __init__(self):
+                super().__init__()
+                timers.append(self)
+
+        self.cls = Recording
+
+    def __enter__(self):
+        self.saved = [m.StageTimer for m in self.modules]
+        for m in self.modules:
+            m.StageTimer = self.cls
+        return self
+
+    def __exit__(self, *exc):
+        for m, s in zip(self.modules, self.saved):
+            m.StageTimer = s
+
+    def split(self) -> dict:
+        """Seconds per stage kind (the stage name's first word, 'combine'
+        with its engine), summed, with the count of each."""
+        out = {}
+        for t in self.timers:
+            for r in t.records:
+                words = r["stage"].split(" ")
+                key = " ".join(words[:2]) if words[0] == "combine" \
+                    else words[0]
+                sec, cnt = out.get(key, (0.0, 0))
+                out[key] = (sec + r["seconds"], cnt + 1)
+        return {k: {"seconds": s, "count": c} for k, (s, c) in out.items()}
+
+
+def _stack_truth(label, path, truth, name0, dev, planted_sky,
+                 origin=(0, 0)) -> dict:
+    """A stack file against what was planted: finite, interior median
+    within 5 % of the planted sky, >= 90 % of the planted stars (at their
+    positions in the reference light ``name0``) found within 0.5 px.
+    ``origin`` is the (row, column) of the stack's pixel 0 in the
+    reference light's grid (a union canvas's CANVASY0 / CANVASX0)."""
+    from astrophotography_tpu_torch.io.fits import read_image
+    from astrophotography_tpu_torch.ops import find_stars, sigma_clipped_stats
+
+    data, hdr = read_image(path)
+    img = torch.from_numpy(data).to(dev)
+    _require(bool(torch.isfinite(img).all()), f"{label}: stack not finite")
+    m = 128
+    h, w = planted_sky.shape
+    oy, ox = origin
+    inner = img[m - oy:h - m - oy, m - ox:w - m - ox]
+    med = float(inner.median())
+    want = float(np.median(planted_sky[m:-m, m:-m]))
+    _require(abs(med / want - 1.0) < 0.05,
+             f"{label}: interior median {med} against the planted {want}")
+    _mean, bg, std = sigma_clipped_stats(inner[::4, ::4], sigma=3.0)
+    # pixels no frame covers are 0 (a union canvas's margins): read them
+    # as the background, or their edge fills the search's top-k
+    stars = find_stars(torch.where(img == 0, bg, img) - bg,
+                       fwhm=MEASURE_FWHM, threshold=7.0 * std, max_stars=1024)
+    px, py = (torch.from_numpy(np.asarray(a - o, np.float32)).to(dev)
+              for a, o in zip(truth["frames"][name0], (ox, oy)))
+    d2 = (stars.x[None, :] - px[:, None]) ** 2 \
+        + (stars.y[None, :] - py[:, None]) ** 2
+    d2 = torch.where(stars.valid[None, :], d2, torch.inf)
+    found = float((d2.amin(dim=1) < 0.25).float().mean())
+    _require(found >= 0.9, f"{label}: {found:.3f} of the planted stars "
+                           "found within 0.5 px")
+    return {"interior_median": med, "planted_sky": want,
+            "stars_found_within_0.5px": found,
+            "detected": int(stars.valid.sum()), "header": hdr}
+
+
+def _nav_truth(path, truth, name) -> float:
+    """Largest distance (px) between a light's planted star positions and
+    where its nav-*.fits WCS puts their planted RA / Dec."""
+    from astrophotography_tpu_torch.io.fits import open_fits
+    from astrophotography_tpu_torch.wcs import TanWCS
+
+    wcs = TanWCS.from_header(open_fits(path)[0].header)
+    x, y = wcs.world2pix(truth["ra"], truth["dec"])
+    px, py = truth["frames"][name]
+    return float(np.hypot(x - 1.0 - px, y - 1.0 - py).max())
+
+
+def _group_stack(dev, cal_paths, exps, ref: int = 0):
+    """A group's calibrated lights on the card in FSCALE units, and the
+    matrices the unfused pipeline registers them with (reference
+    ``ref``), as ``core.reduce.register_and_stack`` makes them."""
+    from astrophotography_tpu_torch.core.reduce import load_stack
+    from astrophotography_tpu_torch.models import PipelineConfig
+    from astrophotography_tpu_torch.models.pipeline import register_frames
+    from astrophotography_tpu_torch.utils import StageTimer
+
+    stack, _hdrs = load_stack(cal_paths, dev, StageTimer(), "check")
+    stack.mul_(torch.tensor([exps[0] / e for e in exps],
+                            device=dev)[:, None, None])
+    cfg = PipelineConfig(ref_frame=ref)
+    _stars, _sims, mats, _ref = register_frames(stack, cfg)
+    return stack, mats, cfg
+
+
+def check_warp_exact(frames, mats, label, card, reps=3, **kw) -> dict:
+    """K2 against warp_combine_plain, bit for bit (max |diff| 0, equal
+    zero masks), on a calibrated float32 stack without masters."""
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+
+    k = wc.warp_combine(frames, mats, **kw)
+    torch.cuda.synchronize()
+    p, plain_ms = _timed(lambda: wc.warp_combine_plain(frames, mats, **kw))
+    _require(bool(torch.equal(k == 0, p == 0)),
+             f"{label}: K2 zero coverage differs")
+    err = float((k - p).abs().max())
+    _require(err == 0.0, f"{label}: K2 differs from its twin by {err}")
+    covered = float((k != 0).float().mean())
+    plan = wc.plan_warp_combine(frames.shape, mats, **kw)
+    padded = [plan.n_ti * plan.th, plan.n_tj * plan.tw]
+    del k, p
+    torch.cuda.empty_cache()
+    ms = _time_ms(_k2_kernel(frames, mats, None, None, **kw), reps)
+    res = {"phase": "K2 vs warp_combine_plain", "case": label,
+           "shape": list(frames.shape), "max_abs_err": err,
+           "covered_fraction": covered, "tile": [plan.th, plan.tw],
+           "padded_to": padded,
+           "ms": ms, "plain_ms": plain_ms,
+           **_k2_bound(frames, None, frames[0].numel()), "card": card}
+    _print(res)
+    return res
+
+
+def k2_config_times(frames, mats, label, card, reps=3) -> dict:
+    """K2's time on one stack under the file path's defaults (span 12,
+    dither budget 64, apron) against the lean snap cell's (span 8,
+    budget 8, no apron), and each of the three changed alone: where the
+    file path's per-pixel cost goes.  Times only; coverage may differ
+    between them."""
+    configs = {
+        "file path: span 12, budget 64, apron": (12, 64, True),
+        "span 8": (8, 64, True),
+        "budget 8": (12, 8, True),
+        "no apron": (12, 64, False),
+        "lean snap: span 8, budget 8, no apron": (8, 8, False)}
+    times = {name: _time_ms(_k2_kernel(frames, mats, None, None, span=s,
+                                       dither_budget=b, apron=a), reps)
+             for name, (s, b, a) in configs.items()}
+    res = {"phase": "K2 config split", "case": label,
+           "shape": list(frames.shape), "ms": times, "card": card}
+    _print(res)
+    return res
+
+
+def _busy_share(trace_dir: str, seconds: float) -> dict:
+    """The card's busy time in a torch.profiler trace against a wall
+    time: kernels, copies and sets."""
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    busy = {"kernel": 0.0, "gpu_memcpy": 0.0, "gpu_memset": 0.0}
+    n_kernels = 0
+    for ev in events:
+        if ev.get("cat") in busy and "dur" in ev:
+            busy[ev["cat"]] += ev["dur"] / 1e3
+            n_kernels += ev["cat"] == "kernel"
+    _require(n_kernels > 0, "the trace holds the card's kernels")
+    return {"seconds": seconds, "kernel_ms": busy["kernel"],
+            "memcpy_ms": busy["gpu_memcpy"] + busy["gpu_memset"],
+            "kernel_events": n_kernels,
+            "card_busy_share": sum(busy.values()) / 1e3 / seconds}
+
+
+def run_reduce(card: str, dev) -> dict:
+    """The file-to-file reduction on a synthetic night of 4008 x 2672
+    uint16 lights (``make_observing_run``): ``ap_reduce`` with the
+    navigate stage and K2 (then again, which must rewrite nothing),
+    ``ap_stack`` with every engine and the union canvas on group V's
+    calibrated lights, each held to what was planted; K2 (both groups:
+    the snap and the 'exact' tap bodies) and K3 against their twins at
+    this shape; the entry point's twin.  Prints the file-to-file figure
+    with its per-stage split."""
+    from astrophotography_tpu_torch import graft_entry, kernels
+    from astrophotography_tpu_torch.cli import ap_reduce, ap_stack
+    from astrophotography_tpu_torch.core import reduce as reduce_mod
+    from astrophotography_tpu_torch.io.fits import read_image
+    from astrophotography_tpu_torch.models import PipelineConfig
+    from astrophotography_tpu_torch.models import pipeline as pl
+    from astrophotography_tpu_torch.utils import device_trace
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reduce_")
+    res = {"phase": "reduce", "frame": list(MEASURE_SHAPE)}
+    checks = {}
+    try:
+        t0 = time.perf_counter()
+        truth = make_observing_run(tmp)
+        res["make_run_s"] = time.perf_counter() - t0
+        data, cal = os.path.join(tmp, "data"), os.path.join(tmp, "cal")
+        out = os.path.join(tmp, "out")
+        n_lights = sum(g[1] for g in REDUCE_GROUPS)
+        argv = [data, cal, out, "--astrometry", "--stack_engine", "fused",
+                "--ref_frame", "0", "--device", dev.type, "-l", "WARNING"]
+
+        # drive 1: ap_reduce
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with _Recorder(reduce_mod) as rec:
+            t0 = time.perf_counter()
+            rc = ap_reduce.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        _require(rc == 0, f"ap_reduce exited {rc}")
+        _check_launches("reduce", launches, {"warp_combine": 2})
+        res["ap_reduce"] = {
+            "wall_s": wall, "lights": n_lights,
+            "lights_per_s": n_lights / wall,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "split": rec.split()}
+        names = sorted(os.listdir(out))
+        stacks = {}
+        nav_err = 0.0
+        for filt, n, exps, _rot in REDUCE_GROUPS:
+            group = [f"light{filt}{i:02d}" for i in range(n)]
+            for g in group:
+                for pre, ext in (("cal-", ".fits"), ("qual_", ".yml"),
+                                 ("src-", ".fits"), ("nav-", ".fits")):
+                    _require(pre + g + ext in names, f"reduce: {pre}{g}{ext}")
+                nav_err = max(nav_err, _nav_truth(
+                    os.path.join(out, f"nav-{g}.fits"), truth, g))
+            stack = f"stack-M42-T05-{filt}.fits"
+            _require(stack in names and "weight-" + stack[6:] in names,
+                     f"reduce: {stack} and its weight map")
+            sky = truth["sky60"] * (exps[0] / 60.0)
+            st = _stack_truth(f"reduce {filt}", os.path.join(out, stack),
+                              truth, group[0], dev, sky)
+            hdr = st.pop("header")
+            _require(hdr["NSTACK"] == n and hdr["EXPTOTAL"] == sum(exps),
+                     f"reduce: NSTACK / EXPTOTAL of {stack}")
+            # every light registered: the weight map's interior is the sum
+            # of 1/fscale^2 over all of them (a frame with < 4 inliers
+            # weighs 0)
+            wmap = read_image(os.path.join(out, "weight-" + stack[6:]))[0]
+            full = sum((e / exps[0]) ** 2 for e in exps)
+            st["weight_interior"] = float(np.median(wmap[128:-128, 128:-128]))
+            _require(st["weight_interior"] == full,
+                     f"reduce: {filt} weight {st['weight_interior']} against "
+                     f"{full}: a light did not register")
+            stacks[filt] = st
+        _require(nav_err < 0.5, f"reduce: nav WCS off by {nav_err} px")
+        # the V stack lives on its anchor's grid and carries its WCS
+        from astrophotography_tpu_torch.io.fits import open_fits
+        from astrophotography_tpu_torch.wcs import TanWCS
+        sw, aw = (TanWCS.from_header(open_fits(os.path.join(d, f))[0].header)
+                  for d, f in ((out, "stack-M42-T05-V.fits"),
+                               (data, "lightV00.fits")))
+        _require(sw.crval == aw.crval and sw.crpix == aw.crpix
+                 and np.array_equal(sw.cd, aw.cd),
+                 "reduce: the V stack inherits the anchor's WCS")
+        res["ap_reduce"].update(stacks=stacks, nav_max_err_px=nav_err)
+
+        # the same command again: noclean rewrites nothing
+        mtimes = {f: os.path.getmtime(os.path.join(out, f)) for f in names}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _require(ap_reduce.main(argv) == 0, "ap_reduce rerun")
+        res["ap_reduce"]["rerun_s"] = time.perf_counter() - t0
+        _require(dict(kernels.launch_counts) == {k: 0 for k in launches},
+                 "reduce rerun launched a kernel")
+        _require({f: os.path.getmtime(os.path.join(out, f))
+                  for f in os.listdir(out)} == mtimes,
+                 "reduce rerun rewrote an output")
+
+        # drive 2: ap_stack on group V's calibrated lights
+        v_n, v_exps = REDUCE_GROUPS[0][1], REDUCE_GROUPS[0][2]
+        v_cal = [os.path.join(out, f"cal-lightV{i:02d}.fits")
+                 for i in range(v_n)]
+        sky_v = truth["sky60"] * (v_exps[0] / 60.0)
+        res["ap_stack"] = {}
+        outs = {}
+        for key, extra, want in (
+                ("xla", ["--engine", "xla"], {}),
+                ("pallas", ["--engine", "pallas"], {"clip_combine": 1}),
+                ("fused", ["--engine", "fused"], {"warp_combine": 1}),
+                ("union", ["--canvas", "union"], {})):
+            path = os.path.join(tmp, f"ap_stack_{key}.fits")
+            kernels.reset_launch_counts()
+            with _Recorder(ap_stack) as rec:
+                t0 = time.perf_counter()
+                rc = ap_stack.main(v_cal + ["-o", path, "--ref_frame", "0",
+                                            "--device", dev.type,
+                                            "-l", "WARNING"] + extra)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            _require(rc == 0, f"ap_stack {key} exited {rc}")
+            launched = dict(kernels.launch_counts)
+            _check_launches(f"ap_stack {key}", launched, want)
+            entry = {"wall_s": sec, "launches": launched,
+                     "split": rec.split()}
+            origin = (0, 0)
+            if key == "union":
+                u, uhdr = read_image(path)
+                origin = (uhdr["CANVASY0"], uhdr["CANVASX0"])
+                _require(u.shape[0] >= MEASURE_SHAPE[0] - origin[0]
+                         and u.shape[1] >= MEASURE_SHAPE[1] - origin[1],
+                         "ap_stack union: the canvas holds the grid")
+                entry.update(canvas=list(u.shape), origin=list(origin))
+                del u
+            st = _stack_truth(f"ap_stack {key}", path, truth, "lightV00",
+                              dev, sky_v, origin)
+            hdr = st.pop("header")
+            _require(hdr["NSTACK"] == v_n
+                     and hdr["EXPTOTAL"] == sum(v_exps),
+                     f"ap_stack {key}: NSTACK / EXPTOTAL")
+            entry.update(st)
+            outs[key] = path
+            res["ap_stack"][key] = entry
+        a = read_image(outs["xla"])[0]
+        b = read_image(outs["pallas"])[0]
+        diff = np.abs(a - b)
+        tie = {"median_abs_diff": float(np.median(diff)),
+               "frac_beyond_1adu": float((diff > 1.0).mean()),
+               "max_abs_diff": float(diff.max())}
+        _require(tie["median_abs_diff"] < 1e-3
+                 and tie["frac_beyond_1adu"] < 0.005,
+                 f"ap_stack xla against pallas: {tie}")
+        res["ap_stack"]["xla_vs_pallas"] = tie
+        del a, b, diff
+        # one fused ap_stack under the profiler: how busy the card is
+        trace_dir = os.path.join(tmp, "trace")
+        with device_trace(trace_dir):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _require(ap_stack.main(v_cal + [
+                "-o", os.path.join(tmp, "traced.fits"), "--ref_frame", "0",
+                "--engine", "fused", "--device", dev.type,
+                "-l", "WARNING"]) == 0, "traced ap_stack")
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        res["ap_stack fused under device_trace"] = _busy_share(trace_dir,
+                                                               traced_s)
+
+        # the kernels against their twins at this shape
+        for filt, n, exps, _rot in REDUCE_GROUPS:
+            paths = [os.path.join(out, f"cal-light{filt}{i:02d}.fits")
+                     for i in range(n)]
+            stack, mats, cfg = _group_stack(dev, paths, exps)
+            body = "exact" if _rot else "snap"
+            checks[f"K2 {filt}"] = check_warp_exact(
+                stack, mats, f"reduce {filt} {n}x{MEASURE_SHAPE[0]}x"
+                f"{MEASURE_SHAPE[1]} f32 {body}", card, apron=True,
+                general_taps="exact")
+            if filt == "V":
+                res["K2 config split"] = k2_config_times(
+                    stack, mats, f"reduce V {n}x{MEASURE_SHAPE[0]}x"
+                    f"{MEASURE_SHAPE[1]} f32 snap", card)["ms"]
+                warped, weights = pl.warp_band(stack, mats,
+                                               MEASURE_SHAPE[0], cfg)
+                mask = weights > 0.5
+                del weights
+                checks["K3 V"] = check_clip(
+                    warped, mask, f"reduce V warped band {n}x"
+                    f"{MEASURE_SHAPE[0]}x{MEASURE_SHAPE[1]}", card, reps=3)
+                del warped, mask
+            del stack
+            torch.cuda.empty_cache()
+
+        # the entry point's twin
+        fn, args = graft_entry.entry(device=dev)
+        ent = fn(*args)
+        torch.cuda.synchronize()
+        _require(tuple(ent.shape) == (128, 128)
+                 and bool(torch.isfinite(ent).all()), "graft_entry forward")
+        res["graft_entry"] = {"shape": list(ent.shape),
+                              "mean": float(ent.mean())}
+        res["temp_bytes"] = _dir_bytes(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["card"] = card
+    _print(res)
+    return {"main": res, **checks}
+
+
 def _kernel_entry(name, replaces, by_path, check) -> dict:
     """One kernel's entry of the ``kernels`` line: launches on each path
     that runs it (``launches`` is the last one's, each counted from 0 in
@@ -1997,12 +2510,21 @@ def main(argv=None) -> int:
         run_raw(card, dev)
     if "files" in phases:
         run_files(card, dev)
+    reduce = {}
+    if "reduce" in phases:
+        reduce = run_reduce(card, dev)
 
     if args.only is None:
         launches = snap["main"]["launches"]
+        red = reduce["main"]
         k2 = dict(snap["warp_combine"],
                   max_abs_err=max(snap["warp_combine"]["max_abs_err"],
-                                  rot["warp_combine"]["max_abs_err"]))
+                                  rot["warp_combine"]["max_abs_err"],
+                                  reduce["K2 V"]["max_abs_err"],
+                                  reduce["K2 R"]["max_abs_err"]))
+        k3 = dict(unfused["clip_combine"],
+                  max_abs_err=max(unfused["clip_combine"]["max_abs_err"],
+                                  reduce["K3 V"]["max_abs_err"]))
         _print({"kernels": [
             _kernel_entry("detect_tiles",
                           "astrophotography_tpu/ops/pallas_detect.py:405",
@@ -2011,15 +2533,21 @@ def main(argv=None) -> int:
             _kernel_entry("warp_combine",
                           "astrophotography_tpu/ops/pallas_warp_combine.py:658",
                           {"lean": launches["warp_combine"],
-                           "bands": snap["bands"]["launches"]["warp_combine"]},
+                           "bands": snap["bands"]["launches"]["warp_combine"],
+                           "ap_stack fused": red["ap_stack"]["fused"]
+                           ["launches"]["warp_combine"],
+                           "reduce": red["ap_reduce"]["launches"]
+                           ["warp_combine"]},
                           k2),
             _kernel_entry("clip_combine",
                           "astrophotography_tpu/ops/pallas_combine.py:102",
                           {"unfused": unfused["main"]["launches"]["clip_combine"],
                            "unfused with badpix_mask":
                                unfused["main"]["with_badpix_mask"]["launches"]
-                               ["clip_combine"]},
-                          unfused["clip_combine"]),
+                               ["clip_combine"],
+                           "ap_stack pallas": red["ap_stack"]["pallas"]
+                           ["launches"]["clip_combine"]},
+                          k3),
         ]})
     print(card, flush=True)
     _print({"ok": True, "device": {"platform": "gpu",

@@ -342,6 +342,34 @@ def test_banded_warp_combine_matches_whole_frame(cuda, rotate, taps):
     assert float((err > 0.5 + 1e-4 * whole[both].abs()).float().mean()) < 1e-4
 
 
+@pytest.mark.parametrize("rotate", [False, True])
+def test_kernels_on_calibrated_padded_stack(cuda, rotate):
+    """The file-to-file path's inputs at a shape no tile divides (8 x 168
+    x 1000: K2's plan pads rows and columns): K2 on a calibrated float32
+    stack without masters, with the apron and the plan's own tile, as
+    ``models.pipeline.stack_registered`` calls it (snapped translations,
+    or rotations through the 'exact' tap body); K3 on the warped band
+    ``combine_band`` hands it.  Both bit for bit against their twins."""
+    from astrophotography_tpu_torch.models import PipelineConfig
+    from astrophotography_tpu_torch.models import pipeline as pl
+
+    n, h, w = 8, 168, 1000
+    cal = torch.from_numpy(_starfield(n, h, w, 6)).to(cuda) \
+        .to(torch.float32) * 1.02 - 300.0
+    mats = _warp_mats(n, 7, rotate=rotate)
+    _warp_check(cal, mats, None, apron=True, general_taps="exact")
+    mats = torch.tensor(mats, device=cuda)
+    warped, weights = pl.warp_band(cal, mats, h, PipelineConfig())
+    mask = weights > 0.5
+    before = kernels.launch_counts["clip_combine"]
+    got = cc.clip_combine(warped, mask)
+    assert kernels.launch_counts["clip_combine"] == before + 1
+    want = cc.clip_combine_plain(warped, mask)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert float(torch.isnan(got).float().mean()) < 0.2
+
+
 def _clip_stack(n, h, w, seed):
     """Normal samples with outliers, ~20% masked samples, a fully masked
     pixel, pixels with exactly 1 and 2 valid samples, and a masked +inf

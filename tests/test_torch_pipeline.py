@@ -283,22 +283,24 @@ def test_port_never_imports_jax():
 
 
 def test_port_imports_without_optional_packages():
-    """Every sub-package of the port (and the dksraw tool) imports in a
-    fresh interpreter in which ``yaml``, ``imageio``, ``matplotlib`` and
+    """Every sub-package of the port and every tool imports in a fresh
+    interpreter in which ``yaml``, ``imageio``, ``matplotlib`` and
     ``rawpy`` cannot be imported: they are needed only by the functions
     that parse or write a YAML file, write a graphics format other than
     PNG, plot, or read a camera's own RAW format.  The FITS / DNG / PNG
-    path then runs end to end."""
+    path and a source list then run end to end."""
     code = textwrap.dedent("""
         import sys
         for name in ("yaml", "imageio", "imageio.v3", "matplotlib", "rawpy"):
             sys.modules[name] = None
         import importlib
+        from astrophotography_tpu_torch.__main__ import _TOOLS
         for mod in ("", ".io", ".core", ".api", ".ops", ".models",
-                    ".parallel", ".utils", ".cli.dksraw", ".synth",
-                    ".cli.ap_calibrate", ".cli.ap_combine_darks",
-                    ".cli.ap_calc_read_noise", ".cli.ap_fix_badpix"):
+                    ".parallel", ".utils", ".synth", ".wcs",
+                    ".wcs.astrometry", ".graft_entry", ".cli.ap_stack"):
             importlib.import_module("astrophotography_tpu_torch" + mod)
+        for tool in _TOOLS:
+            importlib.import_module("astrophotography_tpu_torch.cli." + tool)
         import os, tempfile
         import numpy as np
         from astrophotography_tpu_torch import synth
@@ -316,6 +318,20 @@ def test_port_imports_without_optional_packages():
             # a format that needs imageio fails as an error of that call
             assert main(["grey", dng, "-o", os.path.join(tmp, "a.tiff"),
                          "--device", "cpu", "-l", "CRITICAL"]) == 1
+            # the star finder writes its source list without yaml; its
+            # quality report (YAML) fails as an error of that call
+            from astrophotography_tpu_torch.core import StarFinder
+            from astrophotography_tpu_torch.io.fits import write_image
+            img = np.full((64, 64), 100.0, np.float32)
+            img[30:33, 30:33] += 5000.0
+            write_image(os.path.join(tmp, "s.fits"), img)
+            finder = StarFinder(os.path.join(tmp, "s.fits"), device="cpu")
+            finder.write_source_list(os.path.join(tmp, "src.fits"))
+            try:
+                finder.write_quality_report(os.path.join(tmp, "q.yml"))
+                raise AssertionError("yaml was importable")
+            except ImportError:
+                pass
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "astrophotography_tpu"
