@@ -57,6 +57,22 @@ def frame_noise_stats(frames: torch.Tensor, center: str = "mean"):
     return _noise_stats_from_sub(sub, center)
 
 
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    """The sum of each row of an (N, M) float32 tensor, by folding the
+    row's halves together (zero-padded to a power of two).  Only
+    element-wise adds: a frame's sum does not depend on how many frames
+    are summed at once, as a reduction kernel's order does on the card,
+    so a frame-sharded caller gets the one-device statistics."""
+    m = x.shape[1]
+    p = 1 << max(m - 1, 0).bit_length()
+    if p != m:
+        x = torch.nn.functional.pad(x, (0, p - m))
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        x = x[:, :half] + x[:, half:]
+    return x[:, 0]
+
+
 def _noise_stats_from_sub(sub: torch.Tensor, center: str):
     """(center, std) per row of an (N, M) float32 subsample: 'mean' = 3
     rounds of mean/std clipping at 3 sigma (no sorts); 'median' =
@@ -68,8 +84,9 @@ def _noise_stats_from_sub(sub: torch.Tensor, center: str):
     keep = torch.ones_like(sub, dtype=torch.bool)
     for _ in range(3):
         nk = torch.clamp(keep.sum(dim=1), min=1).to(torch.float32)
-        cen = torch.where(keep, sub, 0.0).sum(dim=1) / nk
-        var = torch.where(keep, (sub - cen[:, None]) ** 2, 0.0).sum(dim=1) / nk
+        cen = _row_sums(torch.where(keep, sub, 0.0)) / nk
+        var = _row_sums(torch.where(keep, (sub - cen[:, None]) ** 2,
+                                    0.0)) / nk
         std = torch.sqrt(var)
         keep = keep & ((sub - cen[:, None]).abs() < 3.0 * std[:, None])
     return cen, std
@@ -434,6 +451,66 @@ def stack_registered(cal: torch.Tensor, matrices: torch.Tensor,
     return torch.cat(bands, dim=0)
 
 
+def detect_lean(frames: torch.Tensor, bias, dark, flat,
+                exp_ratios: torch.Tensor, config: PipelineConfig) -> Stars:
+    """The lean path's Stars tables (N, max_stars) of a raw (N, H, W)
+    stack: the fused raw->candidate kernel (K1) where the config and the
+    geometry allow it, else calibration and ``find_stars`` chunk by chunk
+    (at most ``detect_chunk`` calibrated frames exist at a time).  Every
+    frame is detected on its own, so a frame-sharded caller gets the same
+    rows."""
+    n, h, w = frames.shape
+    c = config.detect_chunk if config.detect_mode == "chunked" else n
+    if n % c:
+        raise ValueError(f"frame count {n} not divisible by chunk {c}")
+    ok = _fused_detect_ok(config, h, w)
+    if config.detect_impl == "fused" and not ok:
+        raise ValueError("detect_impl='fused' needs detect_fast + "
+                         "detect_bin_rows + detect_topk='tile' and "
+                         "H % 64 == 0, W % 256 == 0")
+    use_fused = (config.detect_impl == "fused"
+                 or (config.detect_impl == "auto" and ok
+                     and (h // 64) * (w // 256) >= config.max_stars))
+    if use_fused:
+        return _detect_stars_fused(frames, bias, dark, flat, exp_ratios,
+                                   config)
+    parts = []
+    for k in range(0, n, c):
+        calc = calibrate_batch(frames[k:k + c], bias, dark, flat,
+                               exp_ratios[k:k + c],
+                               dark_still_biased=config.dark_still_biased)
+        ce, s = frame_noise_stats(calc, center=config.noise_center)
+        parts.append(_find_stars(calc, ce, s, config))
+        del calc
+    return _concat_stars(parts)
+
+
+def lean_masters(bias, dark, flat, config: PipelineConfig, h: int, w: int,
+                 dev: torch.device) -> torch.Tensor:
+    """The (3, H, W) calibration planes (A, B, C) on ``dev`` that the fused
+    warp+combine kernel calibrates raw taps with (ones / zeros for a
+    missing master)."""
+    a_pl, b_pl, c_pl, _bias_t, _dark_use, _has = _calibration_planes(
+        bias, dark, flat, config.dark_still_biased, h, w, dev)
+    ones = torch.ones((h, w), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    return torch.stack([a_pl if a_pl is not None else ones,
+                        b_pl if b_pl is not None else zeros,
+                        c_pl if c_pl is not None else zeros])
+
+
+def lean_kernel_kwargs(config: PipelineConfig, h: int, w: int) -> dict:
+    """The fused warp+combine kernel's arguments under ``config`` for an
+    (H, W) image.  Apron-free needs >= 3 tile blocks per axis; small
+    frames have no memory pressure, so they keep the apron."""
+    return dict(span=config.warp_span, tile=config.fused_tile,
+                sigma_lower=config.sigma_lower,
+                sigma_upper=config.sigma_upper,
+                apron=config.fused_apron or h < 96 or w < 768,
+                combine=config.combine, dither_budget=config.dither_budget,
+                general_taps=config.general_taps)
+
+
 def calibrate_register_stack_lean(
     frames: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
@@ -463,52 +540,17 @@ def calibrate_register_stack_lean(
     bias, dark, flat = (on_device(m, dev, torch.float32)
                         for m in (bias, dark, flat))
     n, h, w = frames.shape
-    c = config.detect_chunk if config.detect_mode == "chunked" else n
-    if n % c:
-        raise ValueError(f"frame count {n} not divisible by chunk {c}")
     exp_ratios = torch.ones((n,), dtype=torch.float32, device=dev) \
         if exp_ratios is None else on_device(exp_ratios, dev, torch.float32)
     flux_scales = on_device(flux_scales, dev, torch.float32)
 
-    ok = _fused_detect_ok(config, h, w)
-    if config.detect_impl == "fused" and not ok:
-        raise ValueError("detect_impl='fused' needs detect_fast + "
-                         "detect_bin_rows + detect_topk='tile' and "
-                         "H % 64 == 0, W % 256 == 0")
-    use_fused = (config.detect_impl == "fused"
-                 or (config.detect_impl == "auto" and ok
-                     and (h // 64) * (w // 256) >= config.max_stars))
-    if use_fused:
-        stars = _detect_stars_fused(frames, bias, dark, flat, exp_ratios,
-                                    config)
-    else:
-        # calibrate, measure and detect chunk by chunk: at most c
-        # calibrated frames exist at a time
-        parts = []
-        for k in range(0, n, c):
-            calc = calibrate_batch(frames[k:k + c], bias, dark, flat,
-                                   exp_ratios[k:k + c],
-                                   dark_still_biased=config.dark_still_biased)
-            ce, s = frame_noise_stats(calc, center=config.noise_center)
-            parts.append(_find_stars(calc, ce, s, config))
-            del calc
-        stars = _concat_stars(parts)
+    stars = detect_lean(frames, bias, dark, flat, exp_ratios, config)
     sims, matrices, ref_idx = _solve_frame_similarities(stars, n, config)
-
-    a_pl, b_pl, c_pl, _bias_t, _dark_use, _has = _calibration_planes(
-        bias, dark, flat, config.dark_still_biased, h, w, dev)
-    ones = torch.ones((h, w), dtype=torch.float32, device=dev)
-    zeros = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    masters = torch.stack([a_pl if a_pl is not None else ones,
-                           b_pl if b_pl is not None else zeros,
-                           c_pl if c_pl is not None else zeros])
-    apron = config.fused_apron or h < 96 or w < 768
     stacked = warp_combine(
-        frames, matrices, masters=masters, exp_ratios=exp_ratios,
-        flux_scales=flux_scales, span=config.warp_span,
-        tile=config.fused_tile, sigma_lower=config.sigma_lower,
-        sigma_upper=config.sigma_upper, apron=apron, combine=config.combine,
-        dither_budget=config.dither_budget, general_taps=config.general_taps)
+        frames, matrices,
+        masters=lean_masters(bias, dark, flat, config, h, w, dev),
+        exp_ratios=exp_ratios, flux_scales=flux_scales,
+        **lean_kernel_kwargs(config, h, w))
     diagnostics = {
         "scale": sims.scale, "theta": sims.theta,
         "tx": sims.tx, "ty": sims.ty,

@@ -45,19 +45,27 @@ the stacks:
   navigate stage, K2 per group; then again, rewriting nothing),
   ``ap_stack`` with each engine and the union canvas, every product held
   to what was planted, K2 (snap and 'exact' bodies) and K3 against their
-  twins at that shape, the per-stage split, and the entry point's twin.
+  twins at that shape, the per-stage split, and the entry point's twin;
+* the multi-device layer (``multichip``): 4 ranks spawned on the one
+  card over host-staged gloo, K2 row-sharded (``sharded_warp_combine``,
+  1x4) on both lean workloads against the band loop (bit for bit) and
+  the whole frame, the unfused pipeline (K3) and the lean pipeline (K1,
+  K2) on a 2x2 mesh against the one-process runs, and the dry run's twin
+  (``graft_entry.dryrun_multichip``), with each rank's kernel times,
+  launches, exchange bytes and times and peak memory.
 
 Beside the checks against the plain twins it times K2 at 100x4096^2 with
 ``combine='average'`` against ``combine='mean'`` (the same warp without
 the sort and clip): the warp phase against the combine phase.
 
 Run from the repository root with ``python3 chip_smoke.py``; every phase
-runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce}``
+runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip}``
 runs one group of phases (the kernel check and timing of K1, K2 or K3 at
 the main paths' shapes, the lean path, the unfused path with and without
 the mask, the 16x1024^2 chunked run and the small kernel matrix, the
 band loop, the measurement ops, the RAW half, the calibration-file
-engines, or the file-to-file reduction) and prints no ``kernels`` line.  Every phase raises
+engines, the file-to-file reduction, or the multi-device layer) and
+prints no ``kernels`` line.  Every phase raises
 on failure.  Each phase prints one JSON line; the build line carries
 ptxas' register, shared-memory and spill report for every kernel; the
 line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -92,7 +100,7 @@ SKY = 800.0
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
 PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure",
-          "raw", "files", "reduce")
+          "raw", "files", "reduce", "multichip")
 #: the RAW half: 24 lossless-JPEG DNGs of 3904^2 uint16, black level 128
 RAW_FRAMES, RAW_SIZE, RAW_BLACK = 24, 3904, 128
 #: the calibration-file engines: frames per master, light frames
@@ -256,16 +264,11 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
             "bound_bytes": n_bytes, "bound_ops": n_ops}
 
 
-def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
-    """K1 against detect_tiles_plain: max values within rtol 1e-4, atol
-    1e-2; argmax and offsets equal (offsets within 1e-4 bin) on every
-    tile, except tiles whose two maxima tie within 1e-3 relative."""
-    from astrophotography_tpu_torch.ops import detect_tiles as dt
-
-    args = dict(mf_bc=mf, a_plane=a_plane, exp_ratios=er)
-    k = dt.detect_tiles(frames, thr, **args)
-    torch.cuda.synchronize()
-    p, plain_ms = _timed(lambda: dt.detect_tiles_plain(frames, thr, **args))
+def _k1_agrees(k, p, label) -> dict:
+    """K1's tables ``k`` held against its twin's ``p``: max values within
+    rtol 1e-4, atol 1e-2; argmax and offsets equal (offsets within 1e-4
+    bin) on every tile, except tiles whose two maxima tie within 1e-3
+    relative.  Returns the errors."""
     kmax, kidx, kyo, kxo = k
     pmax, pidx, pyo, pxo = p
     _require(bool(((kmax > -1e37) == (pmax > -1e37)).all()),
@@ -279,6 +282,43 @@ def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
     _require(bool((same | tie).all()), f"{label}: K1 argmax differs")
     off = torch.maximum((kyo - pyo).abs(), (kxo - pxo).abs())
     _require(bool((off[same] <= 1e-4).all()), f"{label}: K1 offsets differ")
+    return {"max_abs_err": float(err[live].max()) if bool(live.any())
+            else 0.0,
+            "offset_max_abs_err": float(off[same].max()),
+            "argmax_ties": int(tie.sum()), "live_tiles": int(live.sum())}
+
+
+def _k2_exact(k, p, label) -> float:
+    """K2's image ``k`` equal to its twin's ``p`` bit for bit (max |diff|
+    0, equal zero masks)."""
+    _require(bool(torch.equal(k == 0, p == 0)),
+             f"{label}: K2 zero coverage differs")
+    err = float((k - p).abs().max())
+    _require(err == 0.0, f"{label}: K2 differs from its twin by {err}")
+    return err
+
+
+def _k3_exact(k, p, label) -> float:
+    """K3's image ``k`` equal to its twin's ``p`` bit for bit, NaN where
+    nothing is kept included (the kernel rounds every value operation as
+    its twin does, so any difference is a bug)."""
+    nan_k, nan_p = torch.isnan(k), torch.isnan(p)
+    _require(bool(torch.equal(nan_k, nan_p)), f"{label}: K3 NaN pixels differ")
+    err = float((k - p).abs()[~nan_p].max()) if bool((~nan_p).any()) else 0.0
+    _require(err == 0.0, f"{label}: K3 differs from its twin by {err}")
+    return err
+
+
+def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
+    """K1 against detect_tiles_plain by :func:`_k1_agrees`' rule, and
+    K1's time."""
+    from astrophotography_tpu_torch.ops import detect_tiles as dt
+
+    args = dict(mf_bc=mf, a_plane=a_plane, exp_ratios=er)
+    k = dt.detect_tiles(frames, thr, **args)
+    torch.cuda.synchronize()
+    p, plain_ms = _timed(lambda: dt.detect_tiles_plain(frames, thr, **args))
+    agree = _k1_agrees(k, p, label)
     ms = _time_ms(lambda: dt.detect_tiles(frames, thr, **args), reps)
     # per raw pixel: 2-row binning (2 flops), then per binned pixel the
     # Gaussian and box column and row passes (6 per tap), the density
@@ -286,10 +326,7 @@ def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
     ntap = 2 * dt._kernel_params(3.0)[1] + 1
     n_bytes = _nbytes(frames, thr, mf, a_plane, er, *k)
     res = {"phase": "K1 vs detect_tiles_plain", "case": label,
-           "shape": list(frames.shape),
-           "max_abs_err": float(err[live].max()) if bool(live.any()) else 0.0,
-           "offset_max_abs_err": float(off[same].max()),
-           "argmax_ties": int(tie.sum()), "live_tiles": int(live.sum()),
+           "shape": list(frames.shape), **agree,
            "ms": ms, "plain_ms": plain_ms,
            **_bound(n_bytes, frames.numel() * (3 * ntap + 9.5)), "card": card}
     _print(res)
@@ -378,10 +415,8 @@ def check_clip(stack, mask, label, card, reps=5):
     k = cc.clip_combine(stack, mask)
     torch.cuda.synchronize()
     p, plain_ms = _timed(lambda: cc.clip_combine_plain(stack, mask))
-    nan_k, nan_p = torch.isnan(k), torch.isnan(p)
-    _require(bool(torch.equal(nan_k, nan_p)), f"{label}: K3 NaN pixels differ")
-    err = float((k - p).abs()[~nan_p].max()) if bool((~nan_p).any()) else 0.0
-    _require(err == 0.0, f"{label}: K3 differs from its twin by {err}")
+    err = _k3_exact(k, p, label)
+    nan_pixels = int(torch.isnan(p).sum())
     del k, p
     torch.cuda.empty_cache()
     ms = _time_ms(lambda: cc.clip_combine(stack, mask), reps)
@@ -391,7 +426,7 @@ def check_clip(stack, mask, label, card, reps=5):
     ops = stack.numel() * (5 + math.log2(max(n, 2)))
     res = {"phase": "K3 vs clip_combine_plain", "case": label,
            "shape": list(stack.shape), "masked": mask is not None,
-           "max_abs_err": err, "nan_pixels": int(nan_p.sum()),
+           "max_abs_err": err, "nan_pixels": nan_pixels,
            "ms": ms, "plain_ms": plain_ms,
            **_bound(_nbytes(stack, mask) + 4 * stack[0].numel(), ops),
            "card": card}
@@ -421,14 +456,21 @@ def _masters(bias, dark, flat, dev):
     return torch.stack([a, b * a, (d - b) * a]), b, d - b, f
 
 
-def _workload_on_device(rotate, dev):
+def _workload_on_device(rotate, dev, keep_host=False):
+    """The lean workload on ``dev``; with ``keep_host`` also its raw
+    stack as a CPU tensor in shared memory (else None), which the
+    multichip phase hands to its ranks."""
     t0 = time.perf_counter()
     frames, bias, dark, flat, exp_ratio, max_off, mats = make_workload(
         N_FRAMES, SIZE, rotate=rotate)
     gen_s = time.perf_counter() - t0
-    fr = torch.from_numpy(frames).to(dev)
+    host = torch.from_numpy(frames)
+    if keep_host:
+        host = host.share_memory_()
+    fr = host.to(dev)
     del frames
-    return fr, bias, dark, flat, exp_ratio, max_off, mats, gen_s
+    return (fr, bias, dark, flat, exp_ratio, max_off, mats, gen_s,
+            host if keep_host else None)
 
 
 def _check_launches(label, launches, required) -> None:
@@ -477,8 +519,8 @@ def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
 
     label = "rotated" if rotate else "snap"
     cfg = lean_config(rotate)
-    fr, bias, dark, flat, exp_ratio, max_off, mats, gen_s = \
-        _workload_on_device(rotate, dev)
+    fr, bias, dark, flat, exp_ratio, max_off, mats, gen_s, host = \
+        _workload_on_device(rotate, dev, keep_host="multichip" in phases)
     n = fr.shape[0]
     er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
     masters, b_t, du_t, f_t = _masters(bias, dark, flat, dev)
@@ -501,7 +543,7 @@ def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
         checks["warp_split"] = k2_split(fr, mats_t, masters, er,
                                         f"main path {label}", card, **k2_kw)
     torch.cuda.empty_cache()
-    if not phases & {"lean", "bands"}:
+    if not phases & {"lean", "bands", "multichip"}:
         return checks
 
     kw = dict(bias=torch.from_numpy(bias).to(dev),
@@ -526,6 +568,13 @@ def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
     _require("jax" not in sys.modules, "jax was imported")
     if "bands" in phases:
         checks["bands"] = run_bands(fr, diag, masters, er, cfg, label, card)
+    if "multichip" in phases:
+        checks["multichip"] = {
+            "label": label, "frames": host, "masters": masters.cpu(),
+            "bias": bias, "dark": dark, "flat": flat, "er": er.cpu(),
+            "cfg": cfg, "stacked": stacked.cpu(),
+            "diag": {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                     for k, v in diag.items()}}
     if "lean" not in phases:
         return checks
     k = 3
@@ -571,6 +620,14 @@ def _tie_rule(label, got, ref) -> dict:
             "covered": float(both.float().mean())}
 
 
+def _solved_matrices(diag) -> torch.Tensor:
+    """The (N, 2, 3) matrices of a pipeline's diagnostics."""
+    from astrophotography_tpu_torch.ops.register import Similarity
+
+    return Similarity(*(diag[k] for k in ("scale", "theta", "tx", "ty",
+                                          "n_inliers", "rms"))).matrix()
+
+
 def run_bands(fr, diag, masters, er, cfg, label, card) -> dict:
     """``banded_warp_combine`` (4 bands, halo 64) on the lean workload's
     raw stack with the matrices the lean path just solved, against the
@@ -580,12 +637,10 @@ def run_bands(fr, diag, masters, er, cfg, label, card) -> dict:
     workload also with those translations rounded to 1/64 px, which both
     sum exactly: bit for bit.  K2 must be launched once per band."""
     from astrophotography_tpu_torch import kernels
-    from astrophotography_tpu_torch.ops.register import Similarity
     from astrophotography_tpu_torch.ops.warp_combine import warp_combine
     from astrophotography_tpu_torch.parallel import banded_warp_combine
 
-    mats = Similarity(*(diag[k] for k in ("scale", "theta", "tx", "ty",
-                                          "n_inliers", "rms"))).matrix()
+    mats = _solved_matrices(diag)
     kw = dict(span=cfg.warp_span, tile=cfg.fused_tile, apron=False,
               dither_budget=cfg.dither_budget,
               general_taps=cfg.general_taps)
@@ -664,6 +719,473 @@ def check_bounds_geom(card, dev) -> None:
                 "covered": float((k != 0).float().mean()),
                 "covered_default": float((full != 0).float().mean()),
                 "card": card})
+
+
+# ---- the multichip phase ---------------------------------------------------
+
+#: the multichip phase: ranks on one card, the transport they must use
+MC_WORLD, MC_TRANSPORT = 4, "gloo"
+#: the kernels' launch functions whose device time a rank records
+_KERNEL_FNS = ("detect_tiles", "warp_combine", "clip_combine")
+
+
+class _KernelClock:
+    """Within the block, every launch of a kernel wrapper is bracketed by
+    CUDA events; ``ms()`` sums each kernel's device time (the launch
+    counters are untouched: the wrapped function is the counting one)."""
+
+    def __enter__(self):
+        from astrophotography_tpu_torch import kernels
+
+        self._kernels, self._orig, self._events = kernels, {}, {}
+        for name in _KERNEL_FNS:
+            fn = getattr(kernels, f"{name}_cuda")
+            self._orig[name] = fn
+            self._events[name] = []
+            setattr(kernels, f"{name}_cuda", self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self._events[name].append((start, end))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self._kernels, f"{name}_cuda", fn)
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {name: sum(a.elapsed_time(b) for a, b in ev)
+                for name, ev in self._events.items()}
+
+
+def _exchanges(traffic) -> dict:
+    """The traffic records of a step summed by operation."""
+    out = {}
+    for rec in traffic:
+        key = f"{rec['op']} over {rec['axis']}"
+        acc = out.setdefault(key, {"count": 0, "bytes_sent": 0,
+                                   "bytes_received": 0, "ms": 0.0,
+                                   "staging_ms": 0.0})
+        acc["count"] += 1
+        for k in ("bytes_sent", "bytes_received", "ms", "staging_ms"):
+            acc[k] += rec[k]
+    return out
+
+
+class _FirstCall:
+    """Within the block, the first call of ``module.<name>`` (a kernel's
+    wrapper as the sharded code calls it) keeps its arguments and its
+    result, for the kernel's check against its plain twin."""
+
+    def __init__(self, module: str, name: str):
+        import importlib
+
+        self.module, self.name = importlib.import_module(module), name
+        self.call = None
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def first(*a, **k):
+            out = fn(*a, **k)
+            if self.call is None:
+                self.call = (a, k, out)
+            return out
+        setattr(self.module, self.name, first)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+#: each kernel as the sharded code calls it: (module, wrapper's name
+#: there, its plain twin's module and name)
+_MC_CALLS = {
+    "K1": ("astrophotography_tpu_torch.models.pipeline", "detect_tiles",
+           "astrophotography_tpu_torch.ops.detect_tiles",
+           "detect_tiles_plain"),
+    "K2": ("astrophotography_tpu_torch.parallel.fused", "warp_combine",
+           "astrophotography_tpu_torch.ops.warp_combine",
+           "warp_combine_plain"),
+    "K3": ("astrophotography_tpu_torch.models.pipeline", "clip_combine",
+           "astrophotography_tpu_torch.ops.clip_combine",
+           "clip_combine_plain")}
+
+
+def _mc_plain_check(kind: str, call, label: str) -> dict:
+    """The plain twin on the exact arguments a kernel got in a sharded
+    step, held against the kernel's result by the kernel's rule: K1 by
+    :func:`_k1_agrees`, K2 and K3 bit for bit."""
+    import importlib
+
+    _require(call is not None, f"{label}: {kind} was not called")
+    a, k, out = call
+    _mod, _name, plain_mod, plain_name = _MC_CALLS[kind]
+    plain = getattr(importlib.import_module(plain_mod), plain_name)
+    p, plain_ms = _timed(lambda: plain(*a, **k))
+    label = f"{label} {kind}"
+    if kind == "K1":
+        agree = _k1_agrees(out, p, label)
+    else:
+        agree = {"max_abs_err": (_k2_exact if kind == "K2" else _k3_exact)(
+            out, p, label)}
+    del p
+    torch.cuda.empty_cache()
+    return {"kernel": kind, "shape": list(a[0].shape), **agree,
+            "plain_ms": plain_ms}
+
+
+def _mc_step(mesh, place, run, label, check=()):
+    """One multichip step on this rank: every rank starts together, the
+    inputs are placed (``place()``: shared-memory blocks to the card),
+    then ``run(*placed)`` with the launch counters at 0, the kernels
+    clocked and the exchanges recorded.  The kernels in ``check`` ('K1',
+    'K2', 'K3') keep their first call's arguments, and after the record
+    their plain twins run on them.  Returns (run's result, the rank's
+    record)."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from astrophotography_tpu_torch import kernels
+
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    placed = place()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kernels.reset_launch_counts()
+    mesh.traffic.clear()
+    with contextlib.ExitStack() as stack:
+        calls = {kind: stack.enter_context(_FirstCall(*_MC_CALLS[kind][:2]))
+                 for kind in check}
+        clock = stack.enter_context(_KernelClock())
+        out = run(*placed)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rec = {"rank": mesh.rank, "coords": dict(mesh.coords),
+           "upload_s": t1 - t0, "wall_s": t2 - t1,
+           "kernel_ms": clock.ms(), "launches": dict(kernels.launch_counts),
+           "exchanges": _exchanges(mesh.traffic),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del placed
+    rec["plain_checks"] = [
+        _mc_plain_check(kind, calls[kind].call,
+                        f"multichip {label} rank {mesh.rank}")
+        for kind in check]
+    return out, rec
+
+
+#: the rank of each multichip step whose kernels are held against their
+#: plain twins on the exact arguments they got (one rank a step: the
+#: twins are slow), and which kernels: a top, an interior and a bottom
+#: band, a combine sub-band, the second frame shard
+MC_CHECKS = {"K2 snap": (0, ("K2",)), "K2 rotated": (2, ("K2",)),
+             "unfused": (1, ("K3",)), "lean": (3, ("K1", "K2"))}
+
+
+def _multichip_rank(device, work: dict) -> dict:
+    """The multichip phase's steps on one rank: K2 row-sharded on a 1x4
+    mesh (snap, rotated), then the unfused and the lean pipelines on a
+    2x2 mesh.  Stacks come back from rank 0 only."""
+    from astrophotography_tpu_torch.models.pipeline import lean_kernel_kwargs
+    from astrophotography_tpu_torch.parallel.fused import sharded_warp_combine
+    from astrophotography_tpu_torch.parallel.mesh import (
+        frame_space_mesh, gather_rows, local_frames, replicate,
+        shard_spatial)
+    from astrophotography_tpu_torch.parallel.sharded import (
+        sharded_calibrate_register_stack,
+        sharded_calibrate_register_stack_lean)
+
+    row = frame_space_mesh(1, MC_WORLD, device=device)
+    sq = frame_space_mesh(2, MC_WORLD // 2, device=device)
+    first = row.rank == 0
+
+    def step(mesh, place, run, key):
+        rank, kinds = MC_CHECKS[key]
+        return _mc_step(mesh, place, run, key,
+                        kinds if mesh.rank == rank else ())
+
+    res = {}
+    for label in ("snap", "rotated"):
+        w = work[label]
+        kw = lean_kernel_kwargs(w["cfg"], SIZE, SIZE)
+
+        def place(w=w):
+            return (shard_spatial(row, w["frames"]),
+                    replicate(row, w["mats"]),
+                    shard_spatial(row, w["masters"]),
+                    replicate(row, w["er"]))
+
+        def run(fr, mats, masters, er, kw=kw):
+            out = sharded_warp_combine(fr, mats, row, masters=masters,
+                                       exp_ratios=er, halo=HALO, **kw)
+            return gather_rows(row, out)
+
+        key = f"K2 {label}"
+        stack, rec = step(row, place, run, key)
+        res[key] = {"rank": rec, "stack": stack.cpu() if first else None}
+        del stack
+
+    unf = work["unfused"]
+
+    def place_masters(mesh, w):
+        return tuple(replicate(mesh, w[k]) for k in ("bias", "dark", "flat",
+                                                     "er"))
+
+    def run_unfused(fr, bias, dark, flat, er):
+        out, diag = sharded_calibrate_register_stack(
+            fr, sq, bias=bias, dark=dark, flat=flat, exp_ratios=er,
+            config=unfused_config())
+        return gather_rows(sq, out), diag
+
+    (stack, diag), rec = step(
+        sq, lambda: (local_frames(sq, unf["frames"]),
+                     *place_masters(sq, unf)), run_unfused, "unfused")
+    res["unfused"] = {"rank": rec, "stack": stack.cpu() if first else None,
+                      "n_inliers": diag["n_inliers"].cpu(),
+                      "matrices": diag["matrices"].cpu()}
+    del stack, diag
+
+    snap = work["snap"]
+
+    def run_lean(fr, bias, dark, flat, er):
+        out, diag = sharded_calibrate_register_stack_lean(
+            fr, sq, bias=bias, dark=dark, flat=flat, exp_ratios=er,
+            config=snap["cfg"])
+        return gather_rows(sq, out), diag
+
+    (stack, diag), rec = step(
+        sq, lambda: (local_frames(sq, snap["frames"]),
+                     *place_masters(sq, snap)), run_lean, "lean")
+    mats = _solved_matrices(diag)
+    res["lean"] = {"rank": rec, "stack": stack.cpu() if first else None,
+                   "n_inliers": diag["n_inliers"].cpu(),
+                   "matrices": mats.cpu(), "halo": diag["halo"]}
+    return res
+
+
+def _mc_record(label, mesh_shape, ranks, key, checks, card) -> dict:
+    res = {"phase": f"multichip {label}", "world": MC_WORLD,
+           "mesh": mesh_shape, "transport": MC_TRANSPORT,
+           "ranks": [r[key]["rank"] for r in ranks], **checks, "card": card}
+    _print(res)
+    return res
+
+
+def _rank_launches(label, ranks, key, required) -> dict:
+    """Every rank's launches of the step checked against ``required``;
+    returns each kernel's launches, one count a rank."""
+    out = {}
+    for r in ranks:
+        launches = r[key]["rank"]["launches"]
+        _check_launches(f"multichip {label} rank {r[key]['rank']['rank']}",
+                        launches, required)
+        for name, count in launches.items():
+            out.setdefault(name, []).append(count)
+    return out
+
+
+def _plain_errors(ranks, key) -> dict:
+    """The step's kernel-vs-twin checks (one rank made them): the
+    largest error of each kernel."""
+    errs = {}
+    for r in ranks:
+        for chk in r[key]["rank"]["plain_checks"]:
+            errs[chk["kernel"]] = max(errs.get(chk["kernel"], 0.0),
+                                      chk["max_abs_err"])
+    _require(set(errs) == set(MC_CHECKS[key][1]),
+             f"multichip {key}: kernel checks {sorted(errs)}")
+    return errs
+
+
+def _same_on_every_rank(label, ranks, key, field) -> torch.Tensor:
+    first = ranks[0][key][field]
+    for r in ranks[1:]:
+        _require(torch.equal(r[key][field], first),
+                 f"multichip {label}: {field} differ between ranks")
+    return first
+
+
+def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
+    """The multi-device layer on the card: 4 ranks spawned on the one card
+    (``parallel.launch.spawn``, gloo: NCCL refuses two ranks on one GPU,
+    so the exchanged rows go through pinned host buffers), each given
+    only its blocks of the shared-memory inputs:
+
+    * K2 row-sharded (``sharded_warp_combine``, 1x4 mesh, halo 64, one
+      1024-row band a rank) on both lean workloads with the matrices the
+      lean path solved: equal to ``banded_warp_combine`` (4 bands, halo
+      64) bit for bit, and the clip-tie rule against the whole frame;
+    * the unfused pipeline (``sharded_calibrate_register_stack``, 2x2)
+      on the first 24 snap frames with ``unfused_config()`` (K3): the
+      one-process run's inliers and matrices exactly, its stack with the
+      same 4 sub-bands bit for bit, the tie rule against its 2 bands;
+    * the lean pipeline (``sharded_calibrate_register_stack_lean``, 2x2,
+      K1 on each frame shard, K2 over 'space') on the snap workload: the
+      lean path's inliers and matrices exactly, the tie rule against its
+      stack, and the band loop (2 bands, the ranks' halo) bit for bit;
+    * ``graft_entry.dryrun_multichip(4, size=512)`` on the card.
+
+    In each step one rank (``MC_CHECKS``) holds its kernels against their
+    plain twins on the exact arguments they got there (K1 by its rule,
+    K2 and K3 bit for bit).  Prints one line per step: each rank's upload
+    and wall s, kernel ms (CUDA events), launches, exchange bytes and ms
+    with the host staging apart, peak memory, the twin checks.  Ranks
+    that share one card take turns on it: the times measure the
+    exchanges' cost, not scaling."""
+    import dataclasses
+
+    from astrophotography_tpu_torch.graft_entry import dryrun_multichip
+    from astrophotography_tpu_torch.models import calibrate_register_stack
+    from astrophotography_tpu_torch.models.pipeline import lean_kernel_kwargs
+    from astrophotography_tpu_torch.ops.warp_combine import warp_combine
+    from astrophotography_tpu_torch.parallel import banded_warp_combine
+    from astrophotography_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    n_u = UNFUSED_FRAMES
+    cfg_u = unfused_config()
+    work, refs = {}, {}
+    for w in (snap, rot):
+        label = w["label"]
+        mats = _solved_matrices(w["diag"])
+        kw = lean_kernel_kwargs(w["cfg"], SIZE, SIZE)
+        fr, masters, er, m = (t.to(dev) for t in (w["frames"], w["masters"],
+                                                  w["er"], mats))
+        refs[label] = {
+            "banded": banded_warp_combine(fr, m, N_BANDS, masters=masters,
+                                          exp_ratios=er, halo=HALO,
+                                          **kw).cpu(),
+            "whole": warp_combine(fr, m, masters=masters, exp_ratios=er,
+                                  **kw).cpu()}
+        work[label] = {"frames": w["frames"], "mats": mats.cpu(),
+                       "masters": w["masters"], "er": w["er"],
+                       "cfg": w["cfg"], **{k: torch.from_numpy(w[k])
+                                           for k in ("bias", "dark", "flat")}}
+        if label == "snap":
+            kw_u = dict(bias=w["bias"], dark=w["dark"], flat=w["flat"],
+                        exp_ratios=er[:n_u])
+            for nb in (cfg_u.n_bands, 2 * cfg_u.n_bands):
+                out, diag = calibrate_register_stack(
+                    fr[:n_u], config=dataclasses.replace(cfg_u, n_bands=nb),
+                    **kw_u)
+                refs[f"unfused {nb} bands"] = {
+                    "stack": out.cpu(), "n_inliers": diag["n_inliers"].cpu(),
+                    "matrices": diag["matrices"].cpu()}
+                del out, diag
+        del fr, masters, er, m
+        torch.cuda.empty_cache()
+    work["unfused"] = {"frames": snap["frames"][:n_u],
+                       **{k: work["snap"][k] for k in ("bias", "dark", "flat")},
+                       "er": snap["er"][:n_u]}
+    torch.cuda.synchronize()
+    refs_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    ranks = spawn(_multichip_rank, MC_WORLD, device=dev,
+                  transport=MC_TRANSPORT, args=(work,))
+    spawn_s = time.perf_counter() - t0
+    launches, plain = {}, {}
+
+    def add(key, required):
+        launches[key] = _rank_launches(key, ranks, key, required)
+        for kind, err in _plain_errors(ranks, key).items():
+            plain[kind] = max(plain.get(kind, 0.0), err)
+
+    steps = {}
+    for label in ("snap", "rotated"):
+        key = f"K2 {label}"
+        add(key, {"warp_combine": 1})
+        got = ranks[0][key]["stack"]
+        ref = refs[label]
+        err = float((got - ref["banded"]).abs().max())
+        _require(err == 0.0 and torch.equal(got == 0, ref["banded"] == 0),
+                 f"multichip {key}: differs from the band loop by {err}")
+        steps[key] = _mc_record(
+            key, {"frame": 1, "space": MC_WORLD}, ranks, key,
+            {"shape": list(got.shape), "halo": HALO,
+             "vs_banded_max_abs_err": err,
+             "vs_whole_frame": _tie_rule(f"multichip {key}", got,
+                                         ref["whole"])}, card)
+
+    key = "unfused"
+    add(key, {"clip_combine": cfg_u.n_bands})
+    n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
+    mats = _same_on_every_rank(key, ranks, key, "matrices")
+    one = refs[f"unfused {cfg_u.n_bands} bands"]
+    same = refs[f"unfused {2 * cfg_u.n_bands} bands"]
+    _require(torch.equal(n_in, one["n_inliers"]),
+             f"multichip unfused: inliers {n_in.tolist()} against "
+             f"{one['n_inliers'].tolist()}")
+    _require(torch.equal(mats, one["matrices"]),
+             "multichip unfused: matrices differ from the one-process run's")
+    got = ranks[0][key]["stack"]
+    err = float((got - same["stack"]).abs().max())
+    _require(err == 0.0 and torch.equal(got == 0, same["stack"] == 0),
+             f"multichip unfused: differs from the one-process run with the "
+             f"same {2 * cfg_u.n_bands} bands by {err}")
+    steps[key] = _mc_record(
+        key, {"frame": 2, "space": MC_WORLD // 2}, ranks, key,
+        {"shape": [n_u, SIZE, SIZE], "n_bands": cfg_u.n_bands,
+         "min_inliers": int(n_in.min()),
+         "vs_one_process_same_bands_max_abs_err": err,
+         "vs_one_process": _tie_rule("multichip unfused", got, one["stack"])},
+        card)
+
+    key = "lean"
+    add(key, {"detect_tiles": 1, "warp_combine": 1})
+    n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
+    mats = _same_on_every_rank(key, ranks, key, "matrices")
+    halos = {r[key]["halo"] for r in ranks}
+    _require(len(halos) == 1, f"multichip lean: halos {halos} differ")
+    (halo,) = halos
+    _require(torch.equal(n_in, snap["diag"]["n_inliers"]),
+             "multichip lean: inliers differ from the lean path's")
+    _require(torch.equal(mats, _solved_matrices(snap["diag"])),
+             "multichip lean: matrices differ from the lean path's")
+    got = ranks[0][key]["stack"]
+    fr, masters, er = (t.to(dev) for t in (snap["frames"], snap["masters"],
+                                           snap["er"]))
+    banded = banded_warp_combine(
+        fr, mats.to(dev), MC_WORLD // 2, masters=masters, exp_ratios=er,
+        halo=halo, **lean_kernel_kwargs(snap["cfg"], SIZE, SIZE)).cpu()
+    del fr, masters, er
+    torch.cuda.empty_cache()
+    err = float((got - banded).abs().max())
+    _require(err == 0.0 and torch.equal(got == 0, banded == 0),
+             f"multichip lean: differs from the band loop by {err}")
+    steps[key] = _mc_record(
+        key, {"frame": 2, "space": MC_WORLD // 2}, ranks, key,
+        {"shape": [N_FRAMES, SIZE, SIZE], "min_inliers": int(n_in.min()),
+         "halo": halo, "vs_banded_max_abs_err": err,
+         "vs_lean_path": _tie_rule("multichip lean", got, snap["stacked"])},
+        card)
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MC_WORLD, size=512, device=dev)
+    dry_s = time.perf_counter() - t0
+    _require(all(r["launches"]["warp_combine"] == 2 for r in dry),
+             "multichip dry run: K2 not launched twice on every rank")
+    launches["dry run"] = {name: [r["launches"][name] for r in dry]
+                           for name in dry[0]["launches"]}
+    res = {"phase": "multichip", "world": MC_WORLD,
+           "transport": MC_TRANSPORT, "launches": launches,
+           "plain_max_abs_err": plain, "references_s": refs_s,
+           "spawn_s": spawn_s, "dryrun_s": dry_s,
+           "wall_s": time.perf_counter() - t_phase, "card": card}
+    _print(res)
+    return res
 
 
 #: the measurement phase's frame: a 4008 x 2672 sensor, stars of
@@ -1878,10 +2400,7 @@ def check_warp_exact(frames, mats, label, card, reps=3, **kw) -> dict:
     k = wc.warp_combine(frames, mats, **kw)
     torch.cuda.synchronize()
     p, plain_ms = _timed(lambda: wc.warp_combine_plain(frames, mats, **kw))
-    _require(bool(torch.equal(k == 0, p == 0)),
-             f"{label}: K2 zero coverage differs")
-    err = float((k - p).abs().max())
-    _require(err == 0.0, f"{label}: K2 differs from its twin by {err}")
+    err = _k2_exact(k, p, label)
     covered = float((k != 0).float().mean())
     plan = wc.plan_warp_combine(frames.shape, mats, **kw)
     padded = [plan.n_ti * plan.th, plan.n_tj * plan.tw]
@@ -2148,20 +2667,29 @@ def run_reduce(card: str, dev) -> dict:
     return {"main": res, **checks}
 
 
-def _kernel_entry(name, replaces, by_path, check) -> dict:
-    """One kernel's entry of the ``kernels`` line: launches on each path
-    that runs it (``launches`` is the last one's, each counted from 0 in
-    that path's own run), error and times of its check at the main
+def _kernel_entry(name, replaces, main, by_path, check) -> dict:
+    """One kernel's entry of the ``kernels`` line: ``launches`` is the
+    count on its main path (``main``, a key of ``by_path``), each path's
+    own counted from 0 in that path's run (the multichip phase's per
+    step, one count a rank); error and times of its check at the main
     path's shape, the bound from that check's inputs.  No single PyTorch
     call computes any of the three kernels' functions, so ``library_ms``
     is null."""
     return {"name": name, "route": "cuda",
             "source": f"astrophotography_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": list(by_path.values())[-1],
+            "replaces": replaces, "launches": by_path[main],
             "launches_by_path": by_path,
             "max_abs_err": check["max_abs_err"], "ms": check["ms"],
             "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
             "bound_by": check["bound_by"], "library_ms": None}
+
+
+def _mc_launches(multichip: dict, name: str) -> dict:
+    """A kernel's launches in the multichip steps that ran it, one count
+    a rank."""
+    return {step: counts[name]
+            for step, counts in multichip["launches"].items()
+            if any(counts.get(name, [0]))}
 
 
 def _unfused_split(fr, kw, cfg) -> dict:
@@ -2492,13 +3020,16 @@ def main(argv=None) -> int:
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "card": card})
 
-    snap = rot = unfused = {}
-    if phases & {"k1", "k2", "lean", "bands"}:
+    snap = rot = unfused = multichip = {}
+    if phases & {"k1", "k2", "lean", "bands", "multichip"}:
         snap = run_main_path(False, card, dev, phases)
-    if phases & {"k2", "lean", "bands"}:
+    if phases & {"k2", "lean", "bands", "multichip"}:
         rot = run_main_path(True, card, dev, phases)
     if phases & {"k3", "unfused"}:
         unfused = run_unfused_path(card, dev, phases)
+    if "multichip" in phases:
+        multichip = run_multichip(card, dev, snap.pop("multichip"),
+                                  rot.pop("multichip"))
     if "small" in phases:
         run_lean_chunked(card, dev)
         run_small_matrix(card, dev)
@@ -2517,36 +3048,51 @@ def main(argv=None) -> int:
     if args.only is None:
         launches = snap["main"]["launches"]
         red = reduce["main"]
+        mc_err = multichip["plain_max_abs_err"]
+        k1 = dict(snap["detect_tiles"],
+                  max_abs_err=max(snap["detect_tiles"]["max_abs_err"],
+                                  mc_err["K1"]))
         k2 = dict(snap["warp_combine"],
                   max_abs_err=max(snap["warp_combine"]["max_abs_err"],
                                   rot["warp_combine"]["max_abs_err"],
                                   reduce["K2 V"]["max_abs_err"],
-                                  reduce["K2 R"]["max_abs_err"]))
+                                  reduce["K2 R"]["max_abs_err"],
+                                  mc_err["K2"]))
         k3 = dict(unfused["clip_combine"],
                   max_abs_err=max(unfused["clip_combine"]["max_abs_err"],
-                                  reduce["K3 V"]["max_abs_err"]))
+                                  reduce["K3 V"]["max_abs_err"],
+                                  mc_err["K3"]))
         _print({"kernels": [
             _kernel_entry("detect_tiles",
                           "astrophotography_tpu/ops/pallas_detect.py:405",
-                          {"lean": launches["detect_tiles"]},
-                          snap["detect_tiles"]),
+                          "lean",
+                          {"lean": launches["detect_tiles"],
+                           "multichip": _mc_launches(multichip,
+                                                     "detect_tiles")},
+                          k1),
             _kernel_entry("warp_combine",
                           "astrophotography_tpu/ops/pallas_warp_combine.py:658",
+                          "lean",
                           {"lean": launches["warp_combine"],
                            "bands": snap["bands"]["launches"]["warp_combine"],
                            "ap_stack fused": red["ap_stack"]["fused"]
                            ["launches"]["warp_combine"],
                            "reduce": red["ap_reduce"]["launches"]
-                           ["warp_combine"]},
+                           ["warp_combine"],
+                           "multichip": _mc_launches(multichip,
+                                                     "warp_combine")},
                           k2),
             _kernel_entry("clip_combine",
                           "astrophotography_tpu/ops/pallas_combine.py:102",
+                          "unfused",
                           {"unfused": unfused["main"]["launches"]["clip_combine"],
                            "unfused with badpix_mask":
                                unfused["main"]["with_badpix_mask"]["launches"]
                                ["clip_combine"],
                            "ap_stack pallas": red["ap_stack"]["pallas"]
-                           ["launches"]["clip_combine"]},
+                           ["launches"]["clip_combine"],
+                           "multichip": _mc_launches(multichip,
+                                                     "clip_combine")},
                           k3),
         ]})
     print(card, flush=True)

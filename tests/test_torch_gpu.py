@@ -342,6 +342,87 @@ def test_banded_warp_combine_matches_whole_frame(cuda, rotate, taps):
     assert float((err > 0.5 + 1e-4 * whole[both].abs()).float().mean()) < 1e-4
 
 
+def _ranks_on_cards(transport: str, world: int) -> None:
+    """Skip an NCCL case where the ranks cannot each have a card (NCCL
+    refuses two ranks on one GPU)."""
+    if transport == "nccl" and torch.cuda.device_count() < world:
+        pytest.skip(f"NCCL needs {world} cards, one a rank; "
+                    f"{torch.cuda.device_count()} found")
+
+
+@pytest.mark.parametrize("transport", ["gloo", "nccl"])
+@pytest.mark.parametrize("rotate,taps", [(False, "exact"), (True, "lowrank")])
+def test_sharded_warp_combine_on_the_card_is_the_band_loop(cuda, rotate,
+                                                           taps, transport):
+    """2 ranks at 16x1024^2 (gloo: both on the first card, the halo
+    staged through pinned host buffers; NCCL: a card each): each
+    launches K2 once, and the gathered stack equals the 2-band loop with
+    the same halo bit for bit."""
+    from astrophotography_tpu_torch.parallel import banded_warp_combine
+    from astrophotography_tpu_torch.parallel.launch import spawn
+    # as a top-level module (pytest puts tests/ on the path): where a
+    # package named 'tests' is installed, 'tests.' resolves there
+    from torch_parallel_ranks import card_k2_rank
+
+    _ranks_on_cards(transport, 2)
+    n, h, w = 16, 1024, 1024
+    rng = np.random.default_rng(7)
+    field = _starfield(1, h, w, 7)[0].astype(np.float32)
+    raw = np.clip(np.stack([np.roll(field, (f % 5, -(f % 3)), (0, 1))
+                            + rng.normal(0, 3, (h, w)) for f in range(n)]),
+                  0, 65535).astype(np.uint16)
+    case = {"frames": torch.from_numpy(raw),
+            "matrices": torch.from_numpy(_warp_mats(n, 4, rotate=rotate)),
+            "masters": _warp_masters(h, w, "cpu"),
+            "exp_ratios": torch.linspace(0.5, 1.5, n), "halo": 64,
+            "kw": dict(tile=(64, 256), general_taps=taps)}
+    ranks = spawn(card_k2_rank, 2, device="cuda", transport=transport,
+                  args=(case,))
+    want = banded_warp_combine(
+        case["frames"].to(cuda), case["matrices"].to(cuda), 2,
+        masters=case["masters"].to(cuda),
+        exp_ratios=case["exp_ratios"].to(cuda), halo=64, **case["kw"]).cpu()
+    assert (want != 0).float().mean() > 0.9
+    for res in ranks:
+        assert res["transport"] == transport
+        assert res["launches"]["warp_combine"] == 1
+        assert torch.equal(res["stack"], want)
+
+
+def test_noise_stats_do_not_depend_on_the_batch(cuda):
+    """The noise statistics of 24 frames of 4096 columns on the card, at
+    once and as 12 + 12 (a frame shard's): bit for bit, so every frame
+    shard of a mesh gets the one-device thresholds.  A reduction call
+    over the rows would not give that: its block shape follows the
+    number of rows."""
+    from astrophotography_tpu_torch.models.pipeline import frame_noise_stats
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    frames = 800.0 + 8.0 * torch.randn((24, 1024, 4096), generator=g,
+                                       device=cuda)
+    frames[:, ::97, ::89] += 30000.0
+    whole = frame_noise_stats(frames)
+    halves = [frame_noise_stats(h) for h in (frames[:12], frames[12:])]
+    for k in range(2):
+        assert torch.equal(whole[k], torch.cat([h[k] for h in halves]))
+
+
+def test_dryrun_multichip_over_nccl(cuda, capsys):
+    """The dry run's twin on 4 ranks with a card each takes NCCL, prints
+    its OK line and launches K2 twice on every rank (sharded fused, lean
+    sharded)."""
+    from astrophotography_tpu_torch.graft_entry import dryrun_multichip
+
+    _ranks_on_cards("nccl", 4)
+    ranks = dryrun_multichip(4, size=512)
+    out = capsys.readouterr().out
+    assert "dryrun_multichip: 4 ranks on cuda, transport nccl" in out
+    assert "dryrun_multichip OK: mesh {'frame': 2, 'space': 2}" in out
+    for res in ranks:
+        assert res["transport"] == "nccl" and res["finite"]
+        assert res["launches"]["warp_combine"] == 2
+
+
 @pytest.mark.parametrize("rotate", [False, True])
 def test_kernels_on_calibrated_padded_stack(cuda, rotate):
     """The file-to-file path's inputs at a shape no tile divides (8 x 168

@@ -266,6 +266,13 @@ def test_port_never_imports_jax():
                      "imarith", "photometry", "psf"):
             assert hasattr(ops, name), name
         assert callable(parallel.banded_warp_combine)
+        # the multi-device layer: ranks spawned from here import no JAX
+        from astrophotography_tpu_torch.parallel import launch
+        from tests.torch_parallel_ranks import no_jax_rank
+        fr = torch.from_numpy(frames[:2, :64, :64].astype(np.float32))
+        ranks = launch.spawn(no_jax_rank, 2, device="cpu", transport="gloo",
+                             args=(fr, torch.eye(2, 3).repeat(2, 1, 1)))
+        assert ranks == [[], []], ranks
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

@@ -114,6 +114,22 @@ def test_sigma_clipped_stats_matches_jax(axis, stdfunc, masked):
         _close(g, w)
 
 
+@pytest.mark.parametrize("m", [1, 5, 64, 1000, 4096])
+def test_row_sums_fold_each_row_alone(m):
+    """``_row_sums`` (the noise statistics' sums) is each row's sum to
+    float32 rounding, and a row's sum is the same bit for bit whether it
+    is summed alone or in a batch."""
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.normal(800.0, 8.0, (7, m)).astype(np.float32))
+    got = tpipe._row_sums(x)
+    np.testing.assert_allclose(got.numpy(), x.double().sum(dim=1).numpy(),
+                               rtol=1e-6)
+    alone = torch.cat([tpipe._row_sums(x[i:i + 1]) for i in range(7)])
+    assert torch.equal(got, alone)
+    assert torch.equal(torch.cat([tpipe._row_sums(x[:3]),
+                                  tpipe._row_sums(x[3:])]), got)
+
+
 @pytest.mark.parametrize("center", ["mean", "median"])
 def test_frame_noise_stats_matches_jax(center):
     rng = np.random.default_rng(5)
