@@ -35,7 +35,7 @@
 // multiset does not depend on how it was ordered, so the bits are the
 // twin's.  The clip and the frame-order sum then read the first copy.
 //
-// Two routes, chosen by N in clip_combine_launch (kernels._clip_route
+// Three routes, chosen by N in clip_combine_launch (kernels._clip_route
 // mirrors the choice):
 //  * N <= 8, 16, 24 (the unfused path's N) and 32: the copy to sort lives
 //    in M = 8, 16, 24 or 32 registers, N padded to M with +inf; the
@@ -51,12 +51,21 @@
 //    (log2 P stages, 52 comparators at M = 24) sorts; the ranks are
 //    picked with a select tree, so no register array is indexed at run
 //    time.
-//  * N > 32: both copies are columns of shared memory (2 x N x 4 B per
-//    thread); the sort is sort_column of sort_network.cuh, as in K2, and
-//    the two runs are merged by walking two indices from the median
+//  * 32 < N <= 908: both copies are columns of shared memory (2 x N x 4 B
+//    per thread); the sort is sort_column of sort_network.cuh, as in K2,
+//    and the two runs are merged by walking two indices from the median
 //    outwards, at most c/2 + 1 steps.  The block has 128 threads up to
 //    N = 227, 64 up to 454 and 32 up to 908 (kernels._clip_block_threads),
 //    so that the two columns fit the 227 KB a block may use.
+//  * N > 908 ('global'): the same code with both columns in a scratch of
+//    device memory that the wrapper allocates, one slot of 2 x N x 128
+//    floats per block of 128 threads.  The grid holds only as many
+//    blocks as the card keeps resident (clip_combine_global_blocks), and
+//    they walk the rows, so the scratch does not grow with the image
+//    (2 x N x 4 B x 128 threads x the resident blocks).  The same sort and
+//    merge, so the
+//    route is bit-identical to the twin too; its column traffic goes to
+//    device memory, so it is slower per sample than the shared route.
 // What is left over the bound at N = 24 is the load phase of a
 // thread-per-pixel layout (tools/k1_variants.py: without either network
 // the kernel is only a fifth faster); at N = 100 it is the shared-memory
@@ -154,8 +163,8 @@ struct Clip {
     hi = add(med, mul(sigma_hi, sdev));
   }
   // one sample in frame order; NaN (an invalid sample) is never kept.
-  // The count is an integer: the twin's float count of at most 908 ones
-  // is exact, so the quotient is the same.
+  // The count is an integer: the twin's float count of ones is exact up
+  // to 2^24 frames, so the quotient is the same.
   __device__ __forceinline__ void take(float s, float& acc, int& cnt) const {
     const bool keep = s >= lo && s <= hi;
     acc = add(acc, keep ? s : 0.0f);
@@ -216,16 +225,23 @@ clip_regs_kernel(const float* __restrict__ stack,
   }
 }
 
-// any N: both copies in shared memory, [n][nt] each, nt = blockDim.x
+// any N: both copies [n][nt] each, nt = blockDim.x, in shared memory or
+// (GLOBAL) in this block's slot of the scratch
+template <bool GLOBAL>
 __global__ void __launch_bounds__(NT)
-clip_smem_kernel(const float* __restrict__ stack,
+clip_cols_kernel(const float* __restrict__ stack,
                  const uint8_t* __restrict__ mask, float* __restrict__ out,
-                 int n, int h, int w, float sigma_lo, float sigma_hi) {
-  extern __shared__ float cols[];
+                 int n, int h, int w, float sigma_lo, float sigma_hi,
+                 float* __restrict__ scratch) {
+  extern __shared__ float smem_cols[];
   const float QNAN = __int_as_float(0x7fc00000);
   const int nt = blockDim.x;
   const int x = blockIdx.x * nt + threadIdx.x;
   if (x >= w) return;  // no block-wide sync below
+  float* cols = smem_cols;
+  if (GLOBAL)
+    cols = scratch +
+           (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * 2 * (size_t)n * nt;
   float* ord = cols + threadIdx.x;
   float* srt = cols + (size_t)n * nt + threadIdx.x;
   const size_t plane = (size_t)h * w;
@@ -271,14 +287,32 @@ clip_smem_kernel(const float* __restrict__ stack,
   }
 }
 
+constexpr int SMEM_FRAMES = 908;  // the shared route's limit (32 threads)
+
 }  // namespace
+
+// Blocks of the 'global' route the card keeps resident at once: the grid
+// and the scratch slots of that route (kernels.clip_combine_cuda).
+extern "C" int clip_combine_global_blocks(void) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, clip_cols_kernel<true>, NT, 0) != cudaSuccess)
+    return -1;
+  return sms * per_sm;
+}
 
 // nt: threads per block of the shared-memory route (a multiple of 32, at
 // most 128, with 2 * n * nt * 4 bytes within the block's limit); the
-// register routes (n <= 32) always run 128
+// register routes (n <= 32) and the global one (n > 908) always run 128.
+// scratch: 2 * n * 128 floats for each of the global route's blocks,
+// which are (w + 127) / 128 by grid_rows; null on the other routes.
 extern "C" int clip_combine_launch(const float* stack, const uint8_t* mask,
                                    float* out, int n, int h, int w,
                                    float sigma_lo, float sigma_hi, int nt,
+                                   float* scratch, int grid_rows,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = h < 65535 ? h : 65535;
@@ -298,14 +332,22 @@ extern "C" int clip_combine_launch(const float* stack, const uint8_t* mask,
                                                sigma_lo, sigma_hi);
     return static_cast<int>(cudaGetLastError());
   }
+  if (n > SMEM_FRAMES) {
+    if (scratch == nullptr || grid_rows < 1 || grid_rows > rows)
+      return static_cast<int>(cudaErrorInvalidValue);
+    dim3 grid((w + NT - 1) / NT, grid_rows);
+    clip_cols_kernel<true><<<grid, NT, 0, s>>>(stack, mask, out, n, h, w,
+                                               sigma_lo, sigma_hi, scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (nt < 32 || nt > NT || nt % 32) return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = sizeof(float) * 2 * (size_t)n * nt;
   cudaError_t err = cudaFuncSetAttribute(
-      clip_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      clip_cols_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((w + nt - 1) / nt, rows);
-  clip_smem_kernel<<<grid, nt, smem, s>>>(stack, mask, out, n, h, w, sigma_lo,
-                                          sigma_hi);
+  clip_cols_kernel<false><<<grid, nt, smem, s>>>(stack, mask, out, n, h, w,
+                                                 sigma_lo, sigma_hi, nullptr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,13 +62,25 @@
 // frame.  What sets the time now is the instruction count, ~280 per
 // thread and step.
 //
-// Which radius takes which route: the ring and the neighbour loads need r
-// at compile time, so the rolling kernel is instantiated for r = 2 and
-// r = 3 (fwhm below 4.67, the default 3.0 included; the halo of r + 1
-// columns must fit one thread's 4).  Any larger radius takes the generic
-// route, the first design's staged tile, kept below with r a run-time
-// argument.  Both keep the tap order k = 0 .. 2r and the expression
-// forms, so their sums round alike.
+// Which radius takes which route (kernels._detect_route mirrors it): the
+// ring and the neighbour loads need r at compile time, so the rolling
+// kernel is instantiated for r = 2 and r = 3 (fwhm below 4.67, the
+// default 3.0 included; the halo of r + 1 columns must fit one thread's
+// 4).  Radii 1 and 4 to 16 take the generic route, the first design's
+// staged tile, kept below with r a run-time argument.  Radii 17 to 128
+// (fwhm up to ~171, the reach of the TPU kernel's 128-column lane filter
+// and its 128-row band) take the separable route: the staged tile with
+// its 2r halo no longer fits a block's shared memory past r = 36, so the
+// column pass goes through device memory.  A first kernel bins the raw
+// rows and runs the column pass of a strip of 64 binned rows x 128
+// columns (its binned rows staged in shared memory, one column a thread)
+// into G and Box planes; the staged kernel then reads the tile's G and
+// Box rows from those planes instead of computing them, and runs the row
+// pass and the peak test as before.  The planes take 8 B per binned pixel
+// of a chunk of frames that the wrapper sizes (about 1 GiB).  All routes
+// keep the tap order k = 0 .. 2r and the expression forms; the separable
+// route also rounds each product and sum on its own (mac<true>), as the
+// twin does, so its densities are the twin's bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,14 +95,29 @@ constexpr int MAX_TILE_COLS = 2;     // tile columns per block
 constexpr int MAX_THREADS = 160;     // 2 * 64 + 2 halo threads, in warps
 constexpr int PF = 2;                // steps a raw row is loaded ahead
 constexpr int RMAX = 16;             // largest radius of the generic route
+constexpr int RBIG = 128;            // largest radius of the separable route
 constexpr int NTHREADS = 256;        // block of the generic route
+constexpr int VSEG = 64;             // binned rows per separable column block
+constexpr int VCOLS = 128;           // columns (threads) per column block
 constexpr float NEG = -3.0e38f;
 
 // gr[2r+1], gc[2r+1], mean_w, inv_den, cy1, cy3, cy5, cx1, cx3, cx5; passed
 // by value, so the taps are operands from the constant bank
-struct Params {
-  float v[2 * (2 * RMAX + 1) + 8];
+template <int RM>
+struct ParamsT {
+  float v[2 * (2 * RM + 1) + 8];
 };
+typedef ParamsT<RMAX> Params;
+typedef ParamsT<RBIG> ParamsBig;  // 2,088 B: within the 4 KB of arguments
+
+// acc + x * w: one fused multiply-add on the rolling and staged routes;
+// rounded op by op on the separable route (RN), in the twin's tap order,
+// so its densities are the twin's bits: at large radii the density's
+// curvature is small, and the parabola offsets magnify any difference
+template <bool RN>
+__device__ __forceinline__ float mac(float acc, float x, float w) {
+  return RN ? __fadd_rn(acc, __fmul_rn(x, w)) : acc + x * w;
+}
 
 __device__ __forceinline__ float paroff(float a, float b, float c,
                                         float c1, float c3, float c5) {
@@ -443,17 +470,22 @@ cudaError_t launch_rolling(const void* frames, const float* a_plane,
 // stages its binned rows (tile + r + 2 halo rows, tile + r + 1 halo
 // columns each side) in shared memory; the column pass, the row pass and
 // the peak test then run out of shared memory, a barrier between them.
+// With GB (the separable route) the column pass's G and Box rows are read
+// from the planes `gbuf` / `bbuf` (zero outside the frame's columns; rows
+// outside the frame only feed densities the border excludes).
 
 template <typename T>
 __device__ __forceinline__ float to_f(T v) { return static_cast<float>(v); }
 
-template <typename T>
+template <typename T, typename PT, bool GB>
 __global__ void __launch_bounds__(NTHREADS)
 detect_staged_kernel(const T* __restrict__ frames,
                      const float* __restrict__ a_plane,
                      const float* __restrict__ mf,
                      const float* __restrict__ thresholds,
-                     const float* __restrict__ exp_ratios, const Params P,
+                     const float* __restrict__ exp_ratios, const PT P,
+                     const float* __restrict__ gbuf,
+                     const float* __restrict__ bbuf,
                      float* __restrict__ out_max, int* __restrict__ out_idx,
                      float* __restrict__ out_yoff, float* __restrict__ out_xoff,
                      int h, int w, int r) {
@@ -472,67 +504,85 @@ detect_staged_kernel(const T* __restrict__ frames,
   const int BC = DC + 2 * r;       // binned / column-pass columns
   float* s_par = smem;                       // 2 * ntap + 8
   float* s_bin = s_par + 2 * ntap + 8;       // BR x BC, later DR x DC density
-  float* s_g = s_bin + BR * BC;              // DR x BC
+  float* s_g = GB ? s_bin : s_bin + BR * BC; // DR x BC
   float* s_b = s_g + DR * BC;                // DR x BC
   const int tid = threadIdx.x;
 
   for (int i = tid; i < 2 * ntap + 8; i += NTHREADS) s_par[i] = P.v[i];
-
-  // 1. binned rows [y0 - 1 - r, y0 + TTY + 1 + r), columns
-  //    [x0 - 1 - r, x0 + TTX + 1 + r); outside the frame -> 0
-  const T* fr = frames + (size_t)f * h * w;
-  for (int i = tid; i < BR * BC; i += NTHREADS) {
-    int br = i / BC, bc = i - br * BC;
-    int gy = y0 - 1 - r + br, gx = x0 - 1 - r + bc;
-    float v = 0.0f;
-    if (gy >= 0 && gy < h2 && gx >= 0 && gx < w) {
-      size_t o0 = (size_t)(2 * gy) * w + gx;
-      float v0 = to_f(fr[o0]);
-      float v1 = to_f(fr[o0 + w]);
-      if (a_plane != nullptr) {
-        v0 = v0 * a_plane[o0];
-        v1 = v1 * a_plane[o0 + w];
-      }
-      v = 0.5f * (v0 + v1);
-    }
-    s_bin[i] = v;
-  }
-  __syncthreads();
   const float* gr = s_par;
   const float* gc = s_par + ntap;
+  if (GB) {
+    // 1-2. the column pass's rows [y0 - 1, y0 + TTY + 1), columns
+    //      [x0 - 1 - r, x0 + TTX + 1 + r), from the planes
+    const size_t plane = (size_t)f * h2 * w;
+    for (int i = tid; i < DR * BC; i += NTHREADS) {
+      int dr = i / BC, bc = i - dr * BC;
+      int gy = y0 - 1 + dr, gx = x0 - 1 - r + bc;
+      bool in = gy >= 0 && gy < h2 && gx >= 0 && gx < w;
+      size_t o = plane + (size_t)gy * w + gx;
+      s_g[i] = in ? gbuf[o] : 0.0f;
+      s_b[i] = in ? bbuf[o] : 0.0f;
+    }
+    __syncthreads();
+  } else {
+    // 1. binned rows [y0 - 1 - r, y0 + TTY + 1 + r), columns
+    //    [x0 - 1 - r, x0 + TTX + 1 + r); outside the frame -> 0
+    const T* fr = frames + (size_t)f * h * w;
+    for (int i = tid; i < BR * BC; i += NTHREADS) {
+      int br = i / BC, bc = i - br * BC;
+      int gy = y0 - 1 - r + br, gx = x0 - 1 - r + bc;
+      float v = 0.0f;
+      if (gy >= 0 && gy < h2 && gx >= 0 && gx < w) {
+        size_t o0 = (size_t)(2 * gy) * w + gx;
+        float v0 = to_f(fr[o0]);
+        float v1 = to_f(fr[o0 + w]);
+        if (a_plane != nullptr) {
+          v0 = v0 * a_plane[o0];
+          v1 = v1 * a_plane[o0 + w];
+        }
+        v = 0.5f * (v0 + v1);
+      }
+      s_bin[i] = v;
+    }
+    __syncthreads();
+
+    // 2. column (binned-row) pass: Gaussian and box sums over 2r+1 rows
+    for (int i = tid; i < DR * BC; i += NTHREADS) {
+      int dr = i / BC, bc = i - dr * BC;
+      float g = 0.0f, b = 0.0f;
+      for (int k = 0; k < ntap; ++k) {
+        float v = s_bin[(dr + k) * BC + bc];
+        g += v * gr[k];
+        b += v;
+      }
+      s_g[i] = g;
+      s_b[i] = b;
+    }
+    __syncthreads();
+  }
   const float mean_w = s_par[2 * ntap];
   const float inv_den = s_par[2 * ntap + 1];
 
-  // 2. column (binned-row) pass: Gaussian and box sums over 2r+1 rows
-  for (int i = tid; i < DR * BC; i += NTHREADS) {
-    int dr = i / BC, bc = i - dr * BC;
-    float g = 0.0f, b = 0.0f;
-    for (int k = 0; k < ntap; ++k) {
-      float v = s_bin[(dr + k) * BC + bc];
-      g += v * gr[k];
-      b += v;
-    }
-    s_g[i] = g;
-    s_b[i] = b;
-  }
-  __syncthreads();
-
   // 3. row (column) pass + master-density subtraction -> density,
-  //    stored over the binned rows (no longer needed)
-  float* s_d = s_bin;
+  //    stored over the binned rows (no longer needed), or after the G
+  //    and Box rows on the separable route
+  float* s_d = GB ? s_b + DR * BC : s_bin;
   const float er = exp_ratios[f];
   for (int i = tid; i < DR * DC; i += NTHREADS) {
     int dr = i / DC, dc = i - dr * DC;
     float g = 0.0f, b = 0.0f;
     for (int s = 0; s < ntap; ++s) {
-      g += s_g[dr * BC + dc + s] * gc[s];
+      g = mac<GB>(g, s_g[dr * BC + dc + s], gc[s]);
       b += s_b[dr * BC + dc + s];
     }
-    float d = (g - mean_w * b) * inv_den;
+    float d = GB ? __fmul_rn(__fsub_rn(g, __fmul_rn(mean_w, b)), inv_den)
+                 : (g - mean_w * b) * inv_den;
     int gy = y0 - 1 + dr, gx = x0 - 1 + dc;
     if (mf != nullptr && gy >= 0 && gy < h2 && gx >= 0 && gx < w) {
       size_t o = (size_t)gy * w + gx;
-      d = d - (mf[o] + er * mf[(size_t)h2 * w + o]);
+      const float m0 = mf[o], m1 = mf[(size_t)h2 * w + o];
+      d = GB ? __fsub_rn(d, __fadd_rn(m0, __fmul_rn(er, m1)))
+             : d - (m0 + er * m1);
     }
     s_d[i] = d;
   }
@@ -610,22 +660,131 @@ cudaError_t launch_staged(const void* frames, const float* a_plane,
   const int BR = DR + 2 * r, BC = DC + 2 * r;
   size_t smem = sizeof(float) * (size_t)(2 * ntap + 8 + BR * BC + 2 * DR * BC);
   cudaError_t err = cudaFuncSetAttribute(
-      detect_staged_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      detect_staged_kernel<T, Params, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(n, (h / 2 / TTY) * (w / TTX));
-  detect_staged_kernel<T><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(frames), a_plane, mf, thr, er, P, out_max, out_idx,
-      out_yoff, out_xoff, h, w, r);
+  detect_staged_kernel<T, Params, false><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(frames), a_plane, mf, thr, er, P, nullptr,
+      nullptr, out_max, out_idx, out_yoff, out_xoff, h, w, r);
   return cudaGetLastError();
+}
+
+// ---- the separable route (RMAX < r <= RBIG) -------------------------------
+//
+// The column pass of binned rows [64 by, 64 by + 64) and columns
+// [128 bx, 128 bx + 128) of frame z: each thread stages the binned rows
+// of its own column, with the r halo rows each side (zero outside the
+// frame), in shared memory ([rows][VCOLS], so no barrier beyond the
+// taps' and no bank conflict), then sums its G and Box in tap order.
+template <typename T>
+__global__ void __launch_bounds__(VCOLS)
+detect_vpass_kernel(const T* __restrict__ frames,
+                    const float* __restrict__ a_plane, const ParamsBig P,
+                    float* __restrict__ gbuf, float* __restrict__ bbuf,
+                    int h, int w, int r) {
+  extern __shared__ float smem[];
+  const int ntap = 2 * r + 1;
+  const int h2 = h / 2;
+  const int f = blockIdx.z, y0 = blockIdx.y * VSEG;
+  const int x = blockIdx.x * VCOLS + threadIdx.x;
+  const int rows = min(VSEG, h2 - y0);
+  float* gr = smem;                  // ntap column taps
+  float* col = smem + ntap + threadIdx.x;
+  for (int k = threadIdx.x; k < ntap; k += VCOLS) gr[k] = P.v[k];
+  const T* fr = frames + (size_t)f * h * w;
+  for (int k = 0; k < rows + 2 * r; ++k) {
+    const int gy = y0 - r + k;
+    float v = 0.0f;
+    if (gy >= 0 && gy < h2) {
+      const size_t o0 = (size_t)(2 * gy) * w + x;
+      float v0 = to_f(fr[o0]);
+      float v1 = to_f(fr[o0 + w]);
+      if (a_plane != nullptr) {  // no product folded into the add
+        v0 = __fmul_rn(v0, a_plane[o0]);
+        v1 = __fmul_rn(v1, a_plane[o0 + w]);
+      }
+      v = 0.5f * __fadd_rn(v0, v1);
+    }
+    col[k * VCOLS] = v;
+  }
+  __syncthreads();
+  const size_t plane = (size_t)f * h2 * w;
+  for (int y = 0; y < rows; ++y) {
+    float g = 0.0f, b = 0.0f;
+    for (int k = 0; k < ntap; ++k) {
+      const float v = col[(y + k) * VCOLS];
+      g = mac<true>(g, v, gr[k]);
+      b += v;
+    }
+    const size_t o = plane + (size_t)(y0 + y) * w + x;
+    gbuf[o] = g;
+    bbuf[o] = b;
+  }
+}
+
+// scratch: 2 * chunk * (h / 2) * w floats, the G then the Box planes of
+// `chunk` frames; the frames go through both kernels chunk by chunk
+template <typename T>
+cudaError_t launch_separable(const void* frames, const float* a_plane,
+                             const float* mf, const float* thr,
+                             const float* er, const ParamsBig& P,
+                             float* out_max, int* out_idx, float* out_yoff,
+                             float* out_xoff, int n, int h, int w, int r,
+                             float* scratch, int chunk, cudaStream_t stream) {
+  if (scratch == nullptr || chunk < 1 || w % VCOLS)
+    return cudaErrorInvalidValue;
+  const int ntap = 2 * r + 1, h2 = h / 2;
+  const int DR = TTY + 2, DC = TTX + 2, BC = DC + 2 * r;
+  const size_t vsmem = sizeof(float) * ((size_t)(VSEG + 2 * r) * VCOLS + ntap);
+  const size_t hsmem =
+      sizeof(float) * (size_t)(2 * ntap + 8 + 2 * DR * BC + DR * DC);
+  cudaError_t err = cudaFuncSetAttribute(
+      detect_vpass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)vsmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(detect_staged_kernel<T, ParamsBig, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)hsmem);
+  if (err != cudaSuccess) return err;
+  const size_t fplane = (size_t)h * w;
+  const int tiles = (h2 / TTY) * (w / TTX);
+  float* gbuf = scratch;
+  float* bbuf = scratch + (size_t)chunk * h2 * w;
+  for (int f0 = 0; f0 < n; f0 += chunk) {
+    const int c = min(chunk, n - f0);
+    const T* fr = static_cast<const T*>(frames) + (size_t)f0 * fplane;
+    detect_vpass_kernel<T>
+        <<<dim3(w / VCOLS, (h2 + VSEG - 1) / VSEG, c), VCOLS, vsmem, stream>>>(
+            fr, a_plane, P, gbuf, bbuf, h, w, r);
+    const size_t t0 = (size_t)f0 * tiles;
+    detect_staged_kernel<T, ParamsBig, true>
+        <<<dim3(c, tiles), NTHREADS, hsmem, stream>>>(
+            fr, a_plane, mf, thr + f0, er + f0, P, gbuf, bbuf, out_max + t0,
+            out_idx + t0, out_yoff + t0, out_xoff + t0, h, w, r);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch(const void* frames, const float* a_plane, const float* mf,
-                   const float* thr, const float* er, const Params& P,
+                   const float* thr, const float* er, const float* params,
                    float* out_max, int* out_idx, float* out_yoff,
                    float* out_xoff, int n, int h, int w, int r, int tile_cols,
-                   int strip_tiles, cudaStream_t stream) {
+                   int strip_tiles, float* scratch, int chunk,
+                   cudaStream_t stream) {
+  const int np = 2 * (2 * r + 1) + 8;
+  if (r > RMAX) {
+    ParamsBig P;
+    for (int i = 0; i < np; ++i) P.v[i] = params[i];
+    return launch_separable<T>(frames, a_plane, mf, thr, er, P, out_max,
+                               out_idx, out_yoff, out_xoff, n, h, w, r,
+                               scratch, chunk, stream);
+  }
+  Params P;
+  for (int i = 0; i < np; ++i) P.v[i] = params[i];
   if (r == 2)
     return launch_rolling<T, 2>(frames, a_plane, mf, thr, er, P, out_max,
                                 out_idx, out_yoff, out_xoff, n, h, w,
@@ -641,7 +800,9 @@ cudaError_t launch(const void* frames, const float* a_plane, const float* mf,
 }  // namespace
 
 // params: 2 * (2r + 1) + 8 floats in host memory (see Params); tile_cols
-// and strip_tiles: the rolling kernel's block, from kernels._detect_layout
+// and strip_tiles: the rolling kernel's block, from kernels._detect_layout;
+// scratch and chunk: the separable route's planes (kernels._detect_chunk),
+// null and 0 on the others
 extern "C" int detect_tiles_launch(const void* frames, int is_u16,
                                    const float* a_plane, const float* mf,
                                    const float* thresholds,
@@ -650,17 +811,17 @@ extern "C" int detect_tiles_launch(const void* frames, int is_u16,
                                    int* out_idx, float* out_yoff,
                                    float* out_xoff, int n, int h, int w,
                                    int r, int tile_cols, int strip_tiles,
-                                   void* stream) {
-  if (r < 1 || r > RMAX) return static_cast<int>(cudaErrorInvalidValue);
-  Params P;
-  for (int i = 0; i < 2 * (2 * r + 1) + 8; ++i) P.v[i] = params[i];
+                                   float* scratch, int chunk, void* stream) {
+  if (r < 1 || r > RBIG) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_u16 ? launch<uint16_t>(frames, a_plane, mf, thresholds, exp_ratios, P,
-                                out_max, out_idx, out_yoff, out_xoff, n, h, w,
-                                r, tile_cols, strip_tiles, s)
-             : launch<float>(frames, a_plane, mf, thresholds, exp_ratios, P,
-                             out_max, out_idx, out_yoff, out_xoff, n, h, w, r,
-                             tile_cols, strip_tiles, s);
+      is_u16 ? launch<uint16_t>(frames, a_plane, mf, thresholds, exp_ratios,
+                                params, out_max, out_idx, out_yoff, out_xoff,
+                                n, h, w, r, tile_cols, strip_tiles, scratch,
+                                chunk, s)
+             : launch<float>(frames, a_plane, mf, thresholds, exp_ratios,
+                             params, out_max, out_idx, out_yoff, out_xoff, n,
+                             h, w, r, tile_cols, strip_tiles, scratch, chunk,
+                             s);
   return static_cast<int>(err);
 }

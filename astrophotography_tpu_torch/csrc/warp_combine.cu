@@ -61,6 +61,13 @@
 // the MAD ranks by merging the two monotone runs of deviations around
 // the median.  No per-thread array is indexed at run time (no local
 // memory).
+//
+// Two routes (kernels._warp_route picks one): up to 908 frames
+// the columns are shared memory, as above (the block loses rows as N
+// grows); past 908, or where one row's columns and window outgrow shared
+// memory ('global'), they move to a scratch in device memory, one slot
+// per resident block, and the blocks walk the output blocks
+// (warp_combine_global_kernel).  Only the card's memory limits N there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -235,19 +242,21 @@ struct Rows {
   }
 };
 
+// One output block, (bid_x, bid_y) in the grid of the shared route.
+// The N-sample columns are in shared memory, or (GLOBAL) in `gvals`, the
+// block's slot of a scratch in device memory ([n][nt] floats).
 // combine: 0 average, 1 median, 2 sum, 3 mean
-template <typename T>
-__global__ void __launch_bounds__(BX * MAX_BY, 2)
-warp_combine_kernel(const T* __restrict__ frames,
-                    const float* __restrict__ masters,
-                    const float* __restrict__ ftab,
-                    const int* __restrict__ ttab, float* __restrict__ out,
-                    int n, int h0, int w0, int th, int tw, int n_tj,
-                    int n_tiles, int span, int lowrank, int combine,
-                    float sigma_lo, float sigma_hi, int by, int sbx, int sby) {
+template <typename T, bool GLOBAL>
+__device__ __forceinline__ void warp_block(
+    const T* __restrict__ frames, const float* __restrict__ masters,
+    const float* __restrict__ ftab, const int* __restrict__ ttab,
+    float* __restrict__ out, int n, int h0, int w0, int th, int tw, int n_tj,
+    int n_tiles, int span, int lowrank, int combine, float sigma_lo,
+    float sigma_hi, int by, int sbx, int sby, int bid_x, int bid_y,
+    float* __restrict__ gvals) {
   extern __shared__ float smem[];
-  const Layout L = layout(n, by, span);
-  float* vals = smem + L.vals;
+  const Layout L = layout(GLOBAL ? 0 : n, by, span);
+  float* vals = GLOBAL ? gvals : smem + L.vals;
   float* win = smem + L.win;
   float* midb = smem + L.mid;
   float* hw = smem + L.hw;
@@ -261,8 +270,8 @@ warp_combine_kernel(const T* __restrict__ frames,
   const int lane = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * BX + lane;
   // block -> (tile, sub-block): rows r0 + [0, by), columns c0 + [0, BX)
-  const int j = blockIdx.x / sbx, c0 = (blockIdx.x - j * sbx) * BX;
-  const int i = blockIdx.y / sby, r0 = (blockIdx.y - i * sby) * by;
+  const int j = bid_x / sbx, c0 = (bid_x - j * sbx) * BX;
+  const int i = bid_y / sby, r0 = (bid_y - i * sby) * by;
   const int tile = i * n_tj + j;
   const int c = c0 + lane, rr = r0 + ty;
   const int x = j * tw + c, y = i * th + rr;
@@ -543,7 +552,7 @@ warp_combine_kernel(const T* __restrict__ frames,
     kp = k;
   }
   if (kp == SNAP || kp == LOW) vertical(n - 1, kp);
-  if (!live) return;  // no block-wide sync below
+  if (!live) return;  // no block-wide sync below (in this block)
 
   float* o = out + (size_t)y * w0 + x;
   if (count == 0) {
@@ -609,6 +618,51 @@ warp_combine_kernel(const T* __restrict__ frames,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(BX * MAX_BY, 2)
+warp_combine_kernel(const T* __restrict__ frames,
+                    const float* __restrict__ masters,
+                    const float* __restrict__ ftab,
+                    const int* __restrict__ ttab, float* __restrict__ out,
+                    int n, int h0, int w0, int th, int tw, int n_tj,
+                    int n_tiles, int span, int lowrank, int combine,
+                    float sigma_lo, float sigma_hi, int by, int sbx, int sby) {
+  warp_block<T, false>(frames, masters, ftab, ttab, out, n, h0, w0, th, tw,
+                       n_tj, n_tiles, span, lowrank, combine, sigma_lo,
+                       sigma_hi, by, sbx, sby, blockIdx.x, blockIdx.y,
+                       nullptr);
+}
+
+// The 'global' route, for N past the shared route's reach: the grid
+// holds only the blocks the card keeps resident (warp_combine_global_
+// blocks), each walks the output blocks (nbx per row of blocks, nblocks
+// in all) with a stride of the grid, and keeps its N-sample columns in
+// its own slot of `scratch` (n x nt floats, nt = 32 x by): 264 slots of
+// 256 threads, 324 MB at N = 1200, where the two blocks an SM allow.
+// The window, the horizontal pass and the ring of frame parameters stay
+// in shared memory; the sort and the merge are the shared route's, so
+// this route is bit-identical to the twin too.
+template <typename T>
+__global__ void __launch_bounds__(BX * MAX_BY, 2)
+warp_combine_global_kernel(const T* __restrict__ frames,
+                           const float* __restrict__ masters,
+                           const float* __restrict__ ftab,
+                           const int* __restrict__ ttab,
+                           float* __restrict__ out, int n, int h0, int w0,
+                           int th, int tw, int n_tj, int n_tiles, int span,
+                           int lowrank, int combine, float sigma_lo,
+                           float sigma_hi, int by, int sbx, int sby, int nbx,
+                           int nblocks, float* __restrict__ scratch) {
+  float* col = scratch + (size_t)blockIdx.x * n * (BX * by);
+  for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
+    // the previous output block's threads are done with shared memory
+    if (b != (int)blockIdx.x) __syncthreads();
+    warp_block<T, true>(frames, masters, ftab, ttab, out, n, h0, w0, th, tw,
+                        n_tj, n_tiles, span, lowrank, combine, sigma_lo,
+                        sigma_hi, by, sbx, sby, b % nbx, b / nbx, col);
+  }
+}
+
+template <typename T>
 cudaError_t launch(const void* frames, const float* masters, const float* ftab,
                    const int* ttab, float* out, int n, int h0, int w0, int th,
                    int tw, int n_ti, int n_tj, int span, int lowrank,
@@ -630,22 +684,85 @@ cudaError_t launch(const void* frames, const float* masters, const float* ftab,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_global(const void* frames, const float* masters,
+                          const float* ftab, const int* ttab, float* out,
+                          int n, int h0, int w0, int th, int tw, int n_ti,
+                          int n_tj, int span, int lowrank, int combine,
+                          float sigma_lo, float sigma_hi, int by,
+                          float* scratch, int grid_blocks,
+                          cudaStream_t stream) {
+  if (by < 1 || by > MAX_BY || scratch == nullptr || grid_blocks < 1)
+    return cudaErrorInvalidValue;
+  size_t smem = sizeof(float) * (size_t)layout(0, by, span).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      warp_combine_global_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int sbx = (tw + BX - 1) / BX, sby = (th + by - 1) / by;
+  const int nbx = n_tj * sbx, nblocks = nbx * n_ti * sby;
+  dim3 block(BX, by);
+  warp_combine_global_kernel<T>
+      <<<min(grid_blocks, nblocks), block, smem, stream>>>(
+          static_cast<const T*>(frames), masters, ftab, ttab, out, n, h0, w0,
+          th, tw, n_tj, n_ti * n_tj, span, lowrank, combine, sigma_lo,
+          sigma_hi, by, sbx, sby, nbx, nblocks, scratch);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int global_blocks(int span, int by) {
+  int dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = sizeof(float) * (size_t)layout(0, by, span).total;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(warp_combine_global_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, warp_combine_global_kernel<T>, BX * by, smem) !=
+          cudaSuccess)
+    return -1;
+  return sms * per_sm;
+}
+
 }  // namespace
 
+// Blocks of the 'global' route the card keeps resident at once for this
+// window (span) and block (by rows): its grid and its scratch slots.
+extern "C" int warp_combine_global_blocks(int is_u16, int span, int by) {
+  return is_u16 ? global_blocks<uint16_t>(span, by)
+                : global_blocks<float>(span, by);
+}
+
+// scratch: null for the shared route; for the global one n x 32 x
+// block_rows floats for each of its grid_blocks blocks
 extern "C" int warp_combine_launch(const void* frames, int is_u16,
                                    const float* masters, const float* ftab,
                                    const int* ttab, float* out, int n, int h0,
                                    int w0, int th, int tw, int n_ti, int n_tj,
                                    int span, int lowrank, int combine,
                                    float sigma_lo, float sigma_hi,
-                                   int block_rows, void* stream) {
+                                   int block_rows, float* scratch,
+                                   int grid_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_u16 ? launch<uint16_t>(frames, masters, ftab, ttab, out, n, h0, w0,
-                                th, tw, n_ti, n_tj, span, lowrank, combine,
-                                sigma_lo, sigma_hi, block_rows, s)
-             : launch<float>(frames, masters, ftab, ttab, out, n, h0, w0, th,
-                             tw, n_ti, n_tj, span, lowrank, combine, sigma_lo,
-                             sigma_hi, block_rows, s);
+  cudaError_t err;
+  if (scratch != nullptr)
+    err = is_u16 ? launch_global<uint16_t>(
+                       frames, masters, ftab, ttab, out, n, h0, w0, th, tw,
+                       n_ti, n_tj, span, lowrank, combine, sigma_lo, sigma_hi,
+                       block_rows, scratch, grid_blocks, s)
+                 : launch_global<float>(
+                       frames, masters, ftab, ttab, out, n, h0, w0, th, tw,
+                       n_ti, n_tj, span, lowrank, combine, sigma_lo, sigma_hi,
+                       block_rows, scratch, grid_blocks, s);
+  else
+    err = is_u16 ? launch<uint16_t>(frames, masters, ftab, ttab, out, n, h0,
+                                    w0, th, tw, n_ti, n_tj, span, lowrank,
+                                    combine, sigma_lo, sigma_hi, block_rows, s)
+                 : launch<float>(frames, masters, ftab, ttab, out, n, h0, w0,
+                                 th, tw, n_ti, n_tj, span, lowrank, combine,
+                                 sigma_lo, sigma_hi, block_rows, s);
   return static_cast<int>(err);
 }

@@ -31,7 +31,7 @@ from ..ops.detect_tiles import (_BIN, _TTX, _TTY, detect_tiles,
                                 master_densities)
 from ..ops.register import Similarity, estimate_similarity
 from ..ops.stack import sigma_clip_combine
-from ..ops.stats import sigma_clipped_stats
+from ..ops.stats import masked_median
 from ..ops.warp import (warp_affine_bilinear, warp_affine_lanczos3,
                         warp_affine_separable)
 from ..ops.warp_combine import warp_combine
@@ -73,14 +73,41 @@ def _row_sums(x: torch.Tensor) -> torch.Tensor:
     return x[:, 0]
 
 
+def _row_mean_std(sub: torch.Tensor, keep: torch.Tensor):
+    """``ops.stats.masked_mean_std(sub, keep, axis=1)`` with its two sums
+    folded by :func:`_row_sums`: the mean and population std of each
+    row's kept entries, NaN where a row keeps none."""
+    n = keep.sum(dim=1).to(torch.float32)
+    n_safe = torch.clamp(n, min=1.0)
+    mean = _row_sums(torch.where(keep, sub, 0.0)) / n_safe
+    var = _row_sums(torch.where(keep, (sub - mean[:, None]) ** 2, 0.0)) \
+        / n_safe
+    empty = n == 0
+    return (torch.where(empty, torch.nan, mean),
+            torch.where(empty, torch.nan, torch.sqrt(var)))
+
+
+def _clipped_median_std(sub: torch.Tensor):
+    """``sigma_clipped_stats(sub, sigma=3, maxiters=3, axis=1)``'s median
+    and std: the same three rounds of clipping about the median at 3
+    std and the same median (a sort of each row), with the std's sums
+    folded (:func:`_row_mean_std`), so no batch size changes them."""
+    keep = torch.ones_like(sub, dtype=torch.bool)
+    for _ in range(3):
+        center = masked_median(sub, keep, axis=1)[:, None]
+        std = _row_mean_std(sub, keep)[1][:, None]
+        keep = keep & (sub >= center - 3.0 * std) & (sub <= center + 3.0 * std)
+    return masked_median(sub, keep, axis=1), _row_mean_std(sub, keep)[1]
+
+
 def _noise_stats_from_sub(sub: torch.Tensor, center: str):
     """(center, std) per row of an (N, M) float32 subsample: 'mean' = 3
     rounds of mean/std clipping at 3 sigma (no sorts); 'median' =
-    ``sigma_clipped_stats(sigma=3, maxiters=3)``'s median and std."""
+    ``sigma_clipped_stats(sigma=3, maxiters=3)``'s median and std
+    (:func:`_clipped_median_std`).  Both fold their sums, so a frame's
+    statistics do not depend on the frames beside it."""
     if center == "median":
-        _mean, med, std = sigma_clipped_stats(sub, sigma=3.0, maxiters=3,
-                                              axis=1)
-        return med, std
+        return _clipped_median_std(sub)
     keep = torch.ones_like(sub, dtype=torch.bool)
     for _ in range(3):
         nk = torch.clamp(keep.sum(dim=1), min=1).to(torch.float32)
@@ -428,15 +455,8 @@ def stack_registered(cal: torch.Tensor, matrices: torch.Tensor,
         if config.n_bands > 1:
             raise ValueError("combine_impl='fused' subsumes banding; "
                              "use n_bands=1")
-        # apron-free needs >= 3 tile blocks per axis; small frames have
-        # no memory pressure, so they keep the apron
-        apron = config.fused_apron or h < 96 or w < 768
-        return warp_combine(
-            cal, matrices, span=config.warp_span, tile=config.fused_tile,
-            sigma_lower=config.sigma_lower, sigma_upper=config.sigma_upper,
-            apron=apron, combine=config.combine,
-            dither_budget=config.dither_budget,
-            general_taps=config.general_taps)
+        return warp_combine(cal, matrices,
+                            **lean_kernel_kwargs(config, h, w))
 
     n_bands = max(config.n_bands, 1)
     if h % n_bands:

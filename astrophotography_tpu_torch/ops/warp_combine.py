@@ -158,6 +158,11 @@ def plan_warp_combine(
         raise ValueError("general_taps='lowrank' needs snap_tol > 0 "
                          "(it bounds the committed drift; with 0 every "
                          "non-translation frame would be excluded)")
+    if general_taps == "lowrank" and span <= 7:
+        raise ValueError(f"general_taps='lowrank' needs span > 7, got "
+                         f"{span}: its gate su_lr <= min(span, 9) - 7 "
+                         f"cannot hold there, so every frame that is not a "
+                         f"pure translation would be excluded")
     n, h0, w0 = shape
     dev = matrices.device
     th, tw = _auto_tile(n, w0) if tile is None else tile
@@ -423,15 +428,30 @@ def _calibrated(frames, masters, plan: WarpPlan, f: int) -> torch.Tensor:
     return (raw * masters[0] - masters[1] - er * masters[2]) * fs
 
 
+#: the most bytes of samples the plain combine takes at once: it works
+#: on bands of rows (each pixel's result is its own), so that its sorts
+#: of a deep stack fit the card
+_PLAIN_BAND_BYTES = 1 << 30
+
+
 def _run_plain(frames, masters, plan, combine, sigma_lower, sigma_upper,
                general_taps):
+    n, h, w = frames.shape
     vals = torch.empty(frames.shape, dtype=torch.float32,
                        device=frames.device)
-    for f in range(frames.shape[0]):
+    for f in range(n):
         vals[f] = _warp_frame_plain(_calibrated(frames, masters, plan, f), f,
                                     plan, general_taps)
-    return _combine_plain(vals, combine, float(sigma_lower),
-                          float(sigma_upper))
+    rows = max(1, _PLAIN_BAND_BYTES // (4 * n * w))
+    if rows >= h:
+        return _combine_plain(vals, combine, float(sigma_lower),
+                              float(sigma_upper))
+    out = torch.empty((h, w), dtype=torch.float32, device=frames.device)
+    for r0 in range(0, h, rows):
+        out[r0:r0 + rows] = _combine_plain(
+            vals[:, r0:r0 + rows], combine, float(sigma_lower),
+            float(sigma_upper))
+    return out
 
 
 def warp_combine_plain(

@@ -18,7 +18,10 @@ the diagnostics are replicated.  Per rank:
 4. unfused: its frames warped onto its 'space' band (``warp_band``),
    the warped band and the coverage mask gathered over 'frame', the
    combine (K3 under ``combine_impl='pallas'``), ``config.n_bands``
-   sub-bands at a time;
+   sub-bands at a time; under ``combine_impl='fused'`` the calibrated
+   rows of its band gathered over 'frame', then
+   :func:`parallel.fused.sharded_warp_combine` (K2) on them with the
+   halo the solved matrices need (:func:`lean_halo`);
    lean: the raw rows of its band gathered over 'frame', then
    :func:`parallel.fused.sharded_warp_combine` (K2) over 'space' with
    its halo exchange.
@@ -26,7 +29,9 @@ the diagnostics are replicated.  Per rank:
 A rank's local sizes must divide as the one-device path requires
 (``detect_chunk``, ``n_bands``).  The result equals the one-device
 pipeline's up to the float32 rounding of the band offsets (the clip-tie
-rule of the band loop).
+rule of the band loop), and bit for bit the one-device run that warps
+the same bands (``n_bands`` times the 'space' size, or
+``banded_warp_combine`` at the same halo for 'fused').
 """
 
 from __future__ import annotations
@@ -87,22 +92,28 @@ def sharded_calibrate_register_stack(
     dark: Optional[torch.Tensor] = None,
     flat: Optional[torch.Tensor] = None,
     exp_ratios: Optional[torch.Tensor] = None,
+    badpix_mask: Optional[torch.Tensor] = None,
+    flux_scales: Optional[torch.Tensor] = None,
     config: PipelineConfig = PipelineConfig(),
 ):
     """The unfused pipeline (``models.calibrate_register_stack``) on
     ``mesh``: ``frames_local`` (N / n_frame, H, W) is this rank's frame
-    block, the masters (H, W) and ``exp_ratios`` (N,) are replicated.
-    ``config.combine_impl`` is 'xla' or 'pallas' (the fused kernel on a
-    mesh is :func:`sharded_calibrate_register_stack_lean`).
+    block; the masters and ``badpix_mask`` (H, W), ``exp_ratios`` and
+    ``flux_scales`` (N,) are replicated.  The bad-pixel repair works frame
+    by frame and the flux scales multiply the calibrated frames, as on
+    one device.  ``config.combine_impl`` is 'xla', 'pallas' or 'fused'
+    (K2 on the calibrated band with its halo; ``n_bands`` must be 1).
 
     Returns (this rank's (H / n_space, W) rows of the stack, the
-    replicated diagnostics of the whole stack)."""
-    if config.combine_impl == "fused":
-        raise ValueError("combine_impl='fused' on a mesh: use "
-                         "sharded_calibrate_register_stack_lean")
+    replicated diagnostics of the whole stack; under 'fused' with the
+    ``halo``)."""
     dev = frames_local.device
-    n, f0, _h, _w, band, y0 = _geometry(frames_local, mesh)
+    n, f0, h, w, band, y0 = _geometry(frames_local, mesh)
     n_local = frames_local.shape[0]
+    fused = config.combine_impl == "fused"
+    if fused and config.n_bands > 1:
+        raise ValueError("combine_impl='fused' subsumes banding; "
+                         "use n_bands=1")
     n_bands = max(config.n_bands, 1)
     if band % n_bands:
         raise ValueError(f"band height {band} not divisible by n_bands "
@@ -110,11 +121,25 @@ def sharded_calibrate_register_stack(
     bias, dark, flat = (on_device(m, dev, torch.float32)
                         for m in (bias, dark, flat))
     er = _replicated(exp_ratios, dev, n, "exp_ratios")
+    fs = _replicated(flux_scales, dev, n, "flux_scales")
     cal = calibrate_batch(frames_local, bias, dark, flat,
                           None if er is None else er[f0:f0 + n_local],
-                          dark_still_biased=config.dark_still_biased)
+                          dark_still_biased=config.dark_still_biased,
+                          badpix_mask=on_device(badpix_mask, dev))
+    if fs is not None:
+        cal = cal * fs[f0:f0 + n_local, None, None]
     stars = _gather_stars(mesh, detect_calibrated(cal, config))
     sims, matrices, ref_idx = _solve_frame_similarities(stars, n, config)
+    diag = diagnostics(stars, sims, matrices, ref_idx)
+    if fused:
+        halo = lean_halo(matrices, h, w, band)
+        cal_band = all_gather(mesh, cal[:, y0:y0 + band], "frame")
+        del cal
+        stacked = sharded_warp_combine(
+            cal_band, matrices, mesh, halo=halo, axis_name="space",
+            **lean_kernel_kwargs(config, h, w))
+        diag["halo"] = halo
+        return stacked, diag
     mats_local = matrices[f0:f0 + n_local]
     sub = band // n_bands
     rows = []
@@ -126,8 +151,7 @@ def sharded_calibrate_register_stack(
         covered = all_gather(mesh, (weights > 0.5).to(torch.uint8), "frame")
         rows.append(combine_band(warped, covered.to(torch.float32), config))
         del warped, weights, covered
-    return (torch.cat(rows, dim=0),
-            diagnostics(stars, sims, matrices, ref_idx))
+    return torch.cat(rows, dim=0), diag
 
 
 def _row_reach(matrices: torch.Tensor, h: int, w: int) -> float:

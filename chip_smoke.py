@@ -50,22 +50,31 @@ the stacks:
   card over host-staged gloo, K2 row-sharded (``sharded_warp_combine``,
   1x4) on both lean workloads against the band loop (bit for bit) and
   the whole frame, the unfused pipeline (K3) and the lean pipeline (K1,
-  K2) on a 2x2 mesh against the one-process runs, and the dry run's twin
-  (``graft_entry.dryrun_multichip``), with each rank's kernel times,
-  launches, exchange bytes and times and peak memory.
+  K2) on a 2x2 mesh against the one-process runs, the unfused pipeline
+  with a bad-pixel mask and flux scales under K3 and under K2
+  (``combine_impl='fused'``), the lean pipeline with the 'median' noise
+  centre, and the dry run's twin (``graft_entry.dryrun_multichip``),
+  with each rank's kernel times, launches, exchange bytes and times and
+  peak memory;
+* the routes past the kernels' shared-memory limits and radius 16
+  (``deep``): the lean path on 1200 uint16 frames of 2048^2 (10.1 GB,
+  made on the card: K2's global route), the unfused path on 1200 frames
+  of 512^2 (K3's global route), K2 against its twin at 1200 x 512^2
+  (snap and lowrank), K3 against its twin on a masked 1200 x 1024 x 2048
+  stack, K1 at radii 24 and 48 (its separable route) on 16 x 4096^2.
 
 Beside the checks against the plain twins it times K2 at 100x4096^2 with
 ``combine='average'`` against ``combine='mean'`` (the same warp without
 the sort and clip): the warp phase against the combine phase.
 
 Run from the repository root with ``python3 chip_smoke.py``; every phase
-runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip}``
+runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip,deep}``
 runs one group of phases (the kernel check and timing of K1, K2 or K3 at
 the main paths' shapes, the lean path, the unfused path with and without
 the mask, the 16x1024^2 chunked run and the small kernel matrix, the
 band loop, the measurement ops, the RAW half, the calibration-file
-engines, the file-to-file reduction, or the multi-device layer) and
-prints no ``kernels`` line.  Every phase raises
+engines, the file-to-file reduction, the multi-device layer, or the
+routes past the shared-memory limits) and prints no ``kernels`` line.  Every phase raises
 on failure.  Each phase prints one JSON line; the build line carries
 ptxas' register, shared-memory and spill report for every kernel; the
 line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -100,7 +109,7 @@ SKY = 800.0
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
 PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure",
-          "raw", "files", "reduce", "multichip")
+          "raw", "files", "reduce", "multichip", "deep")
 #: the RAW half: 24 lossless-JPEG DNGs of 3904^2 uint16, black level 128
 RAW_FRAMES, RAW_SIZE, RAW_BLACK = 24, 3904, 128
 #: the calibration-file engines: frames per master, light frames
@@ -309,12 +318,14 @@ def _k3_exact(k, p, label) -> float:
     return err
 
 
-def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
+def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3,
+                 fwhm=3.0):
     """K1 against detect_tiles_plain by :func:`_k1_agrees`' rule, and
     K1's time."""
+    from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.ops import detect_tiles as dt
 
-    args = dict(mf_bc=mf, a_plane=a_plane, exp_ratios=er)
+    args = dict(mf_bc=mf, a_plane=a_plane, exp_ratios=er, fwhm=fwhm)
     k = dt.detect_tiles(frames, thr, **args)
     torch.cuda.synchronize()
     p, plain_ms = _timed(lambda: dt.detect_tiles_plain(frames, thr, **args))
@@ -323,10 +334,12 @@ def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3):
     # per raw pixel: 2-row binning (2 flops), then per binned pixel the
     # Gaussian and box column and row passes (6 per tap), the density
     # (5) and the 3x3 peak test (10)
-    ntap = 2 * dt._kernel_params(3.0)[1] + 1
+    r = dt._kernel_params(fwhm)[1]
+    ntap = 2 * r + 1
     n_bytes = _nbytes(frames, thr, mf, a_plane, er, *k)
     res = {"phase": "K1 vs detect_tiles_plain", "case": label,
-           "shape": list(frames.shape), **agree,
+           "shape": list(frames.shape), "radius": r,
+           "route": kernels._detect_route(r), **agree,
            "ms": ms, "plain_ms": plain_ms,
            **_bound(n_bytes, frames.numel() * (3 * ntap + 9.5)), "card": card}
     _print(res)
@@ -781,23 +794,28 @@ def _exchanges(traffic) -> dict:
 
 
 class _FirstCall:
-    """Within the block, the first call of ``module.<name>`` (a kernel's
-    wrapper as the sharded code calls it) keeps its arguments and its
-    result, for the kernel's check against its plain twin."""
+    """Within the block, the first ``keep`` calls of ``module.<name>`` (a
+    kernel's wrapper as a pipeline or the sharded code calls it) keep
+    their arguments and results, for the kernel's check against its
+    plain twin."""
 
-    def __init__(self, module: str, name: str):
+    def __init__(self, module: str, name: str, keep: int = 1):
         import importlib
 
         self.module, self.name = importlib.import_module(module), name
-        self.call = None
+        self.keep, self.calls = keep, []
+
+    @property
+    def call(self):
+        return self.calls[0] if self.calls else None
 
     def __enter__(self):
         fn = self.orig = getattr(self.module, self.name)
 
         def first(*a, **k):
             out = fn(*a, **k)
-            if self.call is None:
-                self.call = (a, k, out)
+            if len(self.calls) < self.keep:
+                self.calls.append((a, k, out))
             return out
         setattr(self.module, self.name, first)
         return self
@@ -806,29 +824,34 @@ class _FirstCall:
         setattr(self.module, self.name, self.orig)
 
 
-#: each kernel as the sharded code calls it: (module, wrapper's name
-#: there, its plain twin's module and name)
-_MC_CALLS = {
-    "K1": ("astrophotography_tpu_torch.models.pipeline", "detect_tiles",
-           "astrophotography_tpu_torch.ops.detect_tiles",
-           "detect_tiles_plain"),
-    "K2": ("astrophotography_tpu_torch.parallel.fused", "warp_combine",
-           "astrophotography_tpu_torch.ops.warp_combine",
-           "warp_combine_plain"),
-    "K3": ("astrophotography_tpu_torch.models.pipeline", "clip_combine",
-           "astrophotography_tpu_torch.ops.clip_combine",
-           "clip_combine_plain")}
+_PIPELINE = "astrophotography_tpu_torch.models.pipeline"
+#: each kernel as the one-device pipelines call it (module, wrapper's
+#: name there)
+_PIPELINE_CALLS = {"K1": (_PIPELINE, "detect_tiles"),
+                   "K2": (_PIPELINE, "warp_combine"),
+                   "K3": (_PIPELINE, "clip_combine")}
+#: each kernel as the sharded code calls it
+_MC_CALLS = dict(_PIPELINE_CALLS,
+                 K2=("astrophotography_tpu_torch.parallel.fused",
+                     "warp_combine"))
+#: each kernel's plain twin (module, name)
+_PLAINS = {"K1": ("astrophotography_tpu_torch.ops.detect_tiles",
+                  "detect_tiles_plain"),
+           "K2": ("astrophotography_tpu_torch.ops.warp_combine",
+                  "warp_combine_plain"),
+           "K3": ("astrophotography_tpu_torch.ops.clip_combine",
+                  "clip_combine_plain")}
 
 
-def _mc_plain_check(kind: str, call, label: str) -> dict:
-    """The plain twin on the exact arguments a kernel got in a sharded
-    step, held against the kernel's result by the kernel's rule: K1 by
+def _plain_check(kind: str, call, label: str) -> dict:
+    """The plain twin on the exact arguments a kernel got in a path's
+    run, held against the kernel's result by the kernel's rule: K1 by
     :func:`_k1_agrees`, K2 and K3 bit for bit."""
     import importlib
 
     _require(call is not None, f"{label}: {kind} was not called")
     a, k, out = call
-    _mod, _name, plain_mod, plain_name = _MC_CALLS[kind]
+    plain_mod, plain_name = _PLAINS[kind]
     plain = getattr(importlib.import_module(plain_mod), plain_name)
     p, plain_ms = _timed(lambda: plain(*a, **k))
     label = f"{label} {kind}"
@@ -867,7 +890,7 @@ def _mc_step(mesh, place, run, label, check=()):
     kernels.reset_launch_counts()
     mesh.traffic.clear()
     with contextlib.ExitStack() as stack:
-        calls = {kind: stack.enter_context(_FirstCall(*_MC_CALLS[kind][:2]))
+        calls = {kind: stack.enter_context(_FirstCall(*_MC_CALLS[kind]))
                  for kind in check}
         clock = stack.enter_context(_KernelClock())
         out = run(*placed)
@@ -880,8 +903,8 @@ def _mc_step(mesh, place, run, label, check=()):
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     del placed
     rec["plain_checks"] = [
-        _mc_plain_check(kind, calls[kind].call,
-                        f"multichip {label} rank {mesh.rank}")
+        _plain_check(kind, calls[kind].call,
+                     f"multichip {label} rank {mesh.rank}")
         for kind in check]
     return out, rec
 
@@ -891,7 +914,27 @@ def _mc_step(mesh, place, run, label, check=()):
 #: twins are slow), and which kernels: a top, an interior and a bottom
 #: band, a combine sub-band, the second frame shard
 MC_CHECKS = {"K2 snap": (0, ("K2",)), "K2 rotated": (2, ("K2",)),
-             "unfused": (1, ("K3",)), "lean": (3, ("K1", "K2"))}
+             "unfused": (1, ("K3",)), "lean": (3, ("K1", "K2")),
+             "unfused extras": (2, ("K3",)), "unfused fused": (1, ("K2",)),
+             "lean median": (0, ("K2",))}
+
+
+def unfused_fused_config():
+    """:func:`unfused_config` with the fused warp+combine (K2 on the
+    calibrated stack), which takes no bands."""
+    return dataclasses.replace(unfused_config(), combine_impl="fused",
+                               n_bands=1)
+
+
+def _hot(w: dict) -> np.ndarray:
+    """The workload's planted hot pixels (dark counts above 1000 ADU):
+    the bad-pixel mask of the unfused runs."""
+    return np.asarray(w["dark"]) - np.asarray(w["bias"]) > 1000.0
+
+
+def _flux_scales(n: int) -> torch.Tensor:
+    """Flux scales of the multichip unfused runs: 0.9 to 1.1."""
+    return torch.linspace(0.9, 1.1, n, dtype=torch.float32)
 
 
 def _multichip_rank(device, work: dict) -> dict:
@@ -957,21 +1000,47 @@ def _multichip_rank(device, work: dict) -> dict:
                       "matrices": diag["matrices"].cpu()}
     del stack, diag
 
+    # with the bad-pixel repair and the flux scales, under K3 and K2
+    for key, cfg in (("unfused extras", unfused_config()),
+                     ("unfused fused", unfused_fused_config())):
+        def run_extras(fr, bias, dark, flat, er, bad, fs, cfg=cfg):
+            out, diag = sharded_calibrate_register_stack(
+                fr, sq, bias=bias, dark=dark, flat=flat, exp_ratios=er,
+                badpix_mask=bad, flux_scales=fs, config=cfg)
+            return gather_rows(sq, out), diag
+
+        (stack, diag), rec = step(
+            sq, lambda: (local_frames(sq, unf["frames"]),
+                         *place_masters(sq, unf), replicate(sq, unf["badpix"]),
+                         replicate(sq, unf["flux_scales"])), run_extras, key)
+        res[key] = {"rank": rec, "stack": stack.cpu() if first else None,
+                    "n_inliers": diag["n_inliers"].cpu(),
+                    "matrices": diag["matrices"].cpu(),
+                    "halo": diag.get("halo")}
+        del stack, diag
+
     snap = work["snap"]
 
-    def run_lean(fr, bias, dark, flat, er):
+    def run_lean(fr, bias, dark, flat, er, cfg):
         out, diag = sharded_calibrate_register_stack_lean(
             fr, sq, bias=bias, dark=dark, flat=flat, exp_ratios=er,
-            config=snap["cfg"])
+            config=cfg)
         return gather_rows(sq, out), diag
 
-    (stack, diag), rec = step(
-        sq, lambda: (local_frames(sq, snap["frames"]),
-                     *place_masters(sq, snap)), run_lean, "lean")
-    mats = _solved_matrices(diag)
-    res["lean"] = {"rank": rec, "stack": stack.cpu() if first else None,
-                   "n_inliers": diag["n_inliers"].cpu(),
-                   "matrices": mats.cpu(), "halo": diag["halo"]}
+    for key, cfg in (("lean", snap["cfg"]),
+                     ("lean median", dataclasses.replace(
+                         snap["cfg"], noise_center="median"))):
+        def run_lean_cfg(*placed, cfg=cfg):
+            return run_lean(*placed, cfg=cfg)
+
+        (stack, diag), rec = step(
+            sq, lambda: (local_frames(sq, snap["frames"]),
+                         *place_masters(sq, snap)), run_lean_cfg, key)
+        mats = _solved_matrices(diag)
+        res[key] = {"rank": rec, "stack": stack.cpu() if first else None,
+                    "n_inliers": diag["n_inliers"].cpu(),
+                    "matrices": mats.cpu(), "halo": diag["halo"]}
+        del stack, diag
     return res
 
 
@@ -1047,8 +1116,10 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
     import dataclasses
 
     from astrophotography_tpu_torch.graft_entry import dryrun_multichip
-    from astrophotography_tpu_torch.models import calibrate_register_stack
+    from astrophotography_tpu_torch.models import (
+        calibrate_register_stack, calibrate_register_stack_lean)
     from astrophotography_tpu_torch.models.pipeline import lean_kernel_kwargs
+    from astrophotography_tpu_torch.ops.calibrate import calibrate_batch
     from astrophotography_tpu_torch.ops.warp_combine import warp_combine
     from astrophotography_tpu_torch.parallel import banded_warp_combine
     from astrophotography_tpu_torch.parallel.launch import spawn
@@ -1076,19 +1147,39 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
         if label == "snap":
             kw_u = dict(bias=w["bias"], dark=w["dark"], flat=w["flat"],
                         exp_ratios=er[:n_u])
-            for nb in (cfg_u.n_bands, 2 * cfg_u.n_bands):
+            ex = dict(kw_u, badpix_mask=torch.from_numpy(_hot(w)).to(dev),
+                      flux_scales=_flux_scales(n_u).to(dev))
+            for key, nb, kwr in (
+                    (f"unfused {cfg_u.n_bands} bands", cfg_u.n_bands, kw_u),
+                    (f"unfused {2 * cfg_u.n_bands} bands",
+                     2 * cfg_u.n_bands, kw_u),
+                    ("unfused extras", 2 * cfg_u.n_bands, ex)):
                 out, diag = calibrate_register_stack(
                     fr[:n_u], config=dataclasses.replace(cfg_u, n_bands=nb),
-                    **kw_u)
-                refs[f"unfused {nb} bands"] = {
+                    **kwr)
+                refs[key] = {
                     "stack": out.cpu(), "n_inliers": diag["n_inliers"].cpu(),
                     "matrices": diag["matrices"].cpu()}
                 del out, diag
+            out, diag = calibrate_register_stack(
+                fr[:n_u], config=unfused_fused_config(), **ex)
+            refs["unfused fused"] = {
+                "stack": out.cpu(), "n_inliers": diag["n_inliers"].cpu(),
+                "matrices": diag["matrices"].cpu()}
+            out, diag = calibrate_register_stack_lean(
+                fr, config=dataclasses.replace(w["cfg"], noise_center="median"),
+                bias=w["bias"], dark=w["dark"], flat=w["flat"], exp_ratios=er)
+            refs["lean median"] = {
+                "stack": out.cpu(), "n_inliers": diag["n_inliers"].cpu(),
+                "matrices": _solved_matrices(diag).cpu()}
+            del out, diag
         del fr, masters, er, m
         torch.cuda.empty_cache()
     work["unfused"] = {"frames": snap["frames"][:n_u],
                        **{k: work["snap"][k] for k in ("bias", "dark", "flat")},
-                       "er": snap["er"][:n_u]}
+                       "er": snap["er"][:n_u],
+                       "badpix": torch.from_numpy(_hot(snap)),
+                       "flux_scales": _flux_scales(n_u)}
     torch.cuda.synchronize()
     refs_s = time.perf_counter() - t_phase
 
@@ -1170,6 +1261,92 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
         {"shape": [N_FRAMES, SIZE, SIZE], "min_inliers": int(n_in.min()),
          "halo": halo, "vs_banded_max_abs_err": err,
          "vs_lean_path": _tie_rule("multichip lean", got, snap["stacked"])},
+        card)
+
+    key = "unfused extras"
+    add(key, {"clip_combine": cfg_u.n_bands})
+    n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
+    mats = _same_on_every_rank(key, ranks, key, "matrices")
+    want = refs[key]
+    _require(torch.equal(n_in, want["n_inliers"]) and
+             torch.equal(mats, want["matrices"]),
+             f"multichip {key}: inliers or matrices differ from the "
+             f"one-process run's")
+    got = ranks[0][key]["stack"]
+    err = float((got - want["stack"]).abs().max())
+    _require(err == 0.0 and torch.equal(got == 0, want["stack"] == 0),
+             f"multichip {key}: differs from the one-process run with the "
+             f"same {2 * cfg_u.n_bands} bands by {err}")
+    steps[key] = _mc_record(
+        key, {"frame": 2, "space": MC_WORLD // 2}, ranks, key,
+        {"shape": [n_u, SIZE, SIZE], "n_bands": cfg_u.n_bands,
+         "badpix_pixels": int(work["unfused"]["badpix"].sum()),
+         "min_inliers": int(n_in.min()),
+         "vs_one_process_same_bands_max_abs_err": err}, card)
+
+    key = "unfused fused"
+    add(key, {"warp_combine": 1})
+    n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
+    mats = _same_on_every_rank(key, ranks, key, "matrices")
+    halos = {r[key]["halo"] for r in ranks}
+    _require(len(halos) == 1, f"multichip {key}: halos {halos} differ")
+    (halo,) = halos
+    want = refs[key]
+    _require(torch.equal(n_in, want["n_inliers"]) and
+             torch.equal(mats, want["matrices"]),
+             f"multichip {key}: inliers or matrices differ from the "
+             f"one-process run's")
+    unf = work["unfused"]
+    cal = calibrate_batch(
+        unf["frames"].to(dev), *(unf[k].to(dev) for k in ("bias", "dark",
+                                                          "flat", "er")),
+        dark_still_biased=cfg_u.dark_still_biased,
+        badpix_mask=unf["badpix"].to(dev)) \
+        * unf["flux_scales"].to(dev)[:, None, None]
+    banded = banded_warp_combine(
+        cal, mats.to(dev), MC_WORLD // 2, halo=halo,
+        **lean_kernel_kwargs(unfused_fused_config(), SIZE, SIZE)).cpu()
+    del cal
+    torch.cuda.empty_cache()
+    got = ranks[0][key]["stack"]
+    err = float((got - banded).abs().max())
+    _require(err == 0.0 and torch.equal(got == 0, banded == 0),
+             f"multichip {key}: differs from the band loop by {err}")
+    steps[key] = _mc_record(
+        key, {"frame": 2, "space": MC_WORLD // 2}, ranks, key,
+        {"shape": [n_u, SIZE, SIZE], "halo": halo,
+         "min_inliers": int(n_in.min()), "vs_banded_max_abs_err": err,
+         "vs_one_process": _tie_rule(f"multichip {key}", got, want["stack"])},
+        card)
+
+    key = "lean median"
+    add(key, {"detect_tiles": 1, "warp_combine": 1})
+    n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
+    mats = _same_on_every_rank(key, ranks, key, "matrices")
+    halos = {r[key]["halo"] for r in ranks}
+    _require(len(halos) == 1, f"multichip {key}: halos {halos} differ")
+    (halo,) = halos
+    want = refs[key]
+    _require(torch.equal(n_in, want["n_inliers"]) and
+             torch.equal(mats, want["matrices"]),
+             f"multichip {key}: inliers or matrices differ from the "
+             f"one-process lean run's")
+    fr, masters, er = (t.to(dev) for t in (snap["frames"], snap["masters"],
+                                           snap["er"]))
+    banded = banded_warp_combine(
+        fr, mats.to(dev), MC_WORLD // 2, masters=masters, exp_ratios=er,
+        halo=halo, **lean_kernel_kwargs(snap["cfg"], SIZE, SIZE)).cpu()
+    del fr, masters, er
+    torch.cuda.empty_cache()
+    got = ranks[0][key]["stack"]
+    err = float((got - banded).abs().max())
+    _require(err == 0.0 and torch.equal(got == 0, banded == 0),
+             f"multichip {key}: differs from the band loop by {err}")
+    steps[key] = _mc_record(
+        key, {"frame": 2, "space": MC_WORLD // 2}, ranks, key,
+        {"shape": [N_FRAMES, SIZE, SIZE], "min_inliers": int(n_in.min()),
+         "halo": halo, "vs_banded_max_abs_err": err,
+         "vs_lean_path": _tie_rule(f"multichip {key}", got, want["stack"])},
         card)
 
     t0 = time.perf_counter()
@@ -2392,27 +2569,34 @@ def _group_stack(dev, cal_paths, exps, ref: int = 0):
     return stack, mats, cfg
 
 
-def check_warp_exact(frames, mats, label, card, reps=3, **kw) -> dict:
+def check_warp_exact(frames, mats, label, card, reps=3, masters=None,
+                     er=None, **kw) -> dict:
     """K2 against warp_combine_plain, bit for bit (max |diff| 0, equal
-    zero masks), on a calibrated float32 stack without masters."""
+    zero masks): a calibrated float32 stack, or raw frames with
+    ``masters`` and exposure ratios ``er``; ``kw`` are the plan's
+    arguments (average, sigma 5)."""
+    from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.ops import warp_combine as wc
 
-    k = wc.warp_combine(frames, mats, **kw)
+    args = dict(masters=masters, exp_ratios=er, **kw)
+    k = wc.warp_combine(frames, mats, **args)
     torch.cuda.synchronize()
-    p, plain_ms = _timed(lambda: wc.warp_combine_plain(frames, mats, **kw))
+    p, plain_ms = _timed(lambda: wc.warp_combine_plain(frames, mats, **args))
     err = _k2_exact(k, p, label)
     covered = float((k != 0).float().mean())
     plan = wc.plan_warp_combine(frames.shape, mats, **kw)
     padded = [plan.n_ti * plan.th, plan.n_tj * plan.tw]
     del k, p
     torch.cuda.empty_cache()
-    ms = _time_ms(_k2_kernel(frames, mats, None, None, **kw), reps)
+    ms = _time_ms(_k2_kernel(frames, mats, masters, er, **kw), reps)
     res = {"phase": "K2 vs warp_combine_plain", "case": label,
            "shape": list(frames.shape), "max_abs_err": err,
+           "route": kernels._warp_route(frames.shape[0], plan.span),
            "covered_fraction": covered, "tile": [plan.th, plan.tw],
            "padded_to": padded,
            "ms": ms, "plain_ms": plain_ms,
-           **_k2_bound(frames, None, frames[0].numel()), "card": card}
+           "ns_per_frame_pixel": ms * 1e6 / frames.numel(),
+           **_k2_bound(frames, masters, frames[0].numel()), "card": card}
     _print(res)
     return res
 
@@ -2998,6 +3182,320 @@ def run_small_matrix(card: str, dev) -> None:
         torch.cuda.empty_cache()
 
 
+#: the deep phase: the lean path past the shared-memory routes' 908
+#: frames (1200 uint16 frames of 2048^2, 10.1 GB raw), the unfused path
+#: (K3) and K2's twin at 1200 x 512^2, K3 at 1200 x 1024 x 2048 (its twin
+#: on the first DEEP_K3_TWIN_ROWS rows), K1 at radii 24 and 48 (FWHM 32
+#: and 64 px) on 16 x 4096^2
+DEEP_FRAMES, DEEP_SIZE, DEEP_SMALL = 1200, 2048, 512
+#: the lowrank body's twin check takes the global route's fewest frames:
+#: the twin's time follows the frames, not the pixels
+DEEP_LOWRANK_FRAMES = 909
+DEEP_K3_SHAPE, DEEP_K3_TWIN_ROWS = (1200, 1024, 2048), 64
+DEEP_K1_FRAMES, DEEP_K1_SIZE, DEEP_K1_FWHM = 16, 4096, (32.0, 64.0)
+
+
+def make_workload_on_device(n_frames: int, size: int, dev, rotate=False,
+                            seed: int = 0, chunk: int = 32):
+    """:func:`make_workload`'s observing run made on the card ``chunk``
+    frames at a time, for stacks whose float copy would not fit the
+    host: the same masters, dithers, rotations and 40 stars of FWHM 3 px
+    (times the flat), but 8 ADU noise of its own in every frame (a CUDA
+    generator seeded with ``seed``) and no host copy of the stack.
+
+    Returns (frames (N, size, size) uint16 on ``dev``, bias, dark_master,
+    flat, exp_ratio, max_offset_px, matrices (N, 2, 3)), the masters and
+    matrices as numpy."""
+    from astrophotography_tpu_torch.device import to_uint16
+
+    rng = np.random.default_rng(seed)
+    yy = (np.arange(size, dtype=np.float32) - size / 2) / size
+    r2 = yy[:, None] ** 2 + yy[None, :] ** 2
+    flat = (1.0 - 0.08 * r2 / r2.max()).astype(np.float32)
+    bias = np.full((size, size), 300.0, np.float32)
+    dark_counts = np.full((size, size), 40.0, np.float32)
+    hot = rng.integers(0, size, (200, 2))
+    dark_counts[hot[:, 0], hot[:, 1]] = 5000.0
+    exp_ratio = 0.5
+    xs = rng.uniform(48, size - 48, 40)
+    ys = rng.uniform(48, size - 48, 40)
+    fl = rng.uniform(20000, 60000, 40)
+    cx = cy = (size - 1) / 2.0
+    mats = np.zeros((n_frames, 2, 3), np.float64)
+    px, py = np.empty((n_frames, 40)), np.empty((n_frames, 40))
+    for i in range(n_frames):
+        dx = dy = theta = 0.0
+        if i:
+            dx, dy = rng.uniform(-4.0, 4.0, 2)
+            if rotate:
+                theta = float(rng.choice([-1.0, 1.0])
+                              * np.deg2rad(rng.uniform(0.1, 0.25)))
+        c, s = np.cos(theta), np.sin(theta)
+        mats[i] = [[c, -s, cx + dx - c * cx + s * cy],
+                   [s, c, cy + dy - s * cx - c * cy]]
+        px[i] = c * (xs - cx) - s * (ys - cy) + cx + dx
+        py[i] = s * (xs - cx) + c * (ys - cy) + cy + dy
+    max_off = float(np.hypot(px - xs, py - ys).max())
+
+    flat_t = torch.from_numpy(flat).to(dev)
+    base = SKY * flat_t + torch.from_numpy(
+        bias + exp_ratio * dark_counts).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.empty((n_frames, size, size), dtype=torch.int16,
+                         device=dev)
+    sigma = 3.0 / 2.35482
+    d = torch.arange(25, device=dev)
+    pxt, pyt = (torch.from_numpy(a).to(dev) for a in (px, py))
+    amp = torch.from_numpy(fl / (2 * np.pi * sigma * sigma)).to(dev)
+    x0, y0 = pxt.long() - 12, pyt.long() - 12
+    for k in range(0, n_frames, chunk):
+        sl = slice(k, min(k + chunk, n_frames))
+        f = base + 8.0 * torch.randn((sl.stop - k, size, size), generator=g,
+                                     device=dev)
+        xx = (x0[sl, :, None, None] + d[None, None, None, :]) \
+            .expand(-1, -1, 25, -1)
+        yy = (y0[sl, :, None, None] + d[None, None, :, None]) \
+            .expand(-1, -1, -1, 25)
+        star = amp[None, :, None, None] * torch.exp(
+            -0.5 * (((xx - pxt[sl, :, None, None]) / sigma) ** 2
+                    + ((yy - pyt[sl, :, None, None]) / sigma) ** 2))
+        fi = torch.arange(sl.stop - k, device=dev)[:, None, None, None] \
+            .expand_as(xx)
+        f.index_put_((fi, yy, xx), (star * flat_t[yy, xx]).to(torch.float32),
+                     accumulate=True)
+        frames[sl] = to_uint16(f).view(torch.int16)
+        del f, star
+    return (frames.view(torch.uint16), bias, bias + dark_counts, flat,
+            exp_ratio, max_off, mats)
+
+
+def _clip_inputs_chunked(n, h, w, dev, seed, chunk=100):
+    """:func:`_clip_inputs`' masked stack made ``chunk`` frames at a
+    time, so that no temporary of the whole stack's size exists."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    stack = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+    mask = torch.empty((n, h, w), dtype=torch.bool, device=dev)
+    for k in range(0, n, chunk):
+        part = stack[k:k + chunk]
+        torch.randn(part.shape, generator=g, device=dev, out=part)
+        part.mul_(8.0).add_(SKY)
+        part.masked_fill_(torch.rand(part.shape, generator=g, device=dev)
+                          < 0.02, 40000.0)
+        mask[k:k + chunk] = torch.rand(part.shape, generator=g,
+                                       device=dev) > 0.2
+    mask[:, ::97, :] = False
+    return stack, mask
+
+
+def run_deep(card: str, dev) -> dict:
+    """The kernels' routes past the shared-memory limits and radius 16,
+    at sizes users run:
+
+    * the lean path (``calibrate_register_stack_lean``, the snap lean
+      config) on 1200 uint16 frames of 2048^2 with bias, dark and flat,
+      +-4 px dithers (``make_workload_on_device``): K1 on its rolling
+      route, K2 on its global route; registration and the stack checked
+      as on the main path; the wall ms of one run after a warm-up, K1 and
+      K2 by CUDA events, the peak device memory; then K1 and K2 held
+      against their twins on the exact arguments that run gave them (K2
+      bit for bit, K1 by its rule);
+    * the unfused path (``calibrate_register_stack``, ``unfused_config``)
+      on 1200 frames of 512^2: K3 on its global route, each of its two
+      launches held against the twin bit for bit on its arguments;
+    * K2's lowrank body against its twin bit for bit on 909 rotated
+      frames of 512^2, the global route's fewest;
+    * K3 against its twin bit for bit on a masked 1200 x 1024 x 2048
+      stack (10 GB and 2.5 GB of mask), the twin on the first 64 rows;
+    * K1 at radii 24 and 48 on 16 x 4096^2 against its twin by its rule
+      (the separable route)."""
+    import contextlib
+
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.models import (
+        calibrate_register_stack, calibrate_register_stack_lean)
+    from astrophotography_tpu_torch.ops import clip_combine as cc
+    from astrophotography_tpu_torch.ops import detect_tiles as dt
+
+    t_phase = time.perf_counter()
+    out = {}
+    n, size = DEEP_FRAMES, DEEP_SIZE
+    label = f"deep lean {n}x{size}^2 snap"
+    cfg = lean_config(False)
+    t0 = time.perf_counter()
+    fr, bias, dark, flat, exp_ratio, max_off, mats = \
+        make_workload_on_device(n, size, dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
+    kw = dict(bias=torch.from_numpy(bias).to(dev),
+              dark=torch.from_numpy(dark).to(dev),
+              flat=torch.from_numpy(flat).to(dev), exp_ratios=er)
+    routes = {"K1": kernels._detect_route(dt._kernel_params(cfg.fwhm)[1]),
+              "K2": kernels._warp_route(n, cfg.warp_span)}
+    _require(routes == {"K1": "rolling", "K2": "global"},
+             f"{label}: routes {routes}")
+
+    def run():
+        return calibrate_register_stack_lean(fr, config=cfg, **kw)
+
+    run()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        calls = {kind: stack.enter_context(_FirstCall(*_PIPELINE_CALLS[kind]))
+                 for kind in ("K1", "K2")}
+        clock = stack.enter_context(_KernelClock())
+        stacked, diag = run()
+        torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(label, launches, {"detect_tiles": 1, "warp_combine": 1})
+    _require("jax" not in sys.modules, "jax was imported")
+    min_in, max_rms, t_err = _check_registration(label, diag, mats)
+    med = _check_stack(label, stacked, size)
+    del stacked, diag
+    torch.cuda.empty_cache()
+    checks = [_plain_check(kind, calls[kind].call, label)
+              for kind in ("K1", "K2")]
+    # K2's bound there: the raw stack, three master planes and the image
+    k2_bound = _bound(_nbytes(fr) + 4 * 4 * size * size,
+                      fr.numel() * (30 + math.log2(n)))
+    out["lean"] = {"phase": label, "shape": [n, size, size],
+                   "raw_bytes": _nbytes(fr), "single_run_ms": single_ms,
+                   "kernel_ms": clock.ms(), "K2_bound": k2_bound,
+                   "routes": routes,
+                   "max_memory_allocated_bytes": peak, "launches": launches,
+                   "min_inliers": min_in, "max_rms_px": max_rms,
+                   "max_translation_err_px": t_err, "interior_median": med,
+                   "plain_checks": checks,
+                   "max_abs_err": {c["kernel"]: c["max_abs_err"]
+                                   for c in checks},
+                   "sky": SKY, "max_offset_px": max_off,
+                   "workload_gen_s": gen_s, "card": card}
+    _print(out["lean"])
+    del fr, kw, calls
+    torch.cuda.empty_cache()
+
+    # the unfused path at 1200 x 512^2, K3's launches against the twin
+    small = DEEP_SMALL
+    fr, bias, dark, flat, exp_ratio, _off, mats = \
+        make_workload_on_device(n, small, dev, seed=1)
+    er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
+    ulabel = f"deep unfused {n}x{small}^2 snap"
+    ucfg = unfused_config()
+    ukw = dict(bias=torch.from_numpy(bias).to(dev),
+               dark=torch.from_numpy(dark).to(dev),
+               flat=torch.from_numpy(flat).to(dev), exp_ratios=er)
+    _require(kernels._clip_route(n) == "global", f"{ulabel}: K3 route")
+    calibrate_register_stack(fr, config=ucfg, **ukw)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        k3 = stack.enter_context(_FirstCall(*_PIPELINE_CALLS["K3"],
+                                            keep=ucfg.n_bands))
+        clock = stack.enter_context(_KernelClock())
+        stacked, diag = calibrate_register_stack(fr, config=ucfg, **ukw)
+        torch.cuda.synchronize()
+    u_ms = (time.perf_counter() - t0) * 1e3
+    ulaunches = dict(kernels.launch_counts)
+    u_peak = torch.cuda.max_memory_allocated()
+    _check_launches(ulabel, ulaunches, {"clip_combine": ucfg.n_bands})
+    u_in, u_rms, u_err = _check_registration(ulabel, diag, mats,
+                                             UNFUSED_T_ERR_PX)
+    u_med = _check_stack(ulabel, stacked, small)
+    del stacked, diag
+    _require(len(k3.calls) == ucfg.n_bands, f"{ulabel}: K3 calls")
+    u_checks = [_plain_check("K3", c, f"{ulabel} band {i}")
+                for i, c in enumerate(k3.calls)]
+    out["unfused"] = {
+        "phase": ulabel, "shape": [n, small, small],
+        "single_run_ms": u_ms, "kernel_ms": clock.ms(),
+        "routes": {"K3": "global"}, "max_memory_allocated_bytes": u_peak,
+        "launches": ulaunches, "min_inliers": u_in, "max_rms_px": u_rms,
+        "max_translation_err_px": u_err, "interior_median": u_med,
+        "plain_checks": u_checks,
+        "max_abs_err": max(c["max_abs_err"] for c in u_checks),
+        "card": card}
+    _print(out["unfused"])
+    del fr, ukw, k3
+    torch.cuda.empty_cache()
+
+    # K2's lowrank body on its global route against the twin
+    nl = DEEP_LOWRANK_FRAMES
+    fr, bias, dark, flat, exp_ratio, _off, mats = \
+        make_workload_on_device(nl, small, dev, rotate=True, seed=2)
+    er = torch.full((nl,), exp_ratio, dtype=torch.float32, device=dev)
+    masters = _masters(bias, dark, flat, dev)[0]
+    lcfg = lean_config(True)
+    out["K2 rotated lowrank"] = check_warp_exact(
+        fr, torch.from_numpy(mats.astype(np.float32)).to(dev),
+        f"deep K2 {nl}x{small}^2 rotated lowrank", card, reps=2,
+        masters=masters, er=er, span=lcfg.warp_span, apron=True,
+        dither_budget=lcfg.dither_budget, general_taps=lcfg.general_taps)
+    _require(out["K2 rotated lowrank"]["route"] == "global",
+             f"deep K2 {nl} frames lowrank: route")
+    del fr, masters
+    torch.cuda.empty_cache()
+
+    # K3's global route on a 10 GB masked stack
+    n3, h3, w3 = DEEP_K3_SHAPE
+    label = f"deep K3 {n3}x{h3}x{w3} masked"
+    stack, mask = _clip_inputs_chunked(n3, h3, w3, dev, seed=7)
+    k = cc.clip_combine(stack, mask)
+    rows = slice(0, DEEP_K3_TWIN_ROWS)
+    p, plain_ms = _timed(lambda: cc.clip_combine_plain(stack[:, rows],
+                                                       mask[:, rows]))
+    err = _k3_exact(k[rows], p, f"{label}, rows 0-{DEEP_K3_TWIN_ROWS - 1}")
+    del k, p
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: cc.clip_combine(stack, mask), 2)
+    ops = stack.numel() * (5 + math.log2(n3))
+    out["K3"] = {"phase": "K3 vs clip_combine_plain", "case": label,
+                 "shape": [n3, h3, w3], "route": kernels._clip_route(n3),
+                 "twin_rows": DEEP_K3_TWIN_ROWS, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms,
+                 "plain_ms_whole_stack_estimate": plain_ms * h3
+                 / DEEP_K3_TWIN_ROWS,
+                 **_bound(_nbytes(stack, mask) + 4 * h3 * w3, ops),
+                 "card": card}
+    _print(out["K3"])
+    del stack, mask
+    torch.cuda.empty_cache()
+
+    # K1 past radius 16
+    nk, sk = DEEP_K1_FRAMES, DEEP_K1_SIZE
+    fr, bias, dark, flat, exp_ratio, _off, _mats = \
+        make_workload_on_device(nk, sk, dev, seed=3)
+    masters, b_t, du_t, f_t = _masters(bias, dark, flat, dev)
+    er = torch.full((nk,), exp_ratio, dtype=torch.float32, device=dev)
+    for fwhm in DEEP_K1_FWHM:
+        r = dt._kernel_params(fwhm)[1]
+        mf = dt.master_densities(b_t, du_t, f_t, fwhm=fwhm)
+        # a threshold below every density: each tile's best local peak
+        # (the lowered Gaussian of a 32-64 px FWHM leaves most tiles of
+        # this field below zero)
+        out[f"K1 r={r}"] = check_detect(
+            fr, torch.full((nk,), -1e30, device=dev), mf, masters[0], er,
+            f"deep {nk}x{sk}^2 radius {r} (fwhm {fwhm})", card, fwhm=fwhm)
+        _require(out[f"K1 r={r}"]["route"] == "separable",
+                 f"deep K1 radius {r}: route")
+        _require(out[f"K1 r={r}"]["live_tiles"] > 0,
+                 f"deep K1 radius {r}: no live tile")
+    del fr, masters, mf
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    _print({"phase": "deep", "wall_s": out["wall_s"],
+            "resident_blocks": {"/".join(map(str, k)): v
+                                for k, v in kernels._resident.items()},
+            "card": card})
+    return out
+
+
 def main(argv=None) -> int:
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.device import resolve_device
@@ -3041,34 +3539,43 @@ def main(argv=None) -> int:
         run_raw(card, dev)
     if "files" in phases:
         run_files(card, dev)
-    reduce = {}
+    reduce = deep = {}
     if "reduce" in phases:
         reduce = run_reduce(card, dev)
+    if "deep" in phases:
+        deep = run_deep(card, dev)
 
     if args.only is None:
         launches = snap["main"]["launches"]
         red = reduce["main"]
         mc_err = multichip["plain_max_abs_err"]
+        deep_err = deep["lean"]["max_abs_err"]
         k1 = dict(snap["detect_tiles"],
                   max_abs_err=max(snap["detect_tiles"]["max_abs_err"],
-                                  mc_err["K1"]))
+                                  mc_err["K1"], deep_err["K1"],
+                                  deep["K1 r=24"]["max_abs_err"],
+                                  deep["K1 r=48"]["max_abs_err"]))
         k2 = dict(snap["warp_combine"],
                   max_abs_err=max(snap["warp_combine"]["max_abs_err"],
                                   rot["warp_combine"]["max_abs_err"],
                                   reduce["K2 V"]["max_abs_err"],
                                   reduce["K2 R"]["max_abs_err"],
-                                  mc_err["K2"]))
+                                  mc_err["K2"], deep_err["K2"],
+                                  deep["K2 rotated lowrank"]["max_abs_err"]))
         k3 = dict(unfused["clip_combine"],
                   max_abs_err=max(unfused["clip_combine"]["max_abs_err"],
                                   reduce["K3 V"]["max_abs_err"],
-                                  mc_err["K3"]))
+                                  mc_err["K3"], deep["K3"]["max_abs_err"],
+                                  deep["unfused"]["max_abs_err"]))
+        deep_lean = deep["lean"]["launches"]
         _print({"kernels": [
             _kernel_entry("detect_tiles",
                           "astrophotography_tpu/ops/pallas_detect.py:405",
                           "lean",
                           {"lean": launches["detect_tiles"],
                            "multichip": _mc_launches(multichip,
-                                                     "detect_tiles")},
+                                                     "detect_tiles"),
+                           "deep": deep_lean["detect_tiles"]},
                           k1),
             _kernel_entry("warp_combine",
                           "astrophotography_tpu/ops/pallas_warp_combine.py:658",
@@ -3080,7 +3587,8 @@ def main(argv=None) -> int:
                            "reduce": red["ap_reduce"]["launches"]
                            ["warp_combine"],
                            "multichip": _mc_launches(multichip,
-                                                     "warp_combine")},
+                                                     "warp_combine"),
+                           "deep": deep_lean["warp_combine"]},
                           k2),
             _kernel_entry("clip_combine",
                           "astrophotography_tpu/ops/pallas_combine.py:102",
@@ -3092,7 +3600,9 @@ def main(argv=None) -> int:
                            "ap_stack pallas": red["ap_stack"]["pallas"]
                            ["launches"]["clip_combine"],
                            "multichip": _mc_launches(multichip,
-                                                     "clip_combine")},
+                                                     "clip_combine"),
+                           "deep unfused": deep["unfused"]["launches"]
+                           ["clip_combine"]},
                           k3),
         ]})
     print(card, flush=True)

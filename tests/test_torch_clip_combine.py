@@ -121,10 +121,12 @@ def test_mad_ranks_by_merging_equal_sorted_deviations(n):
 
 
 def test_clip_kernel_block_shapes():
-    """Every frame count up to the limit gets a route and a block whose
-    shared memory fits the 232,448 bytes a block may use; the limit has
-    not fallen below 454; one frame above it raises."""
-    limit = kernels._CLIP_MAX_FRAMES
+    """Every frame count up to the shared route's limit gets a route and a
+    block whose shared memory fits the 232,448 bytes a block may use; the
+    limit has not fallen below 454; 909 frames and above take the
+    'global' route (blocks of 128, no shared columns, a scratch sized to
+    the resident blocks)."""
+    limit = kernels._SMEM_FRAMES
     assert limit >= 454
     for n in range(1, limit + 1):
         threads = kernels._clip_block_threads(n)
@@ -141,8 +143,12 @@ def test_clip_kernel_block_shapes():
     assert kernels._clip_smem_bytes(100, 128) == 2 * 4 * 100 * 128
     assert [kernels._clip_block_threads(n) for n in (227, 228, 454, 455)] \
         == [128, 64, 64, 32]
-    with pytest.raises(ValueError, match="at most"):
-        kernels._clip_block_threads(limit + 1)
+    for n in (limit + 1, 1200, 100000):
+        assert kernels._clip_route(n) == "global"
+        assert kernels._clip_block_threads(n) == 128
+        assert kernels._clip_smem_bytes(n, 128) == 0
+    assert kernels._clip_scratch_bytes(1200, 2112) == \
+        2 * 4 * 1200 * 128 * 2112
     with pytest.raises(ValueError, match="at least 1"):
         kernels._clip_block_threads(0)
 

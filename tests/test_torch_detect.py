@@ -166,3 +166,30 @@ def test_detect_kernel_layout(n, h, w):
     assert kernels._detect_layout(100, 4096, 4096) == {
         "tile_cols": 2, "strip_tiles": 8, "threads": 160, "segments": 8,
         "smem_bytes": 16896}
+
+
+def test_detect_kernel_routes():
+    """K1's route for every radius the TPU kernel reaches (1 to 128: its
+    lane filter spans 128 columns and its band 128 binned rows each
+    side): the rolling kernel at 2 and 3, the staged tile at 1 and 4-16,
+    the separable route (column pass through device memory) from 17.
+    Radii past 128 raise."""
+    for r in range(1, 129):
+        assert kernels._detect_route(r) == (
+            "rolling" if r in (2, 3) else
+            "staged" if r <= 16 else "separable"), r
+    for r in (0, 129):
+        with pytest.raises(ValueError, match="radii 1 to 128"):
+            kernels._detect_route(r)
+
+
+@pytest.mark.parametrize("n,h,w,chunk", [(16, 4096, 4096, 16),
+                                         (100, 4096, 4096, 16),
+                                         (3, 64, 256, 3),
+                                         (1, 16384, 16384, 1)])
+def test_detect_separable_chunk(n, h, w, chunk):
+    """The separable route's G and Box planes (8 B per binned pixel) take
+    at most 1 GiB at once, or one frame's."""
+    got = kernels._detect_chunk(n, h, w)
+    assert got == chunk
+    assert got * 8 * (h // 2) * w <= max(1 << 30, 8 * (h // 2) * w)

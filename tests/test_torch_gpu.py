@@ -205,6 +205,25 @@ def test_detect_kernel_other_fwhm(cuda, fwhm, r):
                   **_detect_masters(n, h, w, cuda, fwhm=fwhm))
 
 
+@pytest.mark.parametrize("fwhm,r", [(22.7, 17), (32.0, 24), (64.0, 48)])
+@pytest.mark.parametrize("chunked", [False, True])
+def test_detect_kernel_separable_route(cuda, monkeypatch, fwhm, r, chunked):
+    """Radii past 16 (FWHM above ~22 px) take the separable route: the
+    column pass into G and Box planes in device memory, then the staged
+    tile's row pass and peak test on them; with ``chunked`` the planes
+    hold one frame at a time (three chunks)."""
+    assert dt._kernel_params(fwhm)[1] == r
+    assert kernels._detect_route(r) == "separable"
+    n, h, w = 3, 512, 1024
+    if chunked:
+        monkeypatch.setattr(kernels, "_DET_SCRATCH_MAX", 8 * (h // 2) * w)
+    assert kernels._detect_chunk(n, h, w) == (1 if chunked else n)
+    fr = torch.from_numpy(_starfield(n, h, w, 9)).to(cuda)
+    got = _detect_check(fr, torch.full((n,), 2.0, device=cuda), fwhm=fwhm,
+                        **_detect_masters(n, h, w, cuda, fwhm=fwhm))
+    assert bool((got[0] > -1e37).any())
+
+
 def _warp_mats(n, seed, rotate=True):
     """Frame 0 identity, frame 2 a pure translation (both snapped), the
     rest translations of up to 5 px with, under ``rotate``, rotations of
@@ -279,6 +298,50 @@ def test_warp_combine_kernel_many_frames(cuda, n, dtype, combine):
         frames, masters = frames.to(torch.float32) * 1.02 - 300.0, None
     _warp_check(frames, _warp_mats(n, 5, rotate=False), masters,
                 combine=combine)
+
+
+def _many_frames(n, h, w, seed):
+    """``n`` uint16 starfields: four distinct fields in turn, each frame
+    with its own noise."""
+    base = _starfield(4, h, w, seed).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    out = base[np.arange(n) % 4] + rng.normal(0, 4, (n, h, w))
+    return np.clip(out, 0, 65535).astype(np.uint16)
+
+
+@pytest.mark.parametrize("n,combine", [(909, "median"), (1200, "average")])
+@pytest.mark.parametrize("rotate,taps", [(False, "exact"), (True, "lowrank")])
+def test_warp_combine_kernel_global_route(cuda, n, combine, rotate, taps):
+    """Past 908 frames K2's N-sample columns live in a scratch of device
+    memory ('global'), sized to the resident blocks; the same sort and
+    merge keep it bit-identical to the twin, on the snap and the lowrank
+    bodies."""
+    assert kernels._warp_route(n, 12) == "global"
+    h, w = 64, 256
+    frames = torch.from_numpy(_many_frames(n, h, w, 4)).to(cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _warp_check(frames, _warp_mats(n, 5, rotate=rotate),
+                _warp_masters(h, w, cuda), combine=combine,
+                general_taps=taps)
+    # the scratch: an N-sample column per thread of each resident block
+    # (the grid is no larger than the 2 x 8 x 4 blocks of the image)
+    blocks = min(2 * 8 * 4, kernels._resident["warp_combine", cuda.index
+                                               or 0, 1, 12, 8])
+    assert torch.cuda.max_memory_allocated() - base >= \
+        kernels._warp_scratch_bytes(n, 8, blocks)
+
+
+def test_warp_combine_kernel_wide_window_takes_the_global_route(cuda):
+    """Below 909 frames, a window whose one-row block leaves the N-sample
+    columns no room in shared memory (908 frames at span 130) takes the
+    'global' route as well, bit-identical to the twin."""
+    n, span, h, w = 908, 130, 160, 256
+    assert kernels._warp_route(n, span) == "global"
+    frames = torch.from_numpy(_many_frames(n, h, w, 6)).to(cuda)
+    _warp_check(frames, _warp_mats(n, 7, rotate=False),
+                _warp_masters(h, w, cuda), tile=(144, 256), span=span)
 
 
 @pytest.mark.parametrize("taps", ["exact", "lowrank"])
@@ -389,20 +452,22 @@ def test_sharded_warp_combine_on_the_card_is_the_band_loop(cuda, rotate,
         assert torch.equal(res["stack"], want)
 
 
-def test_noise_stats_do_not_depend_on_the_batch(cuda):
+@pytest.mark.parametrize("center", ["mean", "median"])
+def test_noise_stats_do_not_depend_on_the_batch(cuda, center):
     """The noise statistics of 24 frames of 4096 columns on the card, at
     once and as 12 + 12 (a frame shard's): bit for bit, so every frame
-    shard of a mesh gets the one-device thresholds.  A reduction call
-    over the rows would not give that: its block shape follows the
-    number of rows."""
+    shard of a mesh gets the one-device thresholds, with either noise
+    centre.  A reduction call over the rows would not give that: its
+    block shape follows the number of rows."""
     from astrophotography_tpu_torch.models.pipeline import frame_noise_stats
 
     g = torch.Generator(device=cuda).manual_seed(3)
     frames = 800.0 + 8.0 * torch.randn((24, 1024, 4096), generator=g,
                                        device=cuda)
     frames[:, ::97, ::89] += 30000.0
-    whole = frame_noise_stats(frames)
-    halves = [frame_noise_stats(h) for h in (frames[:12], frames[12:])]
+    whole = frame_noise_stats(frames, center)
+    halves = [frame_noise_stats(h, center)
+              for h in (frames[:12], frames[12:])]
     for k in range(2):
         assert torch.equal(whole[k], torch.cat([h[k] for h in halves]))
 
@@ -471,9 +536,9 @@ def _clip_stack(n, h, w, seed):
 
 #: K3's route and block-shape boundaries: registers up to 8, 16, 24 and
 #: 32 frames, then shared memory in blocks of 128 (to 227 frames), 64 (to
-#: 454) and 32 threads (to the limit, 908)
+#: 454) and 32 threads (to 908), then the global route
 CLIP_FRAMES = [1, 2, 3, 7, 8, 9, 16, 17, 24, 25, 32, 33, 100, 227, 228, 454,
-               455, 908]
+               455, 908, 909, 1200]
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -482,7 +547,7 @@ def test_clip_combine_kernel_equals_plain(cuda, n, masked):
     """K3 rounds every value operation as its twin does, so the two agree
     bit for bit, NaN where nothing is kept included; the width (300) is
     no multiple of any block's."""
-    assert kernels._CLIP_MAX_FRAMES == CLIP_FRAMES[-1]
+    assert kernels._SMEM_FRAMES in CLIP_FRAMES
     stack, mask = _clip_stack(n, 96, 300, n)
     if not masked:           # valid non-finite samples are outside the contract
         stack = np.where(np.isfinite(stack), stack, np.float32(800.0))
@@ -516,9 +581,26 @@ def test_kernel_wrapper_rejects_bad_input(cuda):
         dt.detect_tiles(fr.to(torch.float32), torch.ones(3, device=cuda))
     with pytest.raises(ValueError, match="float32"):
         cc.clip_combine(fr, None)
-    with pytest.raises(ValueError, match="frames"):
-        cc.clip_combine(torch.zeros((kernels._CLIP_MAX_FRAMES + 1, 2, 2),
-                                    device=cuda))
+
+
+def test_clip_combine_909_frames_take_the_global_route(cuda):
+    """909 frames, one past the shared route, run on the 'global' route:
+    the wrapper allocates both columns of every thread of the resident
+    blocks (here 1 column of blocks x 2 rows) in device memory, and the
+    result is the twin's bit for bit."""
+    n = 909
+    assert kernels._clip_route(n) == "global"
+    g = torch.Generator(device=cuda).manual_seed(9)
+    st = 800.0 + 8.0 * torch.randn((n, 2, 100), generator=g, device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.launch_counts["clip_combine"]
+    got = cc.clip_combine(st)
+    assert kernels.launch_counts["clip_combine"] == before + 1
+    assert torch.cuda.max_memory_allocated() - base >= \
+        kernels._clip_scratch_bytes(n, 2)
+    assert torch.equal(got, cc.clip_combine_plain(st))
 
 
 # -- RAW conversion and the calibration engine: the card against the CPU --

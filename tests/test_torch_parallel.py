@@ -122,6 +122,25 @@ def _unfused_inputs():
 UNFUSED_CONFIGS = (dict(max_stars=16, match_k=8),
                    dict(max_stars=16, match_k=8, combine_impl="pallas",
                         n_bands=2))
+#: the unfused pipeline with ``badpix_mask`` and ``flux_scales``: 'xla'
+#: with the 'median' noise centre, 'pallas' (held to JAX too), 'fused'
+EXTRA_CONFIGS = (dict(max_stars=16, match_k=8, noise_center="median"),
+                 dict(max_stars=16, match_k=8, combine_impl="pallas",
+                      n_bands=2),
+                 dict(max_stars=16, match_k=8, combine_impl="fused"))
+
+
+def _extras_inputs(lights):
+    """The unfused lights with 60 hot pixels (+5000 ADU in every frame)
+    that ``badpix_mask`` marks, and flux scales around 1."""
+    rng = np.random.default_rng(21)
+    bad = np.zeros(lights.shape[1:], bool)
+    bad[rng.integers(0, 256, 60), rng.integers(0, 256, 60)] = True
+    frames = lights.copy()
+    frames[:, bad] += 5000.0
+    return {"frames": _t(frames), "badpix": _t(bad),
+            "flux_scales": _t(np.linspace(0.9, 1.2, 8).astype(np.float32)),
+            "configs": EXTRA_CONFIGS}
 
 
 def _lean_inputs():
@@ -176,7 +195,8 @@ def inputs():
         "warp_sq": [_raw_masters_case(256, 32)]
         + [_jax_case(*c) for c in JAX_CASES],
         "unfused": {"frames": _t(lights), "configs": UNFUSED_CONFIGS,
-                    "masters": {k: _t(v) for k, v in masters.items()}},
+                    "masters": {k: _t(v) for k, v in masters.items()},
+                    "extras": _extras_inputs(lights)},
         "lean": _lean_inputs(),
     }
 
@@ -417,6 +437,119 @@ def test_sharded_unfused_pipeline_matches_jax(ranks, unfused_refs):
     diff = np.abs(got.numpy() - want)
     assert np.median(diff) < 1e-3
     assert (diff > 1.0).mean() < 0.005
+
+
+@pytest.fixture(scope="module")
+def extras_refs(inputs):
+    """The one-device port with ``badpix_mask`` and ``flux_scales`` under
+    each EXTRA_CONFIGS entry, warping n_space x as many bands (the
+    whole frame under 'fused'), and JAX's frame-sharded run of the
+    'pallas' entry."""
+    unf = inputs["unfused"]
+    ext = unf["extras"]
+    kw = {**unf["masters"], "badpix_mask": ext["badpix"],
+          "flux_scales": ext["flux_scales"]}
+    port = []
+    for cfg in EXTRA_CONFIGS:
+        if cfg.get("combine_impl") != "fused":
+            cfg = {**cfg, "n_bands": 2 * cfg.get("n_bands", 1)}
+        port.append(calibrate_register_stack(
+            ext["frames"], config=PipelineConfig(**cfg), **kw))
+    return port, _jax_frame_sharded(
+        ext["frames"].numpy(), {k: v.numpy() for k, v in kw.items()},
+        JaxConfig(**EXTRA_CONFIGS[1]))
+
+
+def _jax_frame_sharded(frames, kw, cfg):
+    """tests/test_parallel.py:100-140's run: JAX's
+    ``calibrate_register_stack`` jitted on a 4x2 (frame, space) mesh of
+    the conftest's CPU devices, the frames sharded over 'frame', the
+    stack constrained to rows over 'space'."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    mesh = jpar.frame_space_mesh(n_frame=4, n_space=2,
+                                 devices=jax.devices()[:8])
+    with mesh:
+        sharded = jax.device_put(
+            frames, NamedSharding(mesh, P("frame", None, None)))
+
+        def step(fr):
+            stacked, diag = jax_unfused(
+                fr, config=cfg, **{k: jnp.asarray(v) for k, v in kw.items()})
+            stacked = jax.lax.with_sharding_constraint(
+                stacked, NamedSharding(mesh, P("space", None)))
+            return stacked, diag
+
+        out, diag = jax.jit(step)(sharded)
+    return np.asarray(out), {k: np.asarray(v) for k, v in diag.items()}
+
+
+@pytest.mark.parametrize("k,what", [(0, "xla, median noise centre"),
+                                    (1, "pallas")])
+def test_sharded_unfused_with_badpix_and_flux_is_the_band_loop(
+        ranks, extras_refs, k, what):
+    """``badpix_mask`` and ``flux_scales`` on the 2x2 mesh: the repair
+    and the scales work frame by frame, so the stack equals the
+    one-device port warping the same bands bit for bit, and the
+    diagnostics too (the 'median' noise statistics fold their sums)."""
+    want, wdiag = extras_refs[0][k]
+    for res in ranks:
+        got, diag, mats, halo = res["unfused_extras"][k]
+        assert torch.equal(got, want), what
+        _same_diagnostics(diag, {n: wdiag[n] for n in diag})
+        assert torch.equal(mats, wdiag["matrices"])
+        assert halo is None
+        assert diag["n_inliers"].min() >= 6
+
+
+def test_sharded_unfused_with_badpix_and_flux_matches_jax(ranks, extras_refs):
+    """The 'pallas' entry against JAX's frame-sharded run, by
+    test_sharded_unfused_pipeline_matches_jax's rule."""
+    want, jd = extras_refs[1]
+    got, diag, _mats, _halo = ranks[0]["unfused_extras"][1]
+    np.testing.assert_array_equal(diag["n_inliers"].numpy(), jd["n_inliers"])
+    assert diag["ref_frame"] == int(jd["ref_frame"])
+    for key in ("tx", "ty"):
+        np.testing.assert_allclose(diag[key].numpy(), jd[key], rtol=0,
+                                   atol=1e-3)
+    diff = np.abs(got.numpy() - want)
+    assert np.median(diff) < 1e-3
+    assert (diff > 1.0).mean() < 0.005
+
+
+def test_sharded_unfused_fused_is_the_band_loop(ranks, inputs, extras_refs):
+    """combine_impl='fused' on the 2x2 mesh: each rank gathers the
+    calibrated rows of its band and runs K2 over 'space' with the halo
+    the solved matrices need; bit for bit the band loop on the
+    one-device calibrated stack at that halo, the one-device diagnostics
+    bit for bit, the clip-tie rule against the one-device whole frame
+    (the bands round the snapped translation beside their row offset);
+    n_bands > 1 is refused, as on one device."""
+    from astrophotography_tpu_torch.ops.calibrate import calibrate_batch
+
+    unf = inputs["unfused"]
+    ext = unf["extras"]
+    cfg = PipelineConfig(**EXTRA_CONFIGS[2])
+    whole, wdiag = extras_refs[0][2]
+    m = unf["masters"]
+    cal = calibrate_batch(ext["frames"], m["bias"], m["dark"], m["flat"],
+                          m["exp_ratios"], badpix_mask=ext["badpix"]) \
+        * ext["flux_scales"][:, None, None]
+    _n, h, w = cal.shape
+    halos = {res["unfused_extras"][2][3] for res in ranks}
+    assert len(halos) == 1
+    (halo,) = halos
+    assert halo == _halo_of(ranks[0]["unfused_extras"][2][1], h, w)
+    banded = banded_warp_combine(cal, wdiag["matrices"], 2, halo=halo,
+                                 **lean_kernel_kwargs(cfg, h, w))
+    for res in ranks:
+        got, diag, mats, _halo = res["unfused_extras"][2]
+        _same_diagnostics(diag, {n: wdiag[n] for n in diag})
+        assert torch.equal(mats, wdiag["matrices"])
+        assert torch.equal(got, banded)
+    _clip_tie_rule(got, whole)
+    assert ranks[0]["fused_band_error"] == \
+        "combine_impl='fused' subsumes banding; use n_bands=1"
 
 
 def _lean_tie_rule(got, ref):

@@ -140,3 +140,35 @@ def test_frame_noise_stats_matches_jax(center):
     got = tpipe.frame_noise_stats(torch.from_numpy(frames), center=center)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5)
+
+
+def test_median_noise_stats_fold_their_sums():
+    """The 'median' noise statistics (``sigma_clipped_stats(sigma=3,
+    maxiters=3, axis=1)``'s median and std) with the std's sums folded by
+    ``_row_sums``: JAX's within the parity tolerance above, the port's
+    own ``sigma_clipped_stats`` within float32 rounding, and the same
+    bits for every frame whatever frames are beside it."""
+    from astrophotography_tpu.ops.stats import \
+        sigma_clipped_stats as jax_clipped
+    from astrophotography_tpu_torch.ops.stats import sigma_clipped_stats
+
+    rng = np.random.default_rng(11)
+    sub = rng.normal(800.0, 8.0, (7, 3000)).astype(np.float32)
+    sub[:, :40] += rng.uniform(1e3, 3e4, (7, 40)).astype(np.float32)
+    sub[2] = 512.0                                     # no spread at all
+    sub[4, ::3] = -200.0                               # a third low
+    x = torch.from_numpy(sub)
+    med, std = tpipe._noise_stats_from_sub(x, "median")
+    _mean, jmed, jstd = jax_clipped(jnp.asarray(sub), sigma=3.0, maxiters=3,
+                                    axis=1)
+    np.testing.assert_allclose(med.numpy(), np.asarray(jmed), rtol=1e-5)
+    np.testing.assert_allclose(std.numpy(), np.asarray(jstd), rtol=1e-5)
+    _m, pmed, pstd = sigma_clipped_stats(x, sigma=3.0, maxiters=3, axis=1)
+    assert torch.equal(med, pmed)
+    np.testing.assert_allclose(std.numpy(), pstd.numpy(), rtol=1e-6)
+    assert float(std[2]) == 0.0 and float(med[2]) == 512.0
+    for parts in ([3, 4], [1] * 7, [6, 1]):
+        got = [tpipe._noise_stats_from_sub(p, "median")
+               for p in torch.split(x, parts)]
+        assert torch.equal(torch.cat([g[0] for g in got]), med)
+        assert torch.equal(torch.cat([g[1] for g in got]), std)

@@ -233,18 +233,68 @@ def test_rejects_bad_arguments():
         twc.warp_combine(c, m, tile=(8, 64))
 
 
+@pytest.mark.parametrize("span", [4, 6, 7])
+def test_lowrank_needs_span_above_7(span):
+    """The lowrank body's gate su_lr <= min(span, 9) - 7 cannot hold at
+    span <= 7, where the reference silently excludes every frame that is
+    not a pure translation: the port refuses the configuration.  At span
+    8 the gate admits a small rotation."""
+    cal, _raw, _m, _mats, _er, _fs = _scene(3, 64, 128, seed=1)
+    th = 0.002
+    rot = np.array([[[1, 0, 0], [0, 1, 0]],
+                    [[np.cos(th), -np.sin(th), 1.5],
+                     [np.sin(th), np.cos(th), -0.5]],
+                    [[1, 0, 0.25], [0, 1, 0.5]]], np.float32)
+    c, m = torch.from_numpy(cal), torch.from_numpy(rot)
+    with pytest.raises(ValueError, match=r"needs span > 7, got "
+                                         f"{span}.*cannot hold"):
+        twc.plan_warp_combine(c.shape, m, tile=(32, 64), span=span,
+                              general_taps="lowrank")
+    twc.plan_warp_combine(c.shape, m, tile=(32, 64), span=span,
+                          general_taps="exact")
+    plan = twc.plan_warp_combine(c.shape, m, tile=(32, 64), span=8,
+                                 general_taps="lowrank")
+    assert plan.table[1, 8] == 0.0 and plan.table[1, 14] == 1.0
+
+
 def test_kernel_frame_limit_message():
-    """K2's wrapper refuses more frames than its limit before it touches
-    the card, with the limit in the message."""
+    """K2 has no frame limit of its own: up to 908 frames its N-sample
+    columns stay in shared memory ('smem'), from 909 on (and below, where
+    a window of one row leaves them no room) they take the 'global'
+    route, and no frame count is refused before the card."""
     from astrophotography_tpu_torch import kernels
 
-    assert kernels._MAX_FRAMES == 908
-    frames = torch.zeros((909, 4, 4), dtype=torch.uint16)
-    with pytest.raises(ValueError, match=r"^warp_combine kernel takes at "
-                                         r"most 908 frames, got 909$"):
-        kernels.warp_combine_cuda(frames, None, None, combine=0,
-                                  lowrank=False, sigma_lower=5.0,
-                                  sigma_upper=5.0)
+    assert not hasattr(kernels, "_MAX_FRAMES")
+    assert kernels._SMEM_FRAMES == 908
+    assert kernels._warp_route(908, 12) == "smem"
+    assert kernels._warp_route(909, 12) == "global"
+    assert kernels._warp_route(908, 122) == "smem"
+    assert kernels._warp_route(908, 123) == "global"
+    # the shared route's last count keeps one row; the global route all 8
+    assert kernels._warp_block_rows(908, 12) == 1
+    assert kernels._warp_block_rows(909, 12) == 8
+
+
+@pytest.mark.parametrize("n,span,rows", [
+    (909, 8, 8), (909, 12, 8), (1200, 12, 8), (5000, 100, 8), (1200, 190, 4),
+    (908, 150, 8), (500, 192, 1)])
+def test_kernel_global_route(n, span, rows):
+    """Past 908 frames, and below where the columns and the window of a
+    one-row block outgrow shared memory (908 frames at span 150), K2's
+    block keeps 8 rows of 32 pixels (no columns in shared memory, only
+    the window; a very wide span still costs rows), and its scratch is
+    an N-sample column per thread of each resident block: 264 blocks of
+    256 threads take ~324 MB at 1200 frames."""
+    from astrophotography_tpu_torch import kernels
+
+    assert kernels._warp_route(n, span) == "global"
+    assert kernels._warp_block_rows(n, span) == rows
+    assert kernels._warp_smem_bytes(0, rows, span) <= kernels._SMEM_MAX
+    if rows < 8:
+        assert kernels._warp_smem_bytes(0, rows + 1, span) > kernels._SMEM_MAX
+    assert kernels._warp_scratch_bytes(n, rows, 264) == \
+        4 * n * 32 * rows * 264
+    assert kernels._warp_scratch_bytes(1200, 8, 264) == 324403200
 
 
 @pytest.mark.parametrize("n,span,rows", [
@@ -275,3 +325,21 @@ def test_kernel_rejects_span_beyond_shared_memory():
 
     with pytest.raises(ValueError, match="shared memory"):
         kernels._warp_block_rows(908, 200)
+
+
+@pytest.mark.parametrize("combine", ["average", "median", "sum", "mean"])
+def test_plain_combine_in_row_bands_is_the_whole(monkeypatch, combine):
+    """The plain twin combines a deep stack in bands of rows, so that its
+    sorts fit the card; each pixel's result is its own, so bands of 5 rows
+    give the one-band result bit for bit."""
+    cal, raw, masters, mats, er, fs = _scene(6, 48, 64, 9)
+    args = dict(masters=torch.from_numpy(masters),
+                exp_ratios=torch.from_numpy(er),
+                flux_scales=torch.from_numpy(fs), tile=(16, 64), span=8,
+                combine=combine, sigma_lower=1.5, sigma_upper=1.5)
+    raw_t, mats_t = torch.from_numpy(raw), torch.from_numpy(mats)
+    whole = twc.warp_combine_plain(raw_t, mats_t, **args)
+    monkeypatch.setattr(twc, "_PLAIN_BAND_BYTES", 4 * 6 * 64 * 5)
+    banded = twc.warp_combine_plain(raw_t, mats_t, **args)
+    assert torch.equal(banded, whole)
+    assert (whole != 0).float().mean() > 0.5

@@ -104,6 +104,21 @@ def parity_rank(device, inp: dict) -> dict:
         lambda: sharded_calibrate_register_stack(
             local_frames(sq, unf["frames"]), sq,
             config=PipelineConfig(n_bands=3)))
+    res["fused_band_error"] = _error(
+        lambda: sharded_calibrate_register_stack(
+            local_frames(sq, unf["frames"]), sq,
+            config=PipelineConfig(combine_impl="fused", n_bands=2)))
+    # the repair and the flux scales, under each combine
+    ext = unf["extras"]
+    res["unfused_extras"] = []
+    for cfg in ext["configs"]:
+        out, diag = sharded_calibrate_register_stack(
+            local_frames(sq, ext["frames"]), sq,
+            **_replicated(sq, {**unf["masters"], "badpix_mask": ext["badpix"],
+                               "flux_scales": ext["flux_scales"]}),
+            config=PipelineConfig(**cfg))
+        res["unfused_extras"].append((gather_rows(sq, out), _diag(diag),
+                                      diag["matrices"], diag.get("halo")))
     res["lean"] = []
     for case in inp["lean"]:
         out, diag = sharded_calibrate_register_stack_lean(

@@ -164,11 +164,12 @@ def time_k1(libs: dict, dev, card: str) -> None:
     def launcher(lib, a=a_plane, m=mf, tile_cols=lay["tile_cols"],
                  strip_tiles=lay["strip_tiles"]):
         fn = lib.detect_tiles_launch
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                       p, i, p]
         ptr = kernels._ptr
         return lambda: _run(fn, ptr(fr), 1, ptr(a), ptr(m), ptr(thr), ptr(er),
                             par, *(ptr(o) for o in outs), n, h, w, r,
-                            tile_cols, strip_tiles, _stream())
+                            tile_cols, strip_tiles, None, 0, _stream())
 
     # a variant named "...@CxS" runs with C tile columns and S strip tiles
     runs = {}
@@ -190,12 +191,12 @@ def time_k1(libs: dict, dev, card: str) -> None:
 def k3_launcher(lib, stack, mask, out):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.clip_combine_launch
-    fn.argtypes = [p, p, p, i, i, i, f, f, i, p]
+    fn.argtypes = [p, p, p, i, i, i, f, f, i, p, i, p]
     n, h, w = stack.shape
     ptr = kernels._ptr
     nt = kernels._clip_block_threads(n)
     return lambda: _run(fn, ptr(stack), ptr(mask), ptr(out), n, h, w, 5.0, 5.0,
-                        nt, _stream())
+                        nt, None, 0, _stream())
 
 
 def time_k3(libs: dict, dev, card: str) -> None:
