@@ -35,41 +35,55 @@
 // multiset does not depend on how it was ordered, so the bits are the
 // twin's.  The clip and the frame-order sum then read the first copy.
 //
-// Three routes, chosen by N in clip_combine_launch (kernels._clip_route
-// mirrors the choice):
-//  * N <= 8, 16, 24 (the unfused path's N) and 32: the copy to sort lives
-//    in M = 8, 16, 24 or 32 registers, N padded to M with +inf; the
-//    frame-order copy is the thread's column of shared memory (12 KB a
-//    block at M = 24), which keeps the registers near 55 and the SM at
-//    8-9 blocks of 128 threads to hide the loads with.  The network is
-//    that of the next power of two, fully unrolled, without the
-//    comparators whose upper partner would be padding past M (every
-//    comparator puts its minimum at the lower index, so that padding
-//    never moves): 168 comparators at M = 24 against 240 at 32, two
-//    instructions each (min, max).  The deviations of the sorted
-//    registers form one bitonic sequence, which a single bitonic merge
-//    (log2 P stages, 52 comparators at M = 24) sorts; the ranks are
-//    picked with a select tree, so no register array is indexed at run
-//    time.
-//  * 32 < N <= 908: both copies are columns of shared memory (2 x N x 4 B
-//    per thread); the sort is sort_column of sort_network.cuh, as in K2,
-//    and the two runs are merged by walking two indices from the median
-//    outwards, at most c/2 + 1 steps.  The block has 128 threads up to
-//    N = 227, 64 up to 454 and 32 up to 908 (kernels._clip_block_threads),
-//    so that the two columns fit the 227 KB a block may use.
-//  * N > 908 ('global'): the same code with both columns in a scratch of
-//    device memory that the wrapper allocates, one slot of 2 x N x 128
-//    floats per block of 128 threads.  The grid holds only as many
-//    blocks as the card keeps resident (clip_combine_global_blocks), and
-//    they walk the rows, so the scratch does not grow with the image
-//    (2 x N x 4 B x 128 threads x the resident blocks).  The same sort and
-//    merge, so the
-//    route is bit-identical to the twin too; its column traffic goes to
-//    device memory, so it is slower per sample than the shared route.
+// Routes, chosen by N in kernels._clip_route (clip_combine_launch takes
+// the route the wrapper names):
+//  * N <= 8, 16, 24 (the unfused path's N) and 32 ('regs8' .. 'regs32'):
+//    the copy to sort lives in M = 8, 16, 24 or 32 registers, N padded
+//    to M with +inf; the frame-order copy is the thread's column of
+//    shared memory (12 KB a block at M = 24), which keeps the registers
+//    near 55 and the SM at 8-9 blocks of 128 threads to hide the loads
+//    with.  The network is that of the next power of two, fully
+//    unrolled, without the comparators whose upper partner would be
+//    padding past M (every comparator puts its minimum at the lower
+//    index, so that padding never moves): 168 comparators at M = 24
+//    against 240 at 32, two instructions each (min, max).  The
+//    deviations of the sorted registers form one bitonic sequence, which
+//    a single bitonic merge (log2 P stages, 52 comparators at M = 24)
+//    sorts; the ranks are picked with a select tree, so no register
+//    array is indexed at run time.
+//  * 'smem' (33 frames to kernels._CLIP_COLS_FRAMES): one thread per
+//    pixel in blocks of 128, both copies columns of shared memory (2 x N
+//    x 4 B per thread), the thread sorts its column alone with
+//    sort_column of sort_network.cuh.  Past ~200 frames its blocks would
+//    have to shrink, and 'cols' wins from 192 frames (the route sweep of
+//    chip_smoke.py's deep phase).
+//  * 'cols' (kernels._CLIP_COLS_FRAMES up to _CLIP_COLS_REACH): a block of W
+//    warps owns W neighbouring pixels of a row (W = 8, 4, 2 or 1, the
+//    most whose columns fit).  It reads their N x W samples and mask
+//    bytes once, W x 4 B per frame row, into two columns per pixel of
+//    shared memory (frame order with NaN for an invalid sample, and a
+//    copy to sort with +3.4e38); each warp sorts one pixel's copy with
+//    all 32 lanes (warp_sort.cuh: registers, shuffles, and on-chip
+//    merges past 1024 samples), finds the median at its ranks and the
+//    MAD by bisecting the two runs of deviations around it (kth_dev);
+//    then W lanes of one warp sum the W frame-order copies, one pixel
+//    each (the sum is serial, so one instruction stream should carry
+//    several).  No scratch: the stack and the mask are read once and
+//    nothing else touches device memory but the image.
+//  * 'select' (past the reach, where one pixel's two columns outgrow a
+//    block's shared memory): one warp per pixel, no copy at all.  Each
+//    rank is the smallest monotone key (float_key) whose count of
+//    samples at or below it exceeds the rank, bisected over the 32 key
+//    bits, every count a pass of the warp over the pixel's column of the
+//    stack (invalid samples count as +3.4e38, as in the twin's sort), so
+//    the ranks are the sort's.  ~66 passes over the stack: the route
+//    trades time for having no limit on N but the card's memory.
 // What is left over the bound at N = 24 is the load phase of a
 // thread-per-pixel layout (tools/k1_variants.py: without either network
-// the kernel is only a fifth faster); at N = 100 it is the shared-memory
-// sort, at two blocks per SM.
+// the kernel is only a fifth faster); on 'cols' at 1200 x 256 x 1024
+// masked (7.4 ms, bound 0.47) the warps' sorts take ~3.2 ms, the serial
+// frame-order sums ~1.6 and the loads with the rest ~2.6
+// (tools/cols_variants.py, H100).
 //
 // Every value operation rounds op by op (__fmul_rn / __fadd_rn /
 // __fsub_rn, IEEE division), in the plain twin's order, so kernel and twin
@@ -79,7 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sort_network.cuh"
+#include "sort_network.cuh"  // sort_column: the 'smem' route
+#include "warp_sort.cuh"     // sort_col and the ranks: 'cols'
 
 namespace {
 
@@ -225,25 +240,19 @@ clip_regs_kernel(const float* __restrict__ stack,
   }
 }
 
-// any N: both copies [n][nt] each, nt = blockDim.x, in shared memory or
-// (GLOBAL) in this block's slot of the scratch
-template <bool GLOBAL>
+// 'smem': both copies [n][nt] each, nt = blockDim.x, in shared memory;
+// one thread per pixel
 __global__ void __launch_bounds__(NT)
-clip_cols_kernel(const float* __restrict__ stack,
+clip_smem_kernel(const float* __restrict__ stack,
                  const uint8_t* __restrict__ mask, float* __restrict__ out,
-                 int n, int h, int w, float sigma_lo, float sigma_hi,
-                 float* __restrict__ scratch) {
+                 int n, int h, int w, float sigma_lo, float sigma_hi) {
   extern __shared__ float smem_cols[];
   const float QNAN = __int_as_float(0x7fc00000);
   const int nt = blockDim.x;
   const int x = blockIdx.x * nt + threadIdx.x;
   if (x >= w) return;  // no block-wide sync below
-  float* cols = smem_cols;
-  if (GLOBAL)
-    cols = scratch +
-           (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * 2 * (size_t)n * nt;
-  float* ord = cols + threadIdx.x;
-  float* srt = cols + (size_t)n * nt + threadIdx.x;
+  float* ord = smem_cols + threadIdx.x;
+  float* srt = smem_cols + (size_t)n * nt + threadIdx.x;
   const size_t plane = (size_t)h * w;
   for (int y = blockIdx.y; y < h; y += gridDim.y) {
     const size_t pix = (size_t)y * w + x;
@@ -287,36 +296,172 @@ clip_cols_kernel(const float* __restrict__ stack,
   }
 }
 
-constexpr int SMEM_FRAMES = 908;  // the shared route's limit (32 threads)
+// 'cols': words of one pixel's column (n rounded up to 32, plus a pad
+// that puts the W columns of a tile load on distinct banks); kernels.py
+// mirrors it (_clip_cols_smem_bytes)
+__host__ __device__ inline int cols_stride(int n, int W) {
+  const int pad = W >= 8 ? 4 : W >= 4 ? 8 : W >= 2 ? 16 : 0;
+  return ((n + 31) & ~31) + pad;
+}
+__host__ __device__ inline size_t cols_smem_bytes(int n, int W) {
+  return sizeof(float) * (2 * (size_t)W * cols_stride(n, W) + W * W + 2 * W);
+}
+
+// 'cols': a block of (32, W) threads, W in {1, 2, 4, 8}, owns pixels
+// blockIdx.x * W + [0, W) of a row; shared memory holds ord [W][CS], srt
+// [W][CS], each warp's count of valid samples per pixel [W][W] and each
+// pixel's clip bounds [W][2].  Warp w sorts pixel w's copy and finds its
+// bounds; then lane p of warp 0 sums pixel p's frame-order column, so
+// that one instruction stream carries W pixels' serial sums.
+__global__ void __launch_bounds__(256, 2)
+clip_warp_kernel(const float* __restrict__ stack,
+                 const uint8_t* __restrict__ mask, float* __restrict__ out,
+                 int n, int h, int w, float sigma_lo, float sigma_hi) {
+  extern __shared__ float smem_cols[];
+  const float QNAN = __int_as_float(0x7fc00000);
+  const int W = blockDim.y, lane = threadIdx.x, wp = threadIdx.y;
+  const int tid = wp * 32 + lane;
+  const int CS = cols_stride(n, W), s = col_shift(n);
+  float* ord = smem_cols;
+  float* srt = ord + (size_t)W * CS;
+  int* parts = reinterpret_cast<int*>(srt + (size_t)W * CS);
+  float* bounds = reinterpret_cast<float*>(parts + W * W);
+  const int x0 = blockIdx.x * W;
+  // the load: thread tid takes frames tid / W + 32 k of pixel p (the
+  // stride 32 W keeps p fixed), so a warp reads 32 / W frame rows of W
+  // neighbouring pixels at once
+  const int p = lane % W;
+  const bool in = x0 + p < w;
+  const size_t plane = (size_t)h * w;
+  for (int y = blockIdx.y; y < h; y += gridDim.y) {
+    __syncthreads();  // the previous row's columns are read
+    const size_t pix = (size_t)y * w + x0 + p;
+    int cnt = 0;
+#pragma unroll 8
+    for (int f = tid / W; f < n; f += 32) {
+      float v = QNAN, sv = BIG;
+      if (in) {
+        const bool ok = mask == nullptr || mask[f * plane + pix] != 0;
+        const float sx = stack[f * plane + pix];
+        v = ok ? sx : QNAN;
+        sv = ok ? sx : BIG;
+        cnt += ok;
+      }
+      ord[p * CS + swz(f, s)] = v;
+      srt[p * CS + swz(f, s)] = sv;
+    }
+    for (int m = 16; m >= W; m >>= 1) cnt += __shfl_xor_sync(WARP_ALL, cnt, m);
+    if (lane < W) parts[wp * W + lane] = cnt;
+    __syncthreads();
+    int count = 0;
+    for (int q = 0; q < W; ++q) count += parts[q * W + wp];
+    if (x0 + wp < w && count > 0) {  // warp-uniform
+      float* col = srt + (size_t)wp * CS;
+      sort_col(col, n, lane);
+      const Sorted c{col, s};
+      const int lo = max((count - 1) / 2, 0), hi = max(count / 2, 0);
+      const float med = mul(0.5f, add(c[lo], c[hi]));
+      // the valid samples are the first `count` of the sorted copy; the
+      // deviations of those below the median fall, the others rise
+      const int pm = lower_bound(c, count, med);
+      const float mad = mul(0.5f, add(kth_dev(c, pm, count, med, lo),
+                                      kth_dev(c, pm, count, med, hi)));
+      const Clip clip(med, mad, sigma_lo, sigma_hi);
+      if (lane == 0) {
+        bounds[2 * wp] = clip.lo;
+        bounds[2 * wp + 1] = clip.hi;
+      }
+    }
+    __syncthreads();
+    if (wp == 0 && lane < W && x0 + lane < w) {
+      int count_p = 0;
+      for (int q = 0; q < W; ++q) count_p += parts[q * W + lane];
+      float res = __int_as_float(0x7fc00000);
+      if (count_p > 0) {
+        Clip clip(0.0f, 0.0f, 0.0f, 0.0f);
+        clip.lo = bounds[2 * lane];
+        clip.hi = bounds[2 * lane + 1];
+        float acc = 0.0f;
+        int kept = 0;
+        const float* o = ord + (size_t)lane * CS;
+#pragma unroll 8
+        for (int f = 0; f < n; ++f) clip.take(o[swz(f, s)], acc, kept);
+        res = Clip::result(acc, kept);
+      }
+      out[(size_t)y * w + x0 + lane] = res;
+    }
+  }
+}
+
+// 'select': one warp per pixel (blocks of (32, 8)), the ranks bisected
+// over the keys of the pixel's column in the stack
+__global__ void __launch_bounds__(256)
+clip_select_kernel(const float* __restrict__ stack,
+                   const uint8_t* __restrict__ mask, float* __restrict__ out,
+                   int n, int h, int w, float sigma_lo, float sigma_hi) {
+  const int lane = threadIdx.x;
+  const int x = blockIdx.x * blockDim.y + threadIdx.y;
+  if (x >= w) return;  // no block-wide sync below
+  const size_t plane = (size_t)h * w;
+  for (int y = blockIdx.y; y < h; y += gridDim.y) {
+    const size_t pix = (size_t)y * w + x;
+    auto valid = [&](int f) {
+      return mask == nullptr || mask[f * plane + pix] != 0;
+    };
+    int count = 0;
+    for (int f = lane; f < n; f += 32) count += valid(f);
+    count = __reduce_add_sync(WARP_ALL, count);
+    float res = __int_as_float(0x7fc00000);
+    if (count > 0) {
+      // the smallest key t with more than k samples at or below it: the
+      // key of the sorted column's element k
+      auto rank = [&](auto sample, int k) {
+        unsigned lo = 0u, hi = 0xffffffffu;
+        while (lo < hi) {
+          const unsigned mid = lo + ((hi - lo) >> 1);
+          int c = 0;
+          for (int f = lane; f < n; f += 32) c += float_key(sample(f)) <= mid;
+          if (__reduce_add_sync(WARP_ALL, c) > k) hi = mid; else lo = mid + 1;
+        }
+        return float_of_key(lo);
+      };
+      const int lo = max((count - 1) / 2, 0), hi = max(count / 2, 0);
+      auto value = [&](int f) { return valid(f) ? stack[f * plane + pix] : BIG; };
+      const float med = mul(0.5f, add(rank(value, lo), rank(value, hi)));
+      auto dev = [&](int f) {
+        return valid(f) ? fabsf(sub(stack[f * plane + pix], med)) : BIG;
+      };
+      const Clip clip(med, mul(0.5f, add(rank(dev, lo), rank(dev, hi))),
+                      sigma_lo, sigma_hi);
+      float acc = 0.0f;
+      int kept = 0;
+      for (int f = 0; f < n; ++f)
+        clip.take(valid(f) ? stack[f * plane + pix] : __int_as_float(0x7fc00000),
+                  acc, kept);
+      res = Clip::result(acc, kept);
+    }
+    if (lane == 0) out[pix] = res;
+  }
+}
+
+// the routes clip_combine_launch takes (kernels._CLIP_ROUTE_CODES)
+enum { ROUTE_REGS = 0, ROUTE_SMEM = 1, ROUTE_COLS = 2, ROUTE_SELECT = 3 };
 
 }  // namespace
 
-// Blocks of the 'global' route the card keeps resident at once: the grid
-// and the scratch slots of that route (kernels.clip_combine_cuda).
-extern "C" int clip_combine_global_blocks(void) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, clip_cols_kernel<true>, NT, 0) != cudaSuccess)
-    return -1;
-  return sms * per_sm;
-}
-
-// nt: threads per block of the shared-memory route (a multiple of 32, at
-// most 128, with 2 * n * nt * 4 bytes within the block's limit); the
-// register routes (n <= 32) and the global one (n > 908) always run 128.
-// scratch: 2 * n * 128 floats for each of the global route's blocks,
-// which are (w + 127) / 128 by grid_rows; null on the other routes.
+// route: ROUTE_REGS (n <= 32: the register network for 8, 16, 24 or 32
+// frames), ROUTE_SMEM (param: threads per block, 128, with 2 * n * 128 *
+// 4 bytes within a block's limit), ROUTE_COLS
+// (param: warps per block, 1, 2, 4 or 8, with cols_smem_bytes within the
+// limit) or ROUTE_SELECT.
 extern "C" int clip_combine_launch(const float* stack, const uint8_t* mask,
                                    float* out, int n, int h, int w,
-                                   float sigma_lo, float sigma_hi, int nt,
-                                   float* scratch, int grid_rows,
-                                   void* stream) {
+                                   float sigma_lo, float sigma_hi, int route,
+                                   int param, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = h < 65535 ? h : 65535;
-  if (n <= 32) {
+  if (route == ROUTE_REGS) {
+    if (n < 1 || n > 32) return static_cast<int>(cudaErrorInvalidValue);
     dim3 grid((w + NT - 1) / NT, rows);
     if (n <= 8)
       clip_regs_kernel<8><<<grid, NT, 0, s>>>(stack, mask, out, n, h, w,
@@ -332,22 +477,36 @@ extern "C" int clip_combine_launch(const float* stack, const uint8_t* mask,
                                                sigma_lo, sigma_hi);
     return static_cast<int>(cudaGetLastError());
   }
-  if (n > SMEM_FRAMES) {
-    if (scratch == nullptr || grid_rows < 1 || grid_rows > rows)
-      return static_cast<int>(cudaErrorInvalidValue);
-    dim3 grid((w + NT - 1) / NT, grid_rows);
-    clip_cols_kernel<true><<<grid, NT, 0, s>>>(stack, mask, out, n, h, w,
-                                               sigma_lo, sigma_hi, scratch);
+  if (route == ROUTE_SELECT) {
+    dim3 grid((w + 7) / 8, rows);
+    clip_select_kernel<<<grid, dim3(32, 8), 0, s>>>(stack, mask, out, n, h, w,
+                                                    sigma_lo, sigma_hi);
     return static_cast<int>(cudaGetLastError());
   }
-  if (nt < 32 || nt > NT || nt % 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == ROUTE_COLS) {
+    const int W = param;
+    if (W != 1 && W != 2 && W != 4 && W != 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = cols_smem_bytes(n, W);
+    cudaError_t err = cudaFuncSetAttribute(
+        clip_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((w + W - 1) / W, rows);
+    clip_warp_kernel<<<grid, dim3(32, W), smem, s>>>(stack, mask, out, n, h, w,
+                                                     sigma_lo, sigma_hi);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route != ROUTE_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = param;
+  if (nt != NT) return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = sizeof(float) * 2 * (size_t)n * nt;
   cudaError_t err = cudaFuncSetAttribute(
-      clip_cols_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      clip_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((w + nt - 1) / nt, rows);
-  clip_cols_kernel<false><<<grid, nt, smem, s>>>(stack, mask, out, n, h, w,
-                                                 sigma_lo, sigma_hi, nullptr);
+  clip_smem_kernel<<<grid, nt, smem, s>>>(stack, mask, out, n, h, w, sigma_lo,
+                                          sigma_hi);
   return static_cast<int>(cudaGetLastError());
 }

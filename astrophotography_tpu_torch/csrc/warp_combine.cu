@@ -62,17 +62,41 @@
 // the median.  No per-thread array is indexed at run time (no local
 // memory).
 //
-// Two routes (kernels._warp_route picks one): up to 908 frames
-// the columns are shared memory, as above (the block loses rows as N
-// grows); past 908, or where one row's columns and window outgrow shared
-// memory ('global'), they move to a scratch in device memory, one slot
-// per resident block, and the blocks walk the output blocks
-// (warp_combine_global_kernel).  Only the card's memory limits N there.
+// Two routes (kernels._warp_route picks one by frames and span):
+//  * 'smem', the few-frame route: the columns are shared memory, as
+//    above, and each thread sorts its own, in blocks of 8 rows
+//    (kernels._WARP_SMEM_ROWS; past the frames where they fit, 'cols'
+//    wins: chip_smoke.py's route sweep).
+//  * 'cols', the many-frame route (warp_combine_cols_kernel): the grid
+//    holds the blocks the card keeps resident, each walks the output
+//    blocks (8 rows but for very wide windows), and the warp phase writes
+//    each sample once to the block's slot of a scratch in device memory
+//    ([n][nt], a coalesced row per frame).  Then the combine reads it back
+//    once, W = `by` pixels at a time (W x 4 B per frame row), into one
+//    column per warp of shared memory, and each warp sorts its pixel's
+//    column with all 32 lanes (warp_sort.cuh), finds the median at its
+//    ranks, the MAD by bisecting the two runs of deviations around it and
+//    the kept run by binary search, and sums the run from its sorted
+//    registers, serially, in ascending order.  So a sample crosses device
+//    memory once each way (9.6 KB a pixel at 1200 frames), where a thread
+//    that sorted its own column there walked it ~36 times.  At 1200 x
+//    512^2 the warp phase and the writes take ~2/3 of the time and the
+//    combine the rest, in which the sorts overlap the tile reads and
+//    barriers (tools/cols_variants.py).  A column longer than `run` (what
+//    a warp's share of shared memory holds, kernels._warp_cols_run: 7232
+//    frames at 8 rows) is sorted in runs of `run`, each written back to
+//    the slot in place, and combined by bisecting ranks over the sorted
+//    runs (monotone float keys, binary searches in each run) and summing
+//    the kept samples in ascending chunks of fewer than `run`, each
+//    gathered from the runs into the warp's column and sorted there
+//    (combine_runs).
+//    Only the card's memory limits N.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sort_network.cuh"  // sort_column: the combine's bitonic network
+#include "sort_network.cuh"  // sort_column: the 'smem' route's network
+#include "warp_sort.cuh"     // sort_col and the ranks: the 'cols' route
 
 namespace {
 
@@ -243,10 +267,13 @@ struct Rows {
 };
 
 // One output block, (bid_x, bid_y) in the grid of the shared route.
-// The N-sample columns are in shared memory, or (GLOBAL) in `gvals`, the
-// block's slot of a scratch in device memory ([n][nt] floats).
+// The N-sample columns are in shared memory, or (COLS) in `gvals`, the
+// block's slot of a scratch in device memory ([n + 2][nt] words); on
+// COLS the block then leaves each pixel's count of covered samples (0
+// where nothing is left to combine) and output offset in the slot's rows
+// n and n + 1 for cols_combine.
 // combine: 0 average, 1 median, 2 sum, 3 mean
-template <typename T, bool GLOBAL>
+template <typename T, bool COLS>
 __device__ __forceinline__ void warp_block(
     const T* __restrict__ frames, const float* __restrict__ masters,
     const float* __restrict__ ftab, const int* __restrict__ ttab,
@@ -255,8 +282,8 @@ __device__ __forceinline__ void warp_block(
     float sigma_hi, int by, int sbx, int sby, int bid_x, int bid_y,
     float* __restrict__ gvals) {
   extern __shared__ float smem[];
-  const Layout L = layout(GLOBAL ? 0 : n, by, span);
-  float* vals = GLOBAL ? gvals : smem + L.vals;
+  const Layout L = layout(COLS ? 0 : n, by, span);
+  float* vals = COLS ? gvals : smem + L.vals;
   float* win = smem + L.win;
   float* midb = smem + L.mid;
   float* hw = smem + L.hw;
@@ -359,12 +386,14 @@ __device__ __forceinline__ void warp_block(
     return sx >= 2.0f && sx <= (float)w0 - 4.0f && v >= P[9] && v <= P[10];
   };
 
+  // sample g of this pixel, [n][nt] in shared memory or in the slot
+  auto at = [&](int g) { return (size_t)g * nt + tid; };
   int count = 0;
   float macc = 0.0f;
   auto take = [&](int g, float val) {  // a covered sample, in frame order
     ++count;
     macc = add(macc, val);
-    vals[g * nt + tid] = val;
+    vals[at(g)] = val;
   };
 
   // vertical pass of frame g (snap or lowrank) from its mid rows
@@ -372,7 +401,7 @@ __device__ __forceinline__ void warp_block(
     if (!live) return;
     const float* P = slot(g);
     if (!covered(P)) {
-      vals[g * nt + tid] = BIG;
+      vals[at(g)] = BIG;
       return;
     }
     const float* mid = midb + (g & 1) * wrn * BX;
@@ -410,7 +439,7 @@ __device__ __forceinline__ void warp_block(
     if (!live) return;
     const float* P = slot(f);
     if (!covered(P)) {
-      vals[f * nt + tid] = BIG;
+      vals[at(f)] = BIG;
       return;
     }
     const int* Pi = reinterpret_cast<const int*>(P);
@@ -547,11 +576,27 @@ __device__ __forceinline__ void warp_block(
       exact(f);
       __syncthreads();  // the next frame restages the window
     } else if (k == OFF && live) {
-      vals[f * nt + tid] = BIG;
+      vals[at(f)] = BIG;
     }
     kp = k;
   }
   if (kp == SNAP || kp == LOW) vertical(n - 1, kp);
+  if (COLS) {
+    int* pc = reinterpret_cast<int*>(vals + (size_t)n * nt);
+    int left = 0;
+    if (live) {
+      float* o = out + (size_t)y * w0 + x;
+      if (count == 0)
+        *o = 0.0f;
+      else if (combine == 3)
+        *o = macc / (float)count;
+      else
+        left = count;
+    }
+    pc[tid] = left;
+    pc[nt + tid] = live ? y * w0 + x : 0;
+    return;
+  }
   if (!live) return;  // no block-wide sync below (in this block)
 
   float* o = out + (size_t)y * w0 + x;
@@ -632,33 +677,316 @@ warp_combine_kernel(const T* __restrict__ frames,
                        nullptr);
 }
 
-// The 'global' route, for N past the shared route's reach: the grid
-// holds only the blocks the card keeps resident (warp_combine_global_
-// blocks), each walks the output blocks (nbx per row of blocks, nblocks
-// in all) with a stride of the grid, and keeps its N-sample columns in
-// its own slot of `scratch` (n x nt floats, nt = 32 x by): 264 slots of
-// 256 threads, 324 MB at N = 1200, where the two blocks an SM allow.
-// The window, the horizontal pass and the ring of frame parameters stay
-// in shared memory; the sort and the merge are the shared route's, so
-// this route is bit-identical to the twin too.
+// 'cols': words of one warp's column of the combine tile (L rounded up
+// to 32, plus a pad that spreads the W columns of a tile load over the
+// banks), and the block's shared memory in words: the warp phase's
+// layout (no columns) and the tile over the same words.
+// kernels._warp_cols_smem_bytes mirrors it.
+__host__ __device__ inline int cols_stride(int L, int W) {
+  const int pad = W >= 8 ? 4 : W >= 4 ? 8 : W >= 2 ? 16 : 0;
+  return ((L + 31) & ~31) + pad;
+}
+__host__ __device__ inline int cols_words(int L, int by, int span) {
+  const int warp = layout(0, by, span).total, tile = by * cols_stride(L, by);
+  return warp > tile ? warp : tile;
+}
+
+// The clip of a sorted column of n samples whose first `count` are the
+// covered ones (the rest +3.4e38), in the twin's arithmetic: the kept
+// samples are the sorted run [below, below + cnt).
+struct Kept {
+  int below, cnt;
+};
+__device__ __forceinline__ Kept clip_sorted(const Sorted& c, int n, int count,
+                                            float sigma_lo, float sigma_hi) {
+  const int lo = max((count - 1) / 2, 0), hi = max(count / 2, 0);
+  const float med = mul(0.5f, add(c[lo], c[hi]));
+  // MAD over all n sorted deviations (an uncovered one is |3.4e38 - med|)
+  const int p = lower_bound(c, n, med);
+  const float sdev =
+      mul(MAD_HALF, add(kth_dev(c, p, n, med, lo), kth_dev(c, p, n, med, hi)));
+  const float lo_b = sub(med, mul(sigma_lo, sdev));
+  const float hi_b = add(med, mul(sigma_hi, sdev));
+  const int below = lower_bound(c, count, lo_b);
+  return {below, max(upper_bound(c, count, hi_b) - below, 0)};
+}
+
+__device__ __forceinline__ float kept_median(const Sorted& c, Kept k) {
+  return mul(0.5f, add(c[k.below + max((k.cnt - 1) / 2, 0)],
+                       c[k.below + k.cnt / 2]));
+}
+
+// The combine of a column of n <= 32 R samples, sorted by the warp in
+// registers: the ranks from the stored column, the kept run summed from
+// the registers (run_sum).
+template <int R>
+__device__ __forceinline__ float combine_run(float* col, int n, int count,
+                                             int combine, float sigma_lo,
+                                             float sigma_hi, int lane) {
+  float v[R];
+  sort_run<R>(col, n, lane, v);
+  const Sorted c{col, col_shift(n)};
+  const Kept k = clip_sorted(c, n, count, sigma_lo, sigma_hi);
+  if (k.cnt == 0) return 0.0f;
+  if (combine == 1) return kept_median(c, k);
+  const float acc = run_sum<R>(v, k.below, k.below + k.cnt, lane);
+  return combine == 2 ? acc : acc / (float)k.cnt;
+}
+
+// The combine of a column of n samples in shared memory, any n.
+__device__ __noinline__ float combine_col(float* col, int n, int count,
+                                          int combine, float sigma_lo,
+                                          float sigma_hi, int lane) {
+  switch (col_regs(n)) {
+    case 2: return combine_run<2>(col, n, count, combine, sigma_lo, sigma_hi, lane);
+    case 4: return combine_run<4>(col, n, count, combine, sigma_lo, sigma_hi, lane);
+    case 8: return combine_run<8>(col, n, count, combine, sigma_lo, sigma_hi, lane);
+    case 16: return combine_run<16>(col, n, count, combine, sigma_lo, sigma_hi, lane);
+    default: break;
+  }
+  if (n <= SORT_RUN)
+    return combine_run<32>(col, n, count, combine, sigma_lo, sigma_hi, lane);
+  sort_col(col, n, lane);  // runs of 1024 merged on chip
+  const Sorted c{col, col_shift(n)};
+  const Kept k = clip_sorted(c, n, count, sigma_lo, sigma_hi);
+  if (k.cnt == 0) return 0.0f;
+  if (combine == 1) return kept_median(c, k);
+  float acc = 0.0f;  // in ascending order, one add after another
+#pragma unroll 8
+  for (int e = k.below; e < k.below + k.cnt; ++e) acc = add(acc, c[e]);
+  return combine == 2 ? acc : acc / (float)k.cnt;
+}
+
+// A pixel's column in the slot as K sorted runs of `run` samples (the
+// last shorter): sample i of run r at base[(r * run + i) * stride].
+struct Runs {
+  const float* base;
+  int stride, n, run, K;
+  __device__ __forceinline__ int len(int r) const {
+    return min(run, n - r * run);
+  }
+  __device__ __forceinline__ float at(int r, int i) const {
+    return base[(size_t)(r * run + i) * stride];
+  }
+  // first index in [0, m) of run r where pred(value) turns true (pred is
+  // false, then true, along the run)
+  template <typename P>
+  __device__ __forceinline__ int find(int r, int m, P pred) const {
+    int lo = 0, hi = m;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (pred(at(r, mid))) hi = mid; else lo = mid + 1;
+    }
+    return lo;
+  }
+  // samples whose key is at most t
+  __device__ __forceinline__ int keys_le(unsigned t) const {
+    int c = 0;
+    for (int r = 0; r < K; ++r)
+      c += find(r, len(r), [&](float v) { return float_key(v) > t; });
+    return c;
+  }
+  // the key of the sorted column's sample k: the smallest key with more
+  // than k samples at or below it
+  __device__ __forceinline__ unsigned rank_key(int k) const {
+    unsigned lo = 0u, hi = 0xffffffffu;
+    while (lo < hi) {
+      const unsigned mid = lo + ((hi - lo) >> 1);
+      if (keys_le(mid) > k) hi = mid; else lo = mid + 1;
+    }
+    return lo;
+  }
+  // the k-th smallest deviation |v - med| over all n samples: in each run
+  // they fall left of the median and rise from it, so each count is two
+  // binary searches; bisected over the bits of a non-negative float
+  __device__ __forceinline__ float rank_dev(float med, int k) const {
+    unsigned lo = 0u, hi = 0x7f800000u;
+    while (lo < hi) {
+      const unsigned mid = lo + ((hi - lo) >> 1);
+      const float d = __uint_as_float(mid);
+      int c = 0;
+      for (int r = 0; r < K; ++r) {
+        const int m = len(r);
+        const int p = find(r, m, [&](float v) { return !(v < med); });
+        c += p - find(r, p, [&](float v) { return fabsf(v - med) <= d; });
+        const int q = find(r, m, [&](float v) {
+          return !(v < med) && fabsf(v - med) > d; });
+        c += q - p;
+      }
+      if (c > k) hi = mid; else lo = mid + 1;
+    }
+    return __uint_as_float(lo);
+  }
+};
+
+// combine_col over the K sorted runs of a column past `run` samples:
+// the same ranks (bisected), the same kept set, and its sum in ascending
+// order: chunks of fewer than `run` samples below a key t bisected at
+// the chunk's last rank, gathered from the runs into `col` and sorted
+// there, then the samples that equal t.  Every lane computes the same.
+__device__ float combine_runs(const Runs& R, int count, int combine,
+                              float sigma_lo, float sigma_hi, float* col,
+                              int lane) {
+  const int lo = max((count - 1) / 2, 0), hi = max(count / 2, 0);
+  const float med = mul(0.5f, add(float_of_key(R.rank_key(lo)),
+                                  float_of_key(R.rank_key(hi))));
+  const float sdev =
+      mul(MAD_HALF, add(R.rank_dev(med, lo), R.rank_dev(med, hi)));
+  const float lo_b = sub(med, mul(sigma_lo, sdev));
+  const float hi_b = add(med, mul(sigma_hi, sdev));
+  // per run: the covered samples [0, c_r), the kept ones [a_r, e_r)
+  auto covered = [&](int r) {
+    return R.find(r, R.len(r), [&](float v) { return !(v < BIG); });
+  };
+  auto kept_end = [&](int r) {
+    return R.find(r, covered(r), [&](float v) { return hi_b < v; });
+  };
+  auto kept_start = [&](int r) {
+    return R.find(r, covered(r), [&](float v) { return !(v < lo_b); });
+  };
+  int below = 0, cnt = 0;
+  for (int r = 0; r < R.K; ++r) {
+    const int a = kept_start(r);
+    below += a;
+    cnt += max(kept_end(r) - a, 0);
+  }
+  if (cnt == 0) return 0.0f;
+  if (combine == 1)
+    return mul(0.5f, add(float_of_key(R.rank_key(below + max((cnt - 1) / 2, 0))),
+                         float_of_key(R.rank_key(below + cnt / 2))));
+  float acc = 0.0f;
+  unsigned tprev = 0u;
+  bool first = true;
+  for (;;) {
+    // the first kept sample not yet summed, per run
+    auto start = [&](int r) {
+      return first ? kept_start(r)
+                   : R.find(r, R.len(r),
+                            [&](float v) { return float_key(v) > tprev; });
+    };
+    int rem = 0, rank0 = 0;
+    for (int r = 0; r < R.K; ++r) {
+      const int a = start(r);
+      rem += max(kept_end(r) - a, 0);
+      rank0 += a;
+    }
+    if (rem <= 0) break;
+    const bool last = rem <= R.run;
+    const unsigned t = last ? 0u : R.rank_key(rank0 + R.run - 1);
+    // gather [start, end) of each run: all that is left, or the keys below t
+    auto end = [&](int r) {
+      return last ? kept_end(r)
+                  : R.find(r, R.len(r),
+                           [&](float v) { return float_key(v) >= t; });
+    };
+    int total = 0;
+    for (int r = 0; r < R.K; ++r) total += max(end(r) - start(r), 0);
+    const int s = col_shift(total);
+    for (int r = 0, pos = 0; r < R.K; ++r) {
+      const int a = start(r), m = max(end(r) - a, 0);
+      for (int i = lane; i < m; i += 32) col[swz(pos + i, s)] = R.at(r, a + i);
+      pos += m;
+    }
+    __syncwarp();
+    sort_col(col, total, lane);
+    for (int e = 0; e < total; ++e) acc = add(acc, col[swz(e, s)]);
+    __syncwarp();
+    if (last) break;
+    int ties = 0;
+    for (int r = 0; r < R.K; ++r)
+      ties += R.find(r, R.len(r), [&](float v) { return float_key(v) > t; }) -
+              R.find(r, R.len(r), [&](float v) { return float_key(v) >= t; });
+    const float vt = float_of_key(t);
+    for (int m = 0; m < ties; ++m) acc = add(acc, vt);
+    tprev = t;
+    first = false;
+  }
+  return combine == 2 ? acc : acc / (float)cnt;
+}
+
+// The combine of one output block on 'cols', after the warp phase: W =
+// by pixels at a time (tid order: neighbours in a row), warp w on pixel
+// g + w.  With n <= run the block reads the group's n x W samples from
+// the slot (W words a frame row) into one column per warp once and each
+// warp sorts and combines its own; past `run` the runs are read, sorted
+// and written back one after another, then combine_runs reads them.
+__device__ __forceinline__ void cols_combine(float* __restrict__ slot,
+                                             float* __restrict__ out, int n,
+                                             int by, int run, int combine,
+                                             float sigma_lo, float sigma_hi) {
+  extern __shared__ float smem[];
+  const int W = by, nt = BX * by, lane = threadIdx.x, wp = threadIdx.y;
+  const int tid = wp * BX + lane;
+  const int* pc = reinterpret_cast<const int*>(slot + (size_t)n * nt);
+  const int CS = cols_stride(min(n, run), W);
+  float* col = smem + wp * CS;
+  const int K = (n + run - 1) / run;
+  for (int g = 0; g < nt; g += W) {
+    bool any = false;
+    for (int q = 0; q < W; ++q) any |= pc[g + q] > 0;
+    if (!any) continue;  // the same for every thread
+    const int q = g + wp, count = pc[q];
+    float* tile = slot + g;  // the group's samples, W words a frame row
+    float res = 0.0f;
+    for (int r = 0; r < K; ++r) {
+      const int f0 = r * run, len = min(run, n - f0), s = col_shift(len);
+      __syncthreads();  // the tile's readers are done
+#pragma unroll 8
+      for (int i = tid; i < len * W; i += nt) {
+        const int f = i / W, p = i - f * W;
+        smem[p * CS + swz(f, s)] = tile[(size_t)(f0 + f) * nt + p];
+      }
+      __syncthreads();
+      if (K == 1) {
+        if (count > 0)
+          res = combine_col(col, n, count, combine, sigma_lo, sigma_hi, lane);
+      } else {
+        if (count > 0) sort_col(col, len, lane);
+        __syncthreads();
+#pragma unroll 8
+        for (int i = tid; i < len * W; i += nt) {
+          const int f = i / W, p = i - f * W;
+          tile[(size_t)(f0 + f) * nt + p] = smem[p * CS + swz(f, s)];
+        }
+      }
+    }
+    if (K > 1) {
+      __syncthreads();  // the sorted runs are in the slot; the tile is free
+      if (count > 0)
+        res = combine_runs(Runs{tile + wp, nt, n, run, K}, count, combine,
+                           sigma_lo, sigma_hi, col, lane);
+    }
+    if (count > 0 && lane == 0) out[pc[nt + q]] = res;
+  }
+}
+
+// The 'cols' route: the grid holds only the blocks the card keeps
+// resident (warp_combine_cols_blocks); each walks the output blocks (nbx
+// per row of blocks, nblocks in all) with a stride of the grid and keeps
+// its samples in its own slot of `scratch` ((n + 2) x nt words, nt = 32
+// x by: the samples, then each pixel's count and output offset).
 template <typename T>
 __global__ void __launch_bounds__(BX * MAX_BY, 2)
-warp_combine_global_kernel(const T* __restrict__ frames,
-                           const float* __restrict__ masters,
-                           const float* __restrict__ ftab,
-                           const int* __restrict__ ttab,
-                           float* __restrict__ out, int n, int h0, int w0,
-                           int th, int tw, int n_tj, int n_tiles, int span,
-                           int lowrank, int combine, float sigma_lo,
-                           float sigma_hi, int by, int sbx, int sby, int nbx,
-                           int nblocks, float* __restrict__ scratch) {
-  float* col = scratch + (size_t)blockIdx.x * n * (BX * by);
+warp_combine_cols_kernel(const T* __restrict__ frames,
+                         const float* __restrict__ masters,
+                         const float* __restrict__ ftab,
+                         const int* __restrict__ ttab,
+                         float* __restrict__ out, int n, int h0, int w0,
+                         int th, int tw, int n_tj, int n_tiles, int span,
+                         int lowrank, int combine, float sigma_lo,
+                         float sigma_hi, int by, int sbx, int sby, int nbx,
+                         int nblocks, int run, float* __restrict__ scratch) {
+  float* slot = scratch + (size_t)blockIdx.x * (n + 2) * (BX * by);
   for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
     // the previous output block's threads are done with shared memory
     if (b != (int)blockIdx.x) __syncthreads();
     warp_block<T, true>(frames, masters, ftab, ttab, out, n, h0, w0, th, tw,
                         n_tj, n_tiles, span, lowrank, combine, sigma_lo,
-                        sigma_hi, by, sbx, sby, b % nbx, b / nbx, col);
+                        sigma_hi, by, sbx, sby, b % nbx, b / nbx, slot);
+    if (combine != 3) {
+      __syncthreads();
+      cols_combine(slot, out, n, by, run, combine, sigma_lo, sigma_hi);
+    }
   }
 }
 
@@ -685,43 +1013,43 @@ cudaError_t launch(const void* frames, const float* masters, const float* ftab,
 }
 
 template <typename T>
-cudaError_t launch_global(const void* frames, const float* masters,
-                          const float* ftab, const int* ttab, float* out,
-                          int n, int h0, int w0, int th, int tw, int n_ti,
-                          int n_tj, int span, int lowrank, int combine,
-                          float sigma_lo, float sigma_hi, int by,
-                          float* scratch, int grid_blocks,
-                          cudaStream_t stream) {
-  if (by < 1 || by > MAX_BY || scratch == nullptr || grid_blocks < 1)
+cudaError_t launch_cols(const void* frames, const float* masters,
+                        const float* ftab, const int* ttab, float* out, int n,
+                        int h0, int w0, int th, int tw, int n_ti, int n_tj,
+                        int span, int lowrank, int combine, float sigma_lo,
+                        float sigma_hi, int by, int run, float* scratch,
+                        int grid_blocks, cudaStream_t stream) {
+  if (by < 1 || by > MAX_BY || scratch == nullptr || grid_blocks < 1 ||
+      run < 32)
     return cudaErrorInvalidValue;
-  size_t smem = sizeof(float) * (size_t)layout(0, by, span).total;
+  const size_t smem = sizeof(float) * (size_t)cols_words(min(n, run), by, span);
   cudaError_t err = cudaFuncSetAttribute(
-      warp_combine_global_kernel<T>,
+      warp_combine_cols_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int sbx = (tw + BX - 1) / BX, sby = (th + by - 1) / by;
   const int nbx = n_tj * sbx, nblocks = nbx * n_ti * sby;
   dim3 block(BX, by);
-  warp_combine_global_kernel<T>
+  warp_combine_cols_kernel<T>
       <<<min(grid_blocks, nblocks), block, smem, stream>>>(
           static_cast<const T*>(frames), masters, ftab, ttab, out, n, h0, w0,
           th, tw, n_tj, n_ti * n_tj, span, lowrank, combine, sigma_lo,
-          sigma_hi, by, sbx, sby, nbx, nblocks, scratch);
+          sigma_hi, by, sbx, sby, nbx, nblocks, run, scratch);
   return cudaGetLastError();
 }
 
 template <typename T>
-int global_blocks(int span, int by) {
+int cols_blocks(int n, int span, int by, int run) {
   int dev = 0, sms = 0, per_sm = 0;
-  const size_t smem = sizeof(float) * (size_t)layout(0, by, span).total;
+  const size_t smem = sizeof(float) * (size_t)cols_words(min(n, run), by, span);
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
-      cudaFuncSetAttribute(warp_combine_global_kernel<T>,
+      cudaFuncSetAttribute(warp_combine_cols_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, warp_combine_global_kernel<T>, BX * by, smem) !=
+          &per_sm, warp_combine_cols_kernel<T>, BX * by, smem) !=
           cudaSuccess)
     return -1;
   return sms * per_sm;
@@ -729,15 +1057,18 @@ int global_blocks(int span, int by) {
 
 }  // namespace
 
-// Blocks of the 'global' route the card keeps resident at once for this
-// window (span) and block (by rows): its grid and its scratch slots.
-extern "C" int warp_combine_global_blocks(int is_u16, int span, int by) {
-  return is_u16 ? global_blocks<uint16_t>(span, by)
-                : global_blocks<float>(span, by);
+// Blocks of the 'cols' route the card keeps resident at once for n
+// frames, this window (span), block (by rows) and run: its grid and its
+// scratch slots.
+extern "C" int warp_combine_cols_blocks(int is_u16, int n, int span, int by,
+                                        int run) {
+  return is_u16 ? cols_blocks<uint16_t>(n, span, by, run)
+                : cols_blocks<float>(n, span, by, run);
 }
 
-// scratch: null for the shared route; for the global one n x 32 x
-// block_rows floats for each of its grid_blocks blocks
+// scratch: null for the 'smem' route; for 'cols' (n + 2) x 32 x
+// block_rows words for each of its grid_blocks blocks, and run the most samples of
+// a column the combine sorts at once (kernels._warp_cols_run)
 extern "C" int warp_combine_launch(const void* frames, int is_u16,
                                    const float* masters, const float* ftab,
                                    const int* ttab, float* out, int n, int h0,
@@ -745,18 +1076,18 @@ extern "C" int warp_combine_launch(const void* frames, int is_u16,
                                    int span, int lowrank, int combine,
                                    float sigma_lo, float sigma_hi,
                                    int block_rows, float* scratch,
-                                   int grid_blocks, void* stream) {
+                                   int grid_blocks, int run, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (scratch != nullptr)
-    err = is_u16 ? launch_global<uint16_t>(
+    err = is_u16 ? launch_cols<uint16_t>(
                        frames, masters, ftab, ttab, out, n, h0, w0, th, tw,
                        n_ti, n_tj, span, lowrank, combine, sigma_lo, sigma_hi,
-                       block_rows, scratch, grid_blocks, s)
-                 : launch_global<float>(
+                       block_rows, run, scratch, grid_blocks, s)
+                 : launch_cols<float>(
                        frames, masters, ftab, ttab, out, n, h0, w0, th, tw,
                        n_ti, n_tj, span, lowrank, combine, sigma_lo, sigma_hi,
-                       block_rows, scratch, grid_blocks, s);
+                       block_rows, run, scratch, grid_blocks, s);
   else
     err = is_u16 ? launch<uint16_t>(frames, masters, ftab, ttab, out, n, h0,
                                     w0, th, tw, n_ti, n_tj, span, lowrank,

@@ -129,16 +129,13 @@ def _load() -> dict:
             fn.restype = i
             fn = libs["warp_combine"].warp_combine_launch
             fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
-                           f, i, p, i, p]
+                           f, i, p, i, i, p]
             fn.restype = i
-            fn = libs["warp_combine"].warp_combine_global_blocks
-            fn.argtypes = [i, i, i]
+            fn = libs["warp_combine"].warp_combine_cols_blocks
+            fn.argtypes = [i, i, i, i, i]
             fn.restype = i
             fn = libs["clip_combine"].clip_combine_launch
-            fn.argtypes = [p, p, p, i, i, i, f, f, i, p, i, p]
-            fn.restype = i
-            fn = libs["clip_combine"].clip_combine_global_blocks
-            fn.argtypes = []
+            fn.argtypes = [p, p, p, i, i, i, f, f, i, i, p]
             fn.restype = i
             _libs = libs
         return _libs
@@ -279,26 +276,33 @@ def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
 
 #: the shared memory one block may use (227 KB)
 _SMEM_MAX = 232448
-#: the frame counts whose N-sample columns stay in shared memory, K2's
-#: and K3's limit from their first designs (2 x 4 B x 32 threads, or
-#: 4 B x 64 pixels, per sample); past it both take their 'global' route
-_SMEM_FRAMES = _SMEM_MAX // (4 * 64)
 #: K2's block: 32 output columns by up to 8 rows (csrc/warp_combine.cu)
 _WARP_BX, _WARP_MAX_ROWS = 32, 8
+#: K2's 'smem' route takes blocks of this many rows only (their columns
+#: and window must fit: up to 216 frames at span 8, 214 at span 12); and
+#: K2 takes 'cols' from _WARP_COLS_FRAMES frames on.  chip_smoke.py's
+#: route sweep (deep phase, 512^2, lean snap / lowrank windows, H100):
+#: 'smem' wins at 100 frames (1.33 against 2.39 ms / 2.02 against 3.22;
+#: 68.5 against 138.8 ms on the lean cell, 100 x 4096^2,
+#: tools/cols_variants.py), 'cols' from 150 (3.39 / 3.48 ms, 4.43 /
+#: 4.72; a tie, 3.31 / 3.30, in tools/cols_variants.py) and 200 (4.12 /
+#: 4.41, 6.06 / 6.39) on, 1.5-2x at 300-400 where a shared block would
+#: keep 5 or 4 rows, 7-24x from 600.
+_WARP_SMEM_ROWS, _WARP_COLS_FRAMES = 8, 150
 
 
-#: (kernel, device index, *arguments) -> blocks of its global route the
+#: (kernel, device index, *arguments) -> blocks of a persistent route the
 #: card keeps resident at once
 _resident: dict = {}
 
 
 def _resident_blocks(kernel: str, dev, *args) -> int:
-    """Blocks of a 'global' route the card keeps resident at once (the
+    """Blocks of K2's 'cols' route the card keeps resident at once (the
     route's grid and scratch slots), from the occupancy API; cached per
     device and arguments."""
     key = (kernel, dev.index, *args)
     if key not in _resident:
-        fn = getattr(_load()[kernel], f"{kernel}_global_blocks")
+        fn = getattr(_load()[kernel], f"{kernel}_cols_blocks")
         with torch.cuda.device(dev):
             blocks = fn(*args)
         if blocks < 1:
@@ -308,10 +312,11 @@ def _resident_blocks(kernel: str, dev, *args) -> int:
 
 
 def _warp_smem_bytes(n: int, rows: int, span: int) -> int:
-    """Shared memory of one K2 block of ``rows`` x 32 pixels (mirrors
-    ``layout`` in csrc/warp_combine.cu): the N-sample columns (none on the
-    global route: pass ``n`` = 0), the calibrated source window, the
-    horizontal pass, the tap weights, the ring of frame parameters."""
+    """Shared memory of one K2 block of ``rows`` x 32 pixels on the
+    'smem' route (mirrors ``layout`` in csrc/warp_combine.cu): the
+    N-sample columns (``n`` = 0: the warp phase alone, as on 'cols'), the
+    calibrated source window, the horizontal pass, the tap weights, the
+    ring of frame parameters."""
     bx = _WARP_BX
     wr, wc = rows + span, bx + span
     words = (n * bx * rows + wr * wc + 2 * wr * bx + wr * 8 + wr
@@ -319,56 +324,103 @@ def _warp_smem_bytes(n: int, rows: int, span: int) -> int:
     return 4 * words
 
 
+def _cols_stride(length: int, warps: int) -> int:
+    """Words of one warp's column on K2's and K3's 'cols' routes (mirrors
+    ``cols_stride`` in both sources): the samples rounded up to 32 and a
+    pad that spreads a tile load over the banks."""
+    pad = 4 if warps >= 8 else 8 if warps >= 4 else 16 if warps >= 2 else 0
+    return -(-length // 32) * 32 + pad
+
+
+def _warp_smem_rows(n: int, span: int) -> int:
+    """The most rows (<= 8) of a K2 'smem' block with ``n`` columns and a
+    window of ``span`` in shared memory; 0 where not even one fits."""
+    return next((r for r in range(_WARP_MAX_ROWS, 0, -1)
+                 if _warp_smem_bytes(n, r, span) <= _SMEM_MAX), 0)
+
+
 def _warp_route(n: int, span: int) -> str:
     """Which of K2's routes ``n`` frames with a window of ``span`` take:
-    'smem' up to 908 frames where a block of one row keeps its N-sample
-    columns and its window in shared memory; 'global' otherwise, the
-    columns in a scratch of device memory (the wrapper passes the
-    scratch only there, and ``warp_combine_launch`` follows it)."""
-    if n <= _SMEM_FRAMES and _warp_smem_bytes(n, 1, span) <= _SMEM_MAX:
+    'smem' below :data:`_WARP_COLS_FRAMES` frames where a block keeps
+    :data:`_WARP_SMEM_ROWS` rows with its columns and window in shared
+    memory, the threads sorting their own columns; 'cols' otherwise, the
+    samples in a scratch of device memory and the warps sorting one
+    column each on chip (the wrapper passes the scratch only there, and
+    ``warp_combine_launch`` follows it)."""
+    if n < _WARP_COLS_FRAMES and _warp_smem_rows(n, span) >= _WARP_SMEM_ROWS:
         return "smem"
-    return "global"
+    return "cols"
 
 
-def _warp_block_rows(n: int, span: int) -> int:
-    """The most rows (<= 8) a K2 block can have with ``n`` frames on
-    their route (the columns count only on the shared route).  Raises
-    only for a window that one row on the global route does not fit
-    (span past 192)."""
-    cols = n if _warp_route(n, span) == "smem" else 0
-    for rows in range(_WARP_MAX_ROWS, 0, -1):
-        if _warp_smem_bytes(cols, rows, span) <= _SMEM_MAX:
-            return rows
-    raise ValueError(f"warp_combine kernel: a window of span {span} needs "
-                     f"more than {_SMEM_MAX} B of shared memory per block")
+def _warp_block_rows(n: int, span: int, route: Optional[str] = None) -> int:
+    """The rows of a K2 block with ``n`` frames on ``route`` (by default
+    the one :func:`_warp_route` picks): 8 on 'smem', which takes no
+    smaller block (its columns and window must fit 8 rows); on 'cols' the
+    most (<= 8) whose window fits.  Raises for a window that one row does
+    not fit (span past 192)."""
+    route = route or _warp_route(n, span)
+    rows = _warp_smem_rows(n if route == "smem" else 0, span)
+    if route == "smem" and 0 < rows < _WARP_SMEM_ROWS:
+        raise ValueError(f"warp_combine 'smem' route: {n} frames at span "
+                         f"{span} leave a block {rows} rows, not "
+                         f"{_WARP_SMEM_ROWS}")
+    if rows == 0:
+        raise ValueError(f"warp_combine kernel: a window of span {span} needs "
+                         f"more than {_SMEM_MAX} B of shared memory per block")
+    return rows
+
+
+def _warp_cols_run(rows: int, span: int) -> int:
+    """The reach of K2's 'cols' route: the most samples of a column a
+    warp sorts on chip at once (a multiple of 32): the block's shared
+    memory split into ``rows`` columns.  Longer columns are sorted in runs
+    of this length and merged (``combine_runs`` in
+    csrc/warp_combine.cu)."""
+    return (_SMEM_MAX // 4 // rows - _cols_stride(0, rows)) // 32 * 32
+
+
+def _warp_cols_smem_bytes(n: int, rows: int, span: int, run: int) -> int:
+    """Shared memory of one K2 'cols' block (mirrors ``cols_words``): the
+    warp phase's window and the combine's tile of ``rows`` columns of
+    min(n, run) samples over the same words."""
+    tile = rows * _cols_stride(min(n, run), rows)
+    return 4 * max(_warp_smem_bytes(0, rows, span) // 4, tile)
 
 
 def _warp_scratch_bytes(n: int, rows: int, blocks: int) -> int:
-    """The global route's scratch: an N-sample column for each of the
-    32 x ``rows`` threads of each of ``blocks`` resident blocks."""
-    return 4 * n * _WARP_BX * rows * blocks
+    """The 'cols' route's scratch: for each of the 32 x ``rows`` pixels
+    of each of ``blocks`` resident blocks an N-sample column and two words
+    (its count of covered samples and its output offset)."""
+    return 4 * (n + 2) * _WARP_BX * rows * blocks
 
 
 def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
-                      sigma_lower: float, sigma_upper: float):
+                      sigma_lower: float, sigma_upper: float,
+                      route: Optional[str] = None):
     """Launch K2 (``csrc/warp_combine.cu``) on a prepared
     ``ops.warp_combine.WarpPlan``; see ``ops.warp_combine.warp_combine``
-    for the semantics."""
+    for the semantics.  ``route`` ('smem' or 'cols') overrides
+    :func:`_warp_route`, for the route sweep."""
     dev = frames.device
     n, h0, w0 = frames.shape
-    rows = _warp_block_rows(n, plan.span)
+    route = route or _warp_route(n, plan.span)
+    if route not in ("smem", "cols"):
+        raise ValueError(f"warp_combine kernel has no route {route!r}")
+    rows = _warp_block_rows(n, plan.span, route)
     frames, is_u16 = _frames_arg(frames)
     masters = _check(masters, "masters", dev, (3, h0, w0))
     table = _check(plan.table, "plan.table", dev, (n, 16))
     tiles = _check(plan.tiles, "plan.tiles", dev,
                    (n, plan.n_ti * plan.n_tj, 3), dtype=torch.int32)
     out = torch.empty((h0, w0), dtype=torch.float32, device=dev)
-    scratch, grid = None, 0
-    if _warp_route(n, plan.span) == "global":
+    scratch, grid, run = None, 0, 0
+    if route == "cols":
+        run = _warp_cols_run(rows, plan.span)
         blocks = (plan.n_tj * -(-plan.tw // _WARP_BX)
                   * plan.n_ti * -(-plan.th // rows))
         grid = min(blocks, _resident_blocks("warp_combine", dev, is_u16,
-                                             plan.span, rows))
+                                             min(n, run), plan.span, rows,
+                                             run))
         scratch = torch.empty((_warp_scratch_bytes(n, rows, grid) // 4,),
                               dtype=torch.float32, device=dev)
     lib = _load()["warp_combine"]
@@ -377,60 +429,95 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
         _ptr(frames), is_u16, _ptr(masters), _ptr(table), _ptr(tiles),
         _ptr(out), n, h0, w0, plan.th, plan.tw, plan.n_ti, plan.n_tj,
         plan.span, int(lowrank), combine, sigma_lower, sigma_upper, rows,
-        _ptr(scratch), grid, ctypes.c_void_p(stream))
+        _ptr(scratch), grid, run, ctypes.c_void_p(stream))
     _raise_on(err, "warp_combine")
     launch_counts["warp_combine"] += 1
     return out
 
 
 #: K3 sorts N <= 32 samples in registers (padded to 8, 16, 24 or 32);
-#: up to 908 it keeps two columns of shared memory per thread (frame
-#: order and sorted, 4 B per sample each) in blocks of 128, 64 or 32
-#: threads; above, both columns in a scratch of device memory, blocks of
-#: 128 (csrc/clip_combine.cu)
+#: then each thread sorts its pixel's column of shared memory ('smem',
+#: blocks of 128 threads, two columns of N x 4 B each: at most 227
+#: frames); from _CLIP_COLS_FRAMES a block of 8, 4, 2 or 1 warps keeps
+#: its pixels' columns in shared memory and each warp sorts one ('cols');
+#: past the reach, where one pixel's two columns outgrow a block, each
+#: rank is bisected over the stack ('select') (csrc/clip_combine.cu)
 _CLIP_REG_FRAMES = (8, 16, 24, 32)
-_CLIP_THREADS = (128, 64, 32)
+_CLIP_COLS_WARPS = (8, 4, 2, 1)
+_CLIP_SMEM_THREADS = 128
+_CLIP_SMEM_FRAMES = _SMEM_MAX // (2 * 4 * _CLIP_SMEM_THREADS)
+#: K3 takes 'cols' from this many frames on: chip_smoke.py's route sweep
+#: (deep phase, masked 256 x 1024, H100): 'smem' wins at 33, 64 and 128
+#: frames (0.11 / 0.18 / 0.85 ms against 0.66 / 0.77 / 1.12), 'cols' from
+#: 192 (1.48 / 1.63) on, 2.5-9x from 228, where 'smem' blocks would halve
+_CLIP_COLS_FRAMES = 192
+#: the route codes of ``clip_combine_launch``
+_CLIP_ROUTE_CODES = {"regs": 0, "smem": 1, "cols": 2, "select": 3}
+
+
+def _clip_cols_smem_bytes(n: int, warps: int) -> int:
+    """Shared memory of one K3 'cols' block of ``warps`` pixels (mirrors
+    ``cols_smem_bytes``): two columns per pixel, a count per warp and
+    pixel, two clip bounds per pixel."""
+    return 4 * (2 * warps * _cols_stride(n, warps) + warps * warps
+                + 2 * warps)
+
+
+def _clip_cols_warps(n: int) -> int:
+    """Warps (pixels) of a K3 'cols' block: the most whose columns fit,
+    0 past the reach."""
+    return next((w for w in _CLIP_COLS_WARPS
+                 if _clip_cols_smem_bytes(n, w) <= _SMEM_MAX), 0)
+
+
+#: the reach of K3's 'cols' route: the most frames whose two columns one
+#: warp keeps in a block's shared memory (29024)
+_CLIP_COLS_REACH = max(n for n in range(32, 32768, 32)
+                       if _clip_cols_smem_bytes(n, 1) <= _SMEM_MAX)
 
 
 def _clip_route(n: int) -> str:
     """Which of K3's routes ``n`` frames take: 'regs8', 'regs16',
-    'regs24', 'regs32', 'smem' or 'global' (mirrors
-    ``clip_combine_launch``)."""
+    'regs24', 'regs32', 'smem', 'cols' or 'select'."""
+    if n < 1:
+        raise ValueError(f"clip_combine kernel needs at least 1 frame, got {n}")
     for p in _CLIP_REG_FRAMES:
         if n <= p:
             return f"regs{p}"
-    return "smem" if n <= _SMEM_FRAMES else "global"
+    if n < _CLIP_COLS_FRAMES:
+        return "smem"
+    return "cols" if n <= _CLIP_COLS_REACH else "select"
 
 
-def _clip_smem_bytes(n: int, threads: int) -> int:
-    """Dynamic shared memory of one K3 block: none on the register and
-    global routes, two N-sample columns per thread on the shared one."""
-    return 2 * 4 * n * threads if _clip_route(n) == "smem" else 0
+def _clip_smem_threads(n: int) -> int:
+    """Threads of a K3 'smem' block (128), whose two columns per thread
+    must fit shared memory: at most 227 frames."""
+    if not 1 <= n <= _CLIP_SMEM_FRAMES:
+        raise ValueError(f"clip_combine 'smem' route takes 1 to "
+                         f"{_CLIP_SMEM_FRAMES} frames, got {n}")
+    return _CLIP_SMEM_THREADS
 
 
-def _clip_block_threads(n: int) -> int:
-    """The widest K3 block whose columns fit a block's shared memory
-    (128 on the register and global routes)."""
-    if n < 1:
-        raise ValueError(f"clip_combine kernel needs at least 1 frame, got {n}")
-    return next(t for t in _CLIP_THREADS
-                if _clip_smem_bytes(n, t) <= _SMEM_MAX)
-
-
-def _clip_scratch_bytes(n: int, blocks: int) -> int:
-    """The global route's scratch: two N-sample columns for each of the
-    128 threads of each of ``blocks`` blocks."""
-    return 2 * 4 * n * _CLIP_THREADS[0] * blocks
-
-
-def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float):
+def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float,
+                      route: Optional[str] = None):
     """Launch K3 (``csrc/clip_combine.cu``); see
-    ``ops.clip_combine.clip_combine`` for the semantics."""
+    ``ops.clip_combine.clip_combine`` for the semantics.  ``route``
+    ('regs', 'smem', 'cols' or 'select') overrides :func:`_clip_route`,
+    for the route sweep."""
     dev = stack.device
     if stack.dim() != 3:
         raise ValueError(f"stack must be (N, H, W), got {tuple(stack.shape)}")
     n, h, w = stack.shape
-    threads = _clip_block_threads(n)        # raises without a frame
+    route = route or _clip_route(n)      # raises without a frame
+    route = "regs" if route.startswith("regs") else route
+    if route == "regs" and n > _CLIP_REG_FRAMES[-1]:
+        raise ValueError(f"clip_combine 'regs' route takes at most "
+                         f"{_CLIP_REG_FRAMES[-1]} frames, got {n}")
+    param = {"smem": _clip_smem_threads, "cols": _clip_cols_warps}.get(
+        route, lambda n: 0)(n)
+    if route == "cols" and param == 0:
+        raise ValueError(f"clip_combine 'cols' route takes at most "
+                         f"{_CLIP_COLS_REACH} frames, got {n}")
     if stack.dtype != torch.float32:
         raise ValueError(f"stack must be float32, got {stack.dtype}")
     stack = _check(stack, "stack", dev)
@@ -440,19 +527,11 @@ def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float):
         mask = _check(mask, "mask", dev, (n, h, w), dtype=torch.bool) \
             .view(torch.uint8)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
-    scratch, grid_rows = None, 0
-    if _clip_route(n) == "global":
-        # blocks of 128 columns by grid_rows rows walk the image's rows
-        cols = -(-w // threads)
-        grid_rows = max(1, min(h, 65535,
-                               _resident_blocks("clip_combine", dev) // cols))
-        scratch = torch.empty((_clip_scratch_bytes(n, cols * grid_rows) // 4,),
-                              dtype=torch.float32, device=dev)
     lib = _load()["clip_combine"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.clip_combine_launch(
         _ptr(stack), _ptr(mask), _ptr(out), n, h, w, sigma_lower,
-        sigma_upper, threads, _ptr(scratch), grid_rows,
+        sigma_upper, _CLIP_ROUTE_CODES[route], param,
         ctypes.c_void_p(stream))
     _raise_on(err, "clip_combine")
     launch_counts["clip_combine"] += 1

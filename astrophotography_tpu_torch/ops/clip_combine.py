@@ -123,6 +123,81 @@ def mad_ranks_by_merging(srt: torch.Tensor, count: torch.Tensor,
     return d_lo, d_hi
 
 
+def mad_ranks_by_search(srt: torch.Tensor, count: torch.Tensor,
+                        med: torch.Tensor, end: Optional[torch.Tensor] = None):
+    """The MAD's two ranks as the 'cols' routes of K2 and K3 take them
+    (``kth_dev`` in csrc/warp_sort.cuh); a plain statement of the rule for
+    the tests, used by no path.
+
+    Same arguments and result as :func:`mad_ranks_by_merging`, with
+    ``end`` (default ``count``) the samples whose deviations take part
+    (K2 passes N: its uncovered samples' deviations rank too).  With
+    ``p`` the first of them not below the median, the deviations form two
+    ascending runs, A(i) = |srt[p-1-i] - med| and B(j) = |srt[p+j] - med|;
+    the k-th smallest of their union takes i of the first k + 1 from A,
+    where i is the first with A(i) >= B(k-i), found by bisection.  It is
+    the k-th of the merged runs whatever order ties take."""
+    n = srt.shape[0]
+    end = count if end is None else end
+    lo_i = torch.clamp(torch.div(count - 1, 2, rounding_mode="floor"), min=0)
+    hi_i = torch.clamp(torch.div(count, 2, rounding_mode="floor"), min=0)
+    rank = torch.arange(n, device=srt.device).reshape((n,) + (1,) * med.dim())
+    p = ((srt < med) & (rank < end)).sum(dim=0)
+
+    def dev(i):
+        s = srt.gather(0, i.clamp(0, n - 1)[None])[0]
+        return (s - med).abs()
+
+    def kth(k):
+        na, nb = p, end - p
+        lo = torch.clamp(k + 1 - nb, min=0)
+        hi = torch.minimum(k + 1, na)
+        for _ in range(max(n, 1).bit_length() + 1):
+            mid = torch.div(lo + hi, 2, rounding_mode="floor")
+            more = (lo < hi) & (dev(p - 1 - mid) < dev(p + k - mid))
+            lo, hi = torch.where(more, mid + 1, lo), \
+                torch.where((lo < hi) & ~more, mid, hi)
+        j = k + 1 - lo
+        a = torch.where(lo > 0, dev(p - lo), 0.0)
+        b = torch.where(j > 0, dev(p + j - 1), 0.0)
+        return torch.maximum(a, b)
+
+    return kth(lo_i), kth(hi_i)
+
+
+def float_keys(x: torch.Tensor) -> torch.Tensor:
+    """Monotone integer keys of float32 values (``float_key`` in
+    csrc/warp_sort.cuh): key(x) < key(y) exactly when x < y, -0 and +0
+    one key.  int64 holding the unsigned 32-bit key."""
+    x = torch.where(x == 0, torch.zeros_like(x), x.to(torch.float32))
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+
+
+def float_of_keys(t: torch.Tensor) -> torch.Tensor:
+    """float32 values of :func:`float_keys` (a zero comes back +0)."""
+    u = torch.where(t >= 0x80000000, t & 0x7FFFFFFF, 0xFFFFFFFF - t)
+    return torch.where(u >= 0x80000000, u - (1 << 32), u) \
+        .to(torch.int32).view(torch.float32)
+
+
+def rank_by_bisection(values: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The value at rank ``k`` (...) of each column of ``values`` (N,
+    ...) without a sort, as K3's 'select' route and K2's runs past the
+    'cols' reach take it; a plain statement of the rule for the tests,
+    used by no path.  It is the smallest key t whose count of keys at or
+    below it exceeds k, bisected over the 32 key bits: the key of the
+    sorted column's element k, so the sort's value (a zero as +0)."""
+    keys = float_keys(values)
+    lo = torch.zeros_like(k, dtype=torch.int64)
+    hi = torch.full_like(lo, 0xFFFFFFFF)
+    for _ in range(32):
+        mid = lo + torch.div(hi - lo, 2, rounding_mode="floor")
+        many = (keys <= mid[None]).sum(dim=0) > k
+        lo, hi = torch.where(many, lo, mid + 1), torch.where(many, mid, hi)
+    return float_of_keys(lo)
+
+
 def clip_combine(stack: torch.Tensor, mask: Optional[torch.Tensor] = None,
                  sigma_lower: float = 5.0,
                  sigma_upper: float = 5.0) -> torch.Tensor:

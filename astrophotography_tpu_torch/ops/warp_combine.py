@@ -420,6 +420,68 @@ def _combine_plain(vals: torch.Tensor, combine: str, sigma_lower: float,
     return torch.where(cnt > 0, out, 0.0)
 
 
+def combine_by_runs(vals: torch.Tensor, combine: str, sigma_lower: float,
+                    sigma_upper: float, run: int) -> torch.Tensor:
+    """One pixel's combine as K2's 'cols' route takes it past its reach
+    (``combine_runs`` in csrc/warp_combine.cu); a plain statement of the
+    rule for the tests, used by no path.
+
+    ``vals`` (N,) holds the pixel's samples in frame order (+3.4e38 =
+    uncovered).  The column is cut into runs of ``run`` samples, each
+    sorted; every rank is the key bisected over the runs (the smallest
+    key with more than k samples at or below it), the MAD's over the
+    deviations; the kept samples are summed in ascending order in chunks:
+    the samples whose key is below t, the key at the chunk's last rank
+    (fewer than ``run``, gathered and sorted), then the samples equal to
+    t one after another.  Returns the 0-dim result, the same as
+    :func:`_combine_plain` on the column."""
+    from .clip_combine import float_keys, float_of_keys, rank_by_bisection
+
+    n = vals.shape[0]
+    col = torch.cat([torch.sort(vals[i:i + run]).values
+                     for i in range(0, n, run)]).to(torch.float32)
+    keys = float_keys(col)
+    zero = torch.zeros((), dtype=torch.float32)
+
+    def rank(values, k):
+        return rank_by_bisection(values[:, None], torch.tensor([k]))[0]
+
+    covered = col < _BIG
+    count = int(covered.sum())
+    if count == 0 or combine == "mean":
+        raise ValueError("combine_by_runs states the clipped combines of a "
+                         "covered pixel")
+    lo, hi = max((count - 1) // 2, 0), count // 2
+    med = 0.5 * (rank(col, lo) + rank(col, hi))
+    dev = (col - med).abs()
+    std = (_MAD_TO_STD * 0.5) * (rank(dev, lo) + rank(dev, hi))
+    lo_b = med - sigma_lower * std
+    hi_b = med + sigma_upper * std
+    kept = covered & (col >= lo_b) & (col <= hi_b)
+    below = int((covered & (col < lo_b)).sum())
+    cnt = int(kept.sum())
+    if cnt == 0:
+        return zero
+    if combine == "median":
+        return 0.5 * (rank(col, below + max((cnt - 1) // 2, 0))
+                      + rank(col, below + cnt // 2))
+    acc, left = zero, kept
+    while bool(left.any()):
+        rank0 = int((keys < keys[left].min()).sum())
+        if int(left.sum()) <= run:
+            for v in torch.sort(col[left]).values:
+                acc = acc + v
+            break
+        t = torch.sort(keys).values[rank0 + run - 1]
+        for v in torch.sort(col[left & (keys < t)]).values:
+            acc = acc + v
+        vt = float_of_keys(t)
+        for _ in range(int((keys == t).sum())):
+            acc = acc + vt
+        left = left & (keys > t)
+    return acc if combine == "sum" else acc / float(cnt)
+
+
 def _calibrated(frames, masters, plan: WarpPlan, f: int) -> torch.Tensor:
     er, fs = plan.table[f, 6], plan.table[f, 7]
     raw = to_float32(frames[f])

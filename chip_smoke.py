@@ -3188,8 +3188,8 @@ def run_small_matrix(card: str, dev) -> None:
 #: on the first DEEP_K3_TWIN_ROWS rows), K1 at radii 24 and 48 (FWHM 32
 #: and 64 px) on 16 x 4096^2
 DEEP_FRAMES, DEEP_SIZE, DEEP_SMALL = 1200, 2048, 512
-#: the lowrank body's twin check takes the global route's fewest frames:
-#: the twin's time follows the frames, not the pixels
+#: K2's lowrank body against its twin on 'cols' (the twin's time follows
+#: the frames, not the pixels)
 DEEP_LOWRANK_FRAMES = 909
 DEEP_K3_SHAPE, DEEP_K3_TWIN_ROWS = (1200, 1024, 2048), 64
 DEEP_K1_FRAMES, DEEP_K1_SIZE, DEEP_K1_FWHM = 16, 4096, (32.0, 64.0)
@@ -3287,6 +3287,145 @@ def _clip_inputs_chunked(n, h, w, dev, seed, chunk=100):
     return stack, mask
 
 
+#: the route sweep of the deep phase: K2 on the lean snap and lowrank
+#: windows at DEEP_SMALL^2, K3 on SWEEP_K3_SHAPE, every route each count
+#: can take, in turns; the twins replay one count of each new route
+SWEEP_K2_FRAMES = (100, 150, 200, 300, 400, 600, 908, 1200, 1700)
+SWEEP_K3_FRAMES = (33, 64, 128, 192, 227, 228, 256, 454, 908, 1200)
+SWEEP_K3_SHAPE = (256, 1024)
+#: the counts replayed on the twins: K2 at 200 frames ('cols', snap), K3
+#: at 454 ('cols') and at 33 forced onto 'select'
+SWEEP_K2_TWIN, SWEEP_K3_TWIN = 200, {454: "cols", 33: "select"}
+
+
+def _route_times(calls: dict) -> dict:
+    """{route: mean ms} of one launch each, in turns (a, b, .., b, a)."""
+    names = list(calls)
+    times = {r: [] for r in names}
+    for r in names + names[::-1]:
+        times[r].append(_time_ms(calls[r], 1))
+    return {r: sum(v) / len(v) for r, v in times.items()}
+
+
+def run_route_sweep(card: str, dev) -> dict:
+    """K2's and K3's routes against each other at the frame counts of
+    SWEEP_K2_FRAMES / SWEEP_K3_FRAMES: every route the launcher has at
+    that count (K2: 'smem' where a shared block of 8 rows fits, 'cols';
+    K3: 'smem' up to its 227 frames, 'cols', 'select'), forced through the wrapper,
+    their images equal bit for bit, their ms in turns, and the route the
+    wrapper picks.  One count of each new route is replayed on its twin.
+    Prints a line per count and one with the crossings: the frame count
+    from which 'cols' is faster than every other route at every larger
+    count of the sweep."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.ops import clip_combine as cc
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+
+    t0 = time.perf_counter()
+    out = {"K2": {}, "K3": []}
+    size = DEEP_SMALL
+    for rotate in (False, True):
+        window = "lowrank" if rotate else "snap"
+        cfg = lean_config(rotate)
+        fr, bias, dark, flat, exp_ratio, _off, mats = make_workload_on_device(
+            max(SWEEP_K2_FRAMES), size, dev, rotate=rotate, seed=4)
+        masters = _masters(bias, dark, flat, dev)[0]
+        rows = []
+        for n in SWEEP_K2_FRAMES:
+            f = fr[:n]
+            er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
+            m = torch.from_numpy(mats[:n].astype(np.float32)).to(dev)
+            kw = dict(span=cfg.warp_span, apron=True,
+                      dither_budget=cfg.dither_budget,
+                      general_taps=cfg.general_taps)
+            plan = wc.plan_warp_combine(f.shape, m, er, **kw)
+            routes = ["cols"] + (["smem"] if kernels._warp_smem_rows(
+                n, plan.span) >= kernels._WARP_SMEM_ROWS else [])
+            calls = {r: (lambda r=r: kernels.warp_combine_cuda(
+                f, masters, plan, 0, True, 5.0, 5.0, route=r)) for r in routes}
+            imgs = {r: c() for r, c in calls.items()}
+            label = f"sweep K2 {window} {n}x{size}^2"
+            for r in routes:
+                _k2_exact(imgs[r], imgs["cols"], f"{label} {r} vs cols")
+            rec = {"sweep": f"K2 {window}", "frames": n,
+                   "shape": [n, size, size], "span": plan.span,
+                   "picked": kernels._warp_route(n, plan.span),
+                   "smem_rows": kernels._warp_smem_rows(n, plan.span),
+                   "ms": _route_times(calls), "equal_across_routes": True,
+                   # 'cols' without its combine: the warp phase and the
+                   # samples' writes ('mean' skips the sort)
+                   "cols_mean_ms": _time_ms(lambda: kernels.warp_combine_cuda(
+                       f, masters, plan, 3, True, 5.0, 5.0, route="cols"), 2),
+                   **_k2_bound(f, masters, size * size), "card": card}
+            rec["ns_per_frame_pixel"] = {r: v * 1e6 / f.numel()
+                                         for r, v in rec["ms"].items()}
+            if n == SWEEP_K2_TWIN and not rotate:
+                p, plain_ms = _timed(lambda: wc.warp_combine_plain(
+                    f, m, masters=masters, exp_ratios=er, **kw))
+                rec["twin"] = {"route": "cols", "plain_ms": plain_ms,
+                               "max_abs_err": _k2_exact(imgs["cols"], p,
+                                                        f"{label} twin")}
+                del p
+            _print(rec)
+            rows.append(rec)
+            del imgs
+        out["K2"][window] = rows
+        del fr, masters
+        torch.cuda.empty_cache()
+
+    n3, (h3, w3) = max(SWEEP_K3_FRAMES), SWEEP_K3_SHAPE
+    stack, mask = _clip_inputs_chunked(n3, h3, w3, dev, seed=11)
+    for n in SWEEP_K3_FRAMES:
+        st, mk = stack[:n], mask[:n]
+        routes = ["cols", "select"] + (
+            ["smem"] if n <= kernels._CLIP_SMEM_FRAMES else [])
+        calls = {r: (lambda r=r: kernels.clip_combine_cuda(
+            st, mk, 5.0, 5.0, route=r)) for r in routes}
+        imgs = {r: c() for r, c in calls.items()}
+        label = f"sweep K3 {n}x{h3}x{w3}"
+        for r in routes:
+            _k3_exact(imgs[r], imgs["cols"], f"{label} {r} vs cols")
+        rec = {"sweep": "K3", "frames": n, "shape": [n, h3, w3],
+               "masked": True, "picked": kernels._clip_route(n),
+               "ms": _route_times(calls), "equal_across_routes": True,
+               **_bound(_nbytes(st, mk) + 4 * h3 * w3,
+                        st.numel() * (5 + math.log2(n))),
+               "card": card}
+        if n in SWEEP_K3_TWIN:
+            r = SWEEP_K3_TWIN[n]
+            p, plain_ms = _timed(lambda: cc.clip_combine_plain(st, mk))
+            rec["twin"] = {"route": r, "plain_ms": plain_ms,
+                           "max_abs_err": _k3_exact(imgs[r], p,
+                                                    f"{label} twin")}
+            del p
+        _print(rec)
+        out["K3"].append(rec)
+        del imgs
+    del stack, mask
+    torch.cuda.empty_cache()
+
+    def crossing(recs):
+        """The fewest frames from which 'cols' beats every other route at
+        each larger count of the sweep (None where it never does)."""
+        best = None
+        for rec in reversed(recs):
+            if min(rec["ms"], key=rec["ms"].get) != "cols":
+                break
+            best = rec["frames"]
+        return best
+
+    out["crossings"] = {
+        **{f"K2 {w}": crossing(r) for w, r in out["K2"].items()},
+        "K3": crossing([r for r in out["K3"] if "smem" in r["ms"]]
+                       + [r for r in out["K3"] if "smem" not in r["ms"]])}
+    out["wall_s"] = time.perf_counter() - t0
+    _print({"sweep": "crossings", "crossings": out["crossings"],
+            "K2_smem_rows": kernels._WARP_SMEM_ROWS,
+            "K3_cols_reach": kernels._CLIP_COLS_REACH,
+            "wall_s": out["wall_s"], "card": card})
+    return out
+
+
 def run_deep(card: str, dev) -> dict:
     """The kernels' routes past the shared-memory limits and radius 16,
     at sizes users run:
@@ -3294,20 +3433,22 @@ def run_deep(card: str, dev) -> dict:
     * the lean path (``calibrate_register_stack_lean``, the snap lean
       config) on 1200 uint16 frames of 2048^2 with bias, dark and flat,
       +-4 px dithers (``make_workload_on_device``): K1 on its rolling
-      route, K2 on its global route; registration and the stack checked
+      route, K2 on its 'cols' route; registration and the stack checked
       as on the main path; the wall ms of one run after a warm-up, K1 and
       K2 by CUDA events, the peak device memory; then K1 and K2 held
       against their twins on the exact arguments that run gave them (K2
       bit for bit, K1 by its rule);
     * the unfused path (``calibrate_register_stack``, ``unfused_config``)
-      on 1200 frames of 512^2: K3 on its global route, each of its two
-      launches held against the twin bit for bit on its arguments;
+      on 1200 frames of 512^2: K3 on its 'cols' route, each of its two
+      launches held against the twin bit for bit on its arguments, and
+      its bound per launch;
     * K2's lowrank body against its twin bit for bit on 909 rotated
-      frames of 512^2, the global route's fewest;
+      frames of 512^2 ('cols');
     * K3 against its twin bit for bit on a masked 1200 x 1024 x 2048
       stack (10 GB and 2.5 GB of mask), the twin on the first 64 rows;
     * K1 at radii 24 and 48 on 16 x 4096^2 against its twin by its rule
-      (the separable route)."""
+      (the separable route);
+    * the route sweep (:func:`run_route_sweep`)."""
     import contextlib
 
     from astrophotography_tpu_torch import kernels
@@ -3332,7 +3473,7 @@ def run_deep(card: str, dev) -> dict:
               flat=torch.from_numpy(flat).to(dev), exp_ratios=er)
     routes = {"K1": kernels._detect_route(dt._kernel_params(cfg.fwhm)[1]),
               "K2": kernels._warp_route(n, cfg.warp_span)}
-    _require(routes == {"K1": "rolling", "K2": "global"},
+    _require(routes == {"K1": "rolling", "K2": "cols"},
              f"{label}: routes {routes}")
 
     def run():
@@ -3389,7 +3530,7 @@ def run_deep(card: str, dev) -> dict:
     ukw = dict(bias=torch.from_numpy(bias).to(dev),
                dark=torch.from_numpy(dark).to(dev),
                flat=torch.from_numpy(flat).to(dev), exp_ratios=er)
-    _require(kernels._clip_route(n) == "global", f"{ulabel}: K3 route")
+    _require(kernels._clip_route(n) == "cols", f"{ulabel}: K3 route")
     calibrate_register_stack(fr, config=ucfg, **ukw)      # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3412,10 +3553,19 @@ def run_deep(card: str, dev) -> dict:
     _require(len(k3.calls) == ucfg.n_bands, f"{ulabel}: K3 calls")
     u_checks = [_plain_check("K3", c, f"{ulabel} band {i}")
                 for i, c in enumerate(k3.calls)]
+    # K3's bound per launch: its band's stack, mask and image
+    k3_bounds = []
+    for (a, kw3, _res) in k3.calls:
+        st3 = a[0]
+        mk3 = a[1] if len(a) > 1 else kw3.get("mask")
+        k3_bounds.append(_bound(
+            _nbytes(st3, mk3) + 4 * st3.shape[1] * st3.shape[2],
+            st3.numel() * (5 + math.log2(st3.shape[0]))))
     out["unfused"] = {
         "phase": ulabel, "shape": [n, small, small],
         "single_run_ms": u_ms, "kernel_ms": clock.ms(),
-        "routes": {"K3": "global"}, "max_memory_allocated_bytes": u_peak,
+        "K3_bound_per_launch": k3_bounds,
+        "routes": {"K3": "cols"}, "max_memory_allocated_bytes": u_peak,
         "launches": ulaunches, "min_inliers": u_in, "max_rms_px": u_rms,
         "max_translation_err_px": u_err, "interior_median": u_med,
         "plain_checks": u_checks,
@@ -3425,7 +3575,7 @@ def run_deep(card: str, dev) -> dict:
     del fr, ukw, k3
     torch.cuda.empty_cache()
 
-    # K2's lowrank body on its global route against the twin
+    # K2's lowrank body on 'cols' against the twin
     nl = DEEP_LOWRANK_FRAMES
     fr, bias, dark, flat, exp_ratio, _off, mats = \
         make_workload_on_device(nl, small, dev, rotate=True, seed=2)
@@ -3437,12 +3587,12 @@ def run_deep(card: str, dev) -> dict:
         f"deep K2 {nl}x{small}^2 rotated lowrank", card, reps=2,
         masters=masters, er=er, span=lcfg.warp_span, apron=True,
         dither_budget=lcfg.dither_budget, general_taps=lcfg.general_taps)
-    _require(out["K2 rotated lowrank"]["route"] == "global",
+    _require(out["K2 rotated lowrank"]["route"] == "cols",
              f"deep K2 {nl} frames lowrank: route")
     del fr, masters
     torch.cuda.empty_cache()
 
-    # K3's global route on a 10 GB masked stack
+    # K3's 'cols' route on a 10 GB masked stack
     n3, h3, w3 = DEEP_K3_SHAPE
     label = f"deep K3 {n3}x{h3}x{w3} masked"
     stack, mask = _clip_inputs_chunked(n3, h3, w3, dev, seed=7)
@@ -3488,6 +3638,7 @@ def run_deep(card: str, dev) -> dict:
                  f"deep K1 radius {r}: no live tile")
     del fr, masters, mf
     torch.cuda.empty_cache()
+    out["sweep"] = run_route_sweep(card, dev)
     out["wall_s"] = time.perf_counter() - t_phase
     _print({"phase": "deep", "wall_s": out["wall_s"],
             "resident_blocks": {"/".join(map(str, k)): v

@@ -7,6 +7,8 @@ tests/test_pallas_combine.py and the edge cases; ``sigma_clip_combine``
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis.strategies import data as st_data
 
 import jax.numpy as jnp
 
@@ -14,7 +16,8 @@ from astrophotography_tpu.ops.pallas_combine import pallas_sigma_clip_combine
 from astrophotography_tpu.ops.stack import sigma_clip_combine as jax_combine
 from astrophotography_tpu_torch import kernels
 from astrophotography_tpu_torch.ops.clip_combine import (
-    _BIG, clip_combine, clip_combine_plain, mad_ranks_by_merging)
+    _BIG, clip_combine, clip_combine_plain, float_keys, float_of_keys,
+    mad_ranks_by_merging, mad_ranks_by_search, rank_by_bisection)
 from astrophotography_tpu_torch.ops.stack import sigma_clip_combine
 
 # one intra-op thread: the suite runs in parallel worker processes, whose
@@ -121,36 +124,122 @@ def test_mad_ranks_by_merging_equal_sorted_deviations(n):
 
 
 def test_clip_kernel_block_shapes():
-    """Every frame count up to the shared route's limit gets a route and a
-    block whose shared memory fits the 232,448 bytes a block may use; the
-    limit has not fallen below 454; 909 frames and above take the
-    'global' route (blocks of 128, no shared columns, a scratch sized to
-    the resident blocks)."""
-    limit = kernels._SMEM_FRAMES
-    assert limit >= 454
-    for n in range(1, limit + 1):
-        threads = kernels._clip_block_threads(n)
-        assert threads in (128, 64, 32)
-        assert kernels._clip_smem_bytes(n, threads) <= 232448
-        # the widest block that fits
-        assert threads == 128 or \
-            kernels._clip_smem_bytes(n, 2 * threads) > 232448
+    """Every frame count gets a route and a block whose shared memory fits
+    the 232,448 bytes a block may use: the register networks to 32
+    frames, 'smem' (a thread per pixel in blocks of 128) below the
+    crossing of the route sweep (192 frames), then 'cols' with the most
+    warps (8, 4, 2, 1) whose two columns per pixel fit, up to its reach
+    (29024 frames), then 'select' (no shared memory, no scratch)."""
+    reach = kernels._CLIP_COLS_REACH
+    assert reach == 29024
+    assert kernels._CLIP_COLS_FRAMES == 192
     assert [kernels._clip_route(n) for n in (1, 8, 9, 16, 17, 24, 25, 32, 33,
-                                             limit)] == \
+                                             191, 192, reach, reach + 1,
+                                             100000)] == \
         ["regs8", "regs8", "regs16", "regs16", "regs24", "regs24", "regs32",
-         "regs32", "smem", "smem"]
-    assert kernels._clip_smem_bytes(24, 128) == 0
-    assert kernels._clip_smem_bytes(100, 128) == 2 * 4 * 100 * 128
-    assert [kernels._clip_block_threads(n) for n in (227, 228, 454, 455)] \
-        == [128, 64, 64, 32]
-    for n in (limit + 1, 1200, 100000):
-        assert kernels._clip_route(n) == "global"
-        assert kernels._clip_block_threads(n) == 128
-        assert kernels._clip_smem_bytes(n, 128) == 0
-    assert kernels._clip_scratch_bytes(1200, 2112) == \
-        2 * 4 * 1200 * 128 * 2112
+         "regs32", "smem", "smem", "cols", "cols", "select", "select"]
+    for n in list(range(33, 4000)) + list(range(4000, reach + 1, 97)) + [reach]:
+        warps = kernels._clip_cols_warps(n)
+        assert warps in (8, 4, 2, 1)
+        assert kernels._clip_cols_smem_bytes(n, warps) <= 232448
+        # the widest block that fits
+        assert warps == 8 or \
+            kernels._clip_cols_smem_bytes(n, 2 * warps) > 232448
+    assert [kernels._clip_cols_warps(n) for n in
+            (3616, 3617, 7232, 7233, 14496, 14497, reach, reach + 1)] == \
+        [8, 4, 4, 2, 2, 1, 1, 0]
+    # two columns of n rounded up to 32 (+ a bank pad) per pixel, a count
+    # per warp and pixel, two clip bounds per pixel
+    assert kernels._clip_cols_smem_bytes(100, 8) == \
+        4 * (2 * 8 * 132 + 64 + 16)
+    assert kernels._clip_cols_smem_bytes(1200, 8) == 78400
+    # 'smem': two columns of n per thread of 128, up to 227 frames
+    assert kernels._CLIP_SMEM_FRAMES == 227
+    for n in (33, 191, 227):
+        assert kernels._clip_smem_threads(n) == 128
+        assert 2 * 4 * n * 128 <= 232448
+    with pytest.raises(ValueError, match="227"):
+        kernels._clip_smem_threads(228)
     with pytest.raises(ValueError, match="at least 1"):
-        kernels._clip_block_threads(0)
+        kernels._clip_route(0)
+
+
+def _rank_columns(draw, n, kind):
+    """A (n,) float32 column of one kind: random, tied (few values),
+    +-0 among small integers, all +3.4e38, one valid sample."""
+    from hypothesis import strategies as st
+
+    if kind == "big":
+        return np.full(n, _BIG, np.float32)
+    if kind == "zeros":
+        vals = draw(st.lists(st.sampled_from([0.0, -0.0, 1.0, -1.0, 2.0]),
+                             min_size=n, max_size=n))
+    elif kind == "tied":
+        vals = draw(st.lists(st.sampled_from([3.0, 7.5, 7.5, 100.0]),
+                             min_size=n, max_size=n))
+    else:
+        vals = draw(st.lists(st.floats(-1e6, 1e6, width=32), min_size=n,
+                             max_size=n))
+    col = np.asarray(vals, np.float32)
+    if kind == "single":
+        col[:] = _BIG
+        col[draw(st.integers(0, n - 1))] = vals[0]
+    return col
+
+
+@settings(max_examples=60, deadline=None)
+@given(data=st_data())
+def test_rank_by_bisection_is_the_sort(data):
+    """K3's 'select' route and K2's runs past the 'cols' reach take a rank
+    as the smallest monotone key with more than k samples at or below it:
+    the sorted column's value at k, on random, tied, +-0, all-+3.4e38 and
+    single-valid columns (a zero comes back +0, equal to either)."""
+    from hypothesis import strategies as st
+
+    n = data.draw(st.integers(1, 40))
+    kind = data.draw(st.sampled_from(["random", "tied", "zeros", "big",
+                                      "single"]))
+    col = torch.from_numpy(_rank_columns(data.draw, n, kind))
+    keys = float_keys(col)
+    assert torch.equal(float_of_keys(keys), torch.where(col == 0, 0.0, col))
+    order = torch.argsort(keys)
+    assert torch.equal(torch.sort(col).values, col[order])   # keys are monotone
+    ks = torch.arange(n)
+    got = rank_by_bisection(col[:, None].expand(n, n), ks)
+    assert torch.equal(got, torch.sort(col).values)
+
+
+@settings(max_examples=60, deadline=None)
+@given(data=st_data())
+def test_mad_ranks_by_search_is_the_sort(data):
+    """The 'cols' routes take the MAD's ranks by bisecting the two runs of
+    deviations around the median (kth_dev): the ranks of the sorted
+    deviations, over the valid samples (K3) or all N (K2)."""
+    from hypothesis import strategies as st
+
+    n = data.draw(st.integers(1, 40))
+    kind = data.draw(st.sampled_from(["random", "tied", "zeros", "single"]))
+    col = torch.from_numpy(_rank_columns(data.draw, n, kind))
+    valid = col < _BIG
+    if kind != "single":
+        valid = torch.tensor(data.draw(st.lists(st.booleans(), min_size=n,
+                                                max_size=n)))
+    if not bool(valid.any()):
+        valid[data.draw(st.integers(0, n - 1))] = True
+    st_, va = col[:, None], valid[:, None]
+    cnt = va.sum(dim=0)
+    lo_i = torch.clamp((cnt - 1) // 2, min=0)[None]
+    hi_i = (cnt // 2)[None]
+    srt = torch.sort(torch.where(va, st_, _BIG), dim=0).values
+    med = (0.5 * (srt.gather(0, lo_i) + srt.gather(0, hi_i)))[0]
+    dsrt = torch.sort(torch.where(va, (st_ - med).abs(), _BIG), dim=0).values
+    d_lo, d_hi = mad_ranks_by_search(srt, cnt, med)
+    assert torch.equal(d_lo, dsrt.gather(0, lo_i)[0])
+    assert torch.equal(d_hi, dsrt.gather(0, hi_i)[0])
+    dall = torch.sort((srt - med).abs(), dim=0).values
+    a_lo, a_hi = mad_ranks_by_search(srt, cnt, med, end=torch.full_like(cnt, n))
+    assert torch.equal(a_lo, dall.gather(0, lo_i)[0])
+    assert torch.equal(a_hi, dall.gather(0, hi_i)[0])
 
 
 def _stack_case(seed=5):

@@ -286,11 +286,12 @@ def test_warp_combine_kernel_ragged_blocks(cuda, tile, taps, combine):
 @pytest.mark.parametrize("n,dtype,combine", [
     (240, torch.uint16, "median"), (908, torch.float32, "average")])
 def test_warp_combine_kernel_many_frames(cuda, n, dtype, combine):
-    """Above the frame counts where the block loses rows (7 rows at 240
-    frames, 1 row at the 908-frame limit, where the window no longer fits
-    the registers it is staged in), uint16 with masters and float32
-    without, snapped translations."""
-    assert kernels._warp_block_rows(n, 12) < 8
+    """Frame counts where a shared block would have lost rows (7 rows at
+    240 frames, 1 at 908) take the 'cols' route with all 8: uint16 with
+    masters and float32 without, snapped translations."""
+    assert kernels._warp_route(n, 12) == "cols"
+    assert kernels._warp_smem_rows(n, 12) < 8
+    assert kernels._warp_block_rows(n, 12) == 8
     h, w = 64, 256
     frames = torch.from_numpy(_starfield(n, h, w, 4)).to(cuda)
     masters = _warp_masters(h, w, cuda)
@@ -309,39 +310,79 @@ def _many_frames(n, h, w, seed):
     return np.clip(out, 0, 65535).astype(np.uint16)
 
 
-@pytest.mark.parametrize("n,combine", [(909, "median"), (1200, "average")])
-@pytest.mark.parametrize("rotate,taps", [(False, "exact"), (True, "lowrank")])
-def test_warp_combine_kernel_global_route(cuda, n, combine, rotate, taps):
-    """Past 908 frames K2's N-sample columns live in a scratch of device
-    memory ('global'), sized to the resident blocks; the same sort and
-    merge keep it bit-identical to the twin, on the snap and the lowrank
-    bodies."""
-    assert kernels._warp_route(n, 12) == "global"
+#: K2's cases on either side of the 'cols' crossing and at 1200 frames:
+#: (frames, combine, body); the bodies are the snapped translation
+#: ('snap'), 'exact' and 'lowrank' taps on rotated frames
+_C = next(n for n in range(1, 1000) if kernels._warp_route(n, 12) == "cols")
+WARP_COLS_CASES = [
+    (_C - 1, "median", "snap"), (_C - 1, "sum", "exact"),
+    (_C - 1, "average", "lowrank"), (_C, "average", "snap"),
+    (_C, "median", "exact"), (_C, "sum", "lowrank"),
+    (_C + 1, "sum", "snap"), (_C + 1, "average", "exact"),
+    (_C + 1, "median", "lowrank"), (1200, "average", "snap"),
+    (1200, "median", "snap"), (1200, "sum", "snap"), (1200, "mean", "snap"),
+    (1200, "median", "exact"), (1200, "average", "lowrank")]
+
+
+def _warp_body(n, seed, body):
+    return dict(mats=_warp_mats(n, seed, rotate=body != "snap"),
+                general_taps="lowrank" if body == "lowrank" else "exact")
+
+
+@pytest.mark.parametrize("n,combine,body", WARP_COLS_CASES)
+def test_warp_combine_kernel_cols_route(cuda, n, combine, body):
+    """From the crossing on (150 frames, the route sweep's)
+    K2 takes its 'cols' route: the samples cross
+    device memory once each way (a scratch of an N-sample column per
+    pixel of each resident block) and each warp sorts one pixel's column
+    on chip; bit-identical to the twin on every body and combine, and
+    below the crossing the 'smem' route is."""
+    route = "cols" if n >= _C else "smem"
+    assert kernels._warp_route(n, 12) == route
     h, w = 64, 256
     frames = torch.from_numpy(_many_frames(n, h, w, 4)).to(cuda)
+    kw = _warp_body(n, 5, body)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    _warp_check(frames, _warp_mats(n, 5, rotate=rotate),
-                _warp_masters(h, w, cuda), combine=combine,
-                general_taps=taps)
-    # the scratch: an N-sample column per thread of each resident block
-    # (the grid is no larger than the 2 x 8 x 4 blocks of the image)
-    blocks = min(2 * 8 * 4, kernels._resident["warp_combine", cuda.index
-                                               or 0, 1, 12, 8])
-    assert torch.cuda.max_memory_allocated() - base >= \
-        kernels._warp_scratch_bytes(n, 8, blocks)
+    _warp_check(frames, kw.pop("mats"), _warp_masters(h, w, cuda),
+                combine=combine, **kw)
+    if route == "cols":
+        # the grid is no larger than the 2 x 8 x 4 blocks of the image
+        run = kernels._warp_cols_run(8, 12)
+        key = ("warp_combine", cuda.index or 0, 1, min(n, run), 12, 8, run)
+        blocks = min(2 * 8 * 4, kernels._resident[key])
+        assert torch.cuda.max_memory_allocated() - base >= \
+            kernels._warp_scratch_bytes(n, 8, blocks)
 
 
-def test_warp_combine_kernel_wide_window_takes_the_global_route(cuda):
-    """Below 909 frames, a window whose one-row block leaves the N-sample
-    columns no room in shared memory (908 frames at span 130) takes the
-    'global' route as well, bit-identical to the twin."""
-    n, span, h, w = 908, 130, 160, 256
-    assert kernels._warp_route(n, span) == "global"
+@pytest.mark.parametrize("combine", ["average", "median", "sum"])
+@pytest.mark.parametrize("body", ["snap", "exact", "lowrank"])
+def test_warp_combine_kernel_cols_past_the_reach(cuda, monkeypatch, combine,
+                                                body):
+    """Past the reach of 'cols' (the samples a warp sorts on chip at
+    once) a column is sorted in runs written back to the scratch, its
+    ranks are bisected over the runs and the kept samples summed in
+    ascending chunks: bit-identical to the twin.  The reach (7232 frames
+    at 8 rows) is lowered to 96 so that 300 frames make 4 runs."""
+    monkeypatch.setattr(kernels, "_warp_cols_run", lambda rows, span: 96)
+    n, h, w = 300, 64, 256
+    frames = torch.from_numpy(_many_frames(n, h, w, 8)).to(cuda)
+    kw = _warp_body(n, 9, body)
+    _warp_check(frames, kw.pop("mats"), _warp_masters(h, w, cuda),
+                combine=combine, sigma_lower=2.0, sigma_upper=2.5, **kw)
+
+
+def test_warp_combine_kernel_wide_window_takes_the_cols_route(cuda):
+    """Below the crossing, a window whose one-row block leaves the
+    N-sample columns no room in shared memory (100 frames at span 190)
+    takes the 'cols' route as well, bit-identical to the twin."""
+    n, span, h, w = 100, 190, 224, 256
+    assert kernels._warp_smem_rows(n, span) == 0
+    assert kernels._warp_route(n, span) == "cols"
     frames = torch.from_numpy(_many_frames(n, h, w, 6)).to(cuda)
     _warp_check(frames, _warp_mats(n, 7, rotate=False),
-                _warp_masters(h, w, cuda), tile=(144, 256), span=span)
+                _warp_masters(h, w, cuda), tile=(192, 256), span=span)
 
 
 @pytest.mark.parametrize("taps", ["exact", "lowrank"])
@@ -535,20 +576,24 @@ def _clip_stack(n, h, w, seed):
 
 
 #: K3's route and block-shape boundaries: registers up to 8, 16, 24 and
-#: 32 frames, then shared memory in blocks of 128 (to 227 frames), 64 (to
-#: 454) and 32 threads (to 908), then the global route
-CLIP_FRAMES = [1, 2, 3, 7, 8, 9, 16, 17, 24, 25, 32, 33, 100, 227, 228, 454,
-               455, 908, 909, 1200]
+#: 32 frames, 'smem' to 191, then 'cols' in blocks of 8 warps (to 3616
+#: frames), 4 (to 7232), 2 (to 14496) and 1 (to the reach, 29024), then
+#: 'select'
+CLIP_FRAMES = [1, 2, 3, 7, 8, 9, 16, 17, 24, 25, 32, 33, 100, 191, 192, 193,
+               1200, 3617, 7233, 14497, 29024, 29025]
 
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", CLIP_FRAMES)
 def test_clip_combine_kernel_equals_plain(cuda, n, masked):
     """K3 rounds every value operation as its twin does, so the two agree
-    bit for bit, NaN where nothing is kept included; the width (300) is
-    no multiple of any block's."""
-    assert kernels._SMEM_FRAMES in CLIP_FRAMES
-    stack, mask = _clip_stack(n, 96, 300, n)
+    bit for bit, NaN where nothing is kept included; the width (300, 44
+    past 2000 frames) is no multiple of any block's."""
+    assert kernels._CLIP_COLS_REACH in CLIP_FRAMES
+    assert kernels._CLIP_COLS_FRAMES in CLIP_FRAMES
+    assert kernels._clip_route(max(CLIP_FRAMES)) == "select"
+    h, w = (96, 300) if n <= 2000 else (8, 44)
+    stack, mask = _clip_stack(n, h, w, n)
     if not masked:           # valid non-finite samples are outside the contract
         stack = np.where(np.isfinite(stack), stack, np.float32(800.0))
     st = torch.from_numpy(stack).to(cuda)
@@ -583,24 +628,31 @@ def test_kernel_wrapper_rejects_bad_input(cuda):
         cc.clip_combine(fr, None)
 
 
-def test_clip_combine_909_frames_take_the_global_route(cuda):
-    """909 frames, one past the shared route, run on the 'global' route:
-    the wrapper allocates both columns of every thread of the resident
-    blocks (here 1 column of blocks x 2 rows) in device memory, and the
-    result is the twin's bit for bit."""
-    n = 909
-    assert kernels._clip_route(n) == "global"
+@pytest.mark.parametrize("route", ["smem", "cols", "select"])
+def test_clip_combine_routes_agree(cuda, route):
+    """Every route the launcher has past 32 frames, forced on the same
+    kind of stack (227 frames on 'smem', its limit, which refuses 228;
+    909 on the others), is the twin's bit for bit: constant columns (MAD
+    0), a column with one valid sample, the rest 20% masked."""
+    n = 227 if route == "smem" else 909
     g = torch.Generator(device=cuda).manual_seed(9)
-    st = 800.0 + 8.0 * torch.randn((n, 2, 100), generator=g, device=cuda)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    st = 800.0 + 8.0 * torch.randn((n, 4, 100), generator=g, device=cuda)
+    st[:, 0, :7] = 5.0
+    mk = torch.rand(st.shape, generator=g, device=cuda) > 0.2
+    mk[:, 1, 3] = False
+    mk[17, 1, 3] = True
     before = kernels.launch_counts["clip_combine"]
-    got = cc.clip_combine(st)
+    got = kernels.clip_combine_cuda(st, mk, 5.0, 5.0, route=route)
     assert kernels.launch_counts["clip_combine"] == before + 1
-    assert torch.cuda.max_memory_allocated() - base >= \
-        kernels._clip_scratch_bytes(n, 2)
-    assert torch.equal(got, cc.clip_combine_plain(st))
+    want = cc.clip_combine_plain(st, mk)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert torch.equal(got[0, :7], torch.full((7,), 5.0, device=cuda))
+    assert float(got[1, 3]) == float(st[17, 1, 3])
+    if route == "smem":
+        with pytest.raises(ValueError, match="227"):
+            kernels.clip_combine_cuda(torch.cat([st, st[:1]]), None, 5.0, 5.0,
+                                      route=route)
 
 
 # -- RAW conversion and the calibration engine: the card against the CPU --

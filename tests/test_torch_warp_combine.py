@@ -5,6 +5,8 @@ mode on the CPU backend)."""
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis.strategies import data as st_data
 
 import jax
 import jax.numpy as jnp
@@ -258,57 +260,89 @@ def test_lowrank_needs_span_above_7(span):
 
 
 def test_kernel_frame_limit_message():
-    """K2 has no frame limit of its own: up to 908 frames its N-sample
-    columns stay in shared memory ('smem'), from 909 on (and below, where
-    a window of one row leaves them no room) they take the 'global'
-    route, and no frame count is refused before the card."""
+    """K2 has no frame limit of its own: below the crossing of the route
+    sweep (150 frames), where a shared block keeps all 8 rows, its
+    N-sample columns stay in shared memory ('smem'); from the crossing on
+    (and wherever a window leaves a shared block no room for them) they
+    take the 'cols' route, whose columns past its reach are sorted in runs
+    and merged, and no frame count is refused before the card."""
     from astrophotography_tpu_torch import kernels
 
     assert not hasattr(kernels, "_MAX_FRAMES")
-    assert kernels._SMEM_FRAMES == 908
-    assert kernels._warp_route(908, 12) == "smem"
-    assert kernels._warp_route(909, 12) == "global"
-    assert kernels._warp_route(908, 122) == "smem"
-    assert kernels._warp_route(908, 123) == "global"
-    # the shared route's last count keeps one row; the global route all 8
-    assert kernels._warp_block_rows(908, 12) == 1
-    assert kernels._warp_block_rows(909, 12) == 8
+    assert kernels._WARP_SMEM_ROWS == 8
+    assert kernels._WARP_COLS_FRAMES == 150
+    for span in (8, 12):
+        assert kernels._warp_route(149, span) == "smem"
+        assert kernels._warp_smem_rows(149, span) == 8
+        assert kernels._warp_route(150, span) == "cols"
+    # a wider window loses the eighth shared row below 150 frames
+    assert kernels._warp_smem_rows(137, 100) == 8
+    assert kernels._warp_route(137, 100) == "smem"
+    assert kernels._warp_route(138, 100) == "cols"
+    assert kernels._warp_route(100, 12) == "smem"
+    for n in (909, 1200, 7232, 7233, 10 ** 6):
+        assert kernels._warp_route(n, 12) == "cols"
+        assert kernels._warp_block_rows(n, 12) == 8
+    # the reach: 8 warps' columns in 227 KB
+    assert kernels._warp_cols_run(8, 12) == 7232
+    assert kernels._warp_cols_run(8, 8) == 7232
+    assert kernels._warp_cols_run(1, 190) == 58112
+    assert kernels._warp_cols_smem_bytes(10 ** 6, 8, 12, 7232) <= \
+        kernels._SMEM_MAX
+    # a window that leaves no shared block takes 'cols' below the crossing
+    assert kernels._warp_smem_rows(100, 190) == 0
+    assert kernels._warp_route(100, 190) == "cols"
 
 
 @pytest.mark.parametrize("n,span,rows", [
     (909, 8, 8), (909, 12, 8), (1200, 12, 8), (5000, 100, 8), (1200, 190, 4),
     (908, 150, 8), (500, 192, 1)])
 def test_kernel_global_route(n, span, rows):
-    """Past 908 frames, and below where the columns and the window of a
-    one-row block outgrow shared memory (908 frames at span 150), K2's
-    block keeps 8 rows of 32 pixels (no columns in shared memory, only
-    the window; a very wide span still costs rows), and its scratch is
-    an N-sample column per thread of each resident block: 264 blocks of
-    256 threads take ~324 MB at 1200 frames."""
+    """Past the crossing, and below where the columns and the window of a
+    shared block outgrow shared memory, K2's 'cols' block
+    keeps 8 rows of 32 pixels (a very wide span still costs rows), its
+    combine tile of one column per warp over the window's words, and its
+    scratch is an N-sample column and two words per pixel of each
+    resident block: 264 blocks of 256 threads take ~325 MB at 1200
+    frames."""
     from astrophotography_tpu_torch import kernels
 
-    assert kernels._warp_route(n, span) == "global"
+    assert kernels._warp_route(n, span) == "cols"
     assert kernels._warp_block_rows(n, span) == rows
-    assert kernels._warp_smem_bytes(0, rows, span) <= kernels._SMEM_MAX
+    run = kernels._warp_cols_run(rows, span)
+    smem = kernels._warp_cols_smem_bytes(n, rows, span, run)
+    assert smem <= kernels._SMEM_MAX
+    assert smem >= kernels._warp_smem_bytes(0, rows, span)
+    assert smem >= 4 * rows * min(n, run)
     if rows < 8:
         assert kernels._warp_smem_bytes(0, rows + 1, span) > kernels._SMEM_MAX
     assert kernels._warp_scratch_bytes(n, rows, 264) == \
-        4 * n * 32 * rows * 264
-    assert kernels._warp_scratch_bytes(1200, 8, 264) == 324403200
+        4 * (n + 2) * 32 * rows * 264
+    assert kernels._warp_scratch_bytes(1200, 8, 264) == 324943872
 
 
 @pytest.mark.parametrize("n,span,rows", [
-    (1, 12, 8), (100, 8, 8), (100, 12, 8), (226, 12, 7), (400, 12, 4),
-    (908, 12, 1), (908, 100, 1)])
+    (1, 12, 8), (100, 8, 8), (100, 12, 8), (216, 8, 8), (216, 12, 7),
+    (400, 12, 4), (908, 100, 1)])
 def test_kernel_block_rows(n, span, rows):
-    """K2's block keeps 8 rows of 32 pixels until the N-sample columns
-    leave no room, then loses rows down to 1 at the frame limit."""
+    """A K2 'smem' block keeps 8 rows of 32 pixels while its N-sample
+    columns and window fit; where they would leave fewer rows (``rows``
+    below 8) the route sweep measured 'cols' faster, so 'smem' refuses
+    the smaller block and 'cols' (8 rows at these spans) takes the
+    count, as it does from 150 frames on."""
     from astrophotography_tpu_torch import kernels
 
-    assert kernels._warp_block_rows(n, span) == rows
+    assert kernels._warp_smem_rows(n, span) == rows
     assert kernels._warp_smem_bytes(n, rows, span) <= kernels._SMEM_MAX
     if rows < 8:
         assert kernels._warp_smem_bytes(n, rows + 1, span) > kernels._SMEM_MAX
+        assert kernels._warp_route(n, span) == "cols"
+        with pytest.raises(ValueError, match="'smem' route"):
+            kernels._warp_block_rows(n, span, "smem")
+    else:
+        assert kernels._warp_route(n, span) == ("smem" if n < 150 else "cols")
+        assert kernels._warp_block_rows(n, span, "smem") == 8
+    assert kernels._warp_block_rows(n, span, "cols") == 8
 
 
 def test_kernel_main_shape_fits_two_blocks_per_sm():
@@ -325,6 +359,47 @@ def test_kernel_rejects_span_beyond_shared_memory():
 
     with pytest.raises(ValueError, match="shared memory"):
         kernels._warp_block_rows(908, 200)
+    assert kernels._warp_block_rows(908, 192) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels._warp_block_rows(908, 193)
+
+
+@settings(max_examples=80, deadline=None)
+@given(data=st_data())
+def test_combine_by_runs_is_the_twin(data):
+    """Past the 'cols' reach K2 combines a column from sorted runs:
+    bisected ranks, and the kept samples summed in ascending chunks below
+    a bisected key, then the ties at it.  The plain statement of that rule
+    is the twin's combine bit for bit on random, tied, +-0, mostly
+    uncovered and single-covered columns, at run lengths down to 2."""
+    from hypothesis import strategies as st
+
+    n = data.draw(st.integers(1, 60))
+    kind = data.draw(st.sampled_from(["random", "tied", "zeros", "single"]))
+    if kind == "random":
+        vals = data.draw(st.lists(st.floats(-1e5, 1e5, width=32), min_size=n,
+                                  max_size=n))
+    else:
+        pool = {"tied": [3.0, 7.5, 7.5, 100.0, 1e4],
+                "zeros": [0.0, -0.0, 1.0, -1.0, 2.0],
+                "single": [42.0]}[kind]
+        vals = data.draw(st.lists(st.sampled_from(pool), min_size=n,
+                                  max_size=n))
+    col = np.asarray(vals, np.float32)
+    uncovered = data.draw(st.lists(st.booleans(), min_size=n, max_size=n))
+    col[np.asarray(uncovered)] = twc._BIG
+    if kind == "single":
+        col[:] = twc._BIG
+        col[data.draw(st.integers(0, n - 1))] = 42.0
+    if not (col < twc._BIG).any():
+        col[0] = vals[0]
+    run = data.draw(st.integers(2, 16))
+    sl, su = data.draw(st.sampled_from([(1.0, 1.0), (1.5, 2.0), (5.0, 5.0)]))
+    t = torch.from_numpy(col)
+    for combine in ("average", "median", "sum"):
+        want = twc._combine_plain(t[:, None, None], combine, sl, su)[0, 0]
+        got = twc.combine_by_runs(t, combine, sl, su, run)
+        assert torch.equal(got, want), (combine, run)
 
 
 @pytest.mark.parametrize("combine", ["average", "median", "sum", "mean"])

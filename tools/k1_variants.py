@@ -146,7 +146,7 @@ def _run(fn, *args):
 def time_k1(libs: dict, dev, card: str) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     fr, bias, dark, flat, exp_ratio, _o, _m, _g = \
-        cs._workload_on_device(False, dev)
+        cs._workload_on_device(False, dev)[:8]
     n, h, w = fr.shape
     er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
     masters, b_t, du_t, f_t = cs._masters(bias, dark, flat, dev)
@@ -191,12 +191,15 @@ def time_k1(libs: dict, dev, card: str) -> None:
 def k3_launcher(lib, stack, mask, out):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.clip_combine_launch
-    fn.argtypes = [p, p, p, i, i, i, f, f, i, p, i, p]
+    fn.argtypes = [p, p, p, i, i, i, f, f, i, i, p]
     n, h, w = stack.shape
     ptr = kernels._ptr
-    nt = kernels._clip_block_threads(n)
+    route = kernels._clip_route(n)
+    param = kernels._clip_cols_warps(n) if route == "cols" else 0
+    code = kernels._CLIP_ROUTE_CODES["regs" if route.startswith("regs")
+                                     else route]
     return lambda: _run(fn, ptr(stack), ptr(mask), ptr(out), n, h, w, 5.0, 5.0,
-                        nt, None, 0, _stream())
+                        code, param, _stream())
 
 
 def time_k3(libs: dict, dev, card: str) -> None:

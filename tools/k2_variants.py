@@ -115,7 +115,7 @@ def _build(sources: dict) -> dict:
             raise SystemExit(f"nvcc failed for {name}:\n{err}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         lib.warp_combine_launch.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i,
-                                            i, i, i, i, f, f, i, p, i, p]
+                                            i, i, i, i, f, f, i, p, i, i, p]
         libs[name] = lib
     return libs
 
@@ -128,7 +128,7 @@ def main() -> int:
     for rotate in (False, True):
         label = "rotated" if rotate else "snap"
         fr, bias, dark, flat, exp_ratio, _o, mats, _g = \
-            cs._workload_on_device(rotate, dev)
+            cs._workload_on_device(rotate, dev)[:8]
         n, h, w = fr.shape
         er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
         masters = cs._masters(bias, dark, flat, dev)[0]
@@ -146,7 +146,7 @@ def main() -> int:
                     kernels._ptr(fr), 1, kernels._ptr(masters),
                     kernels._ptr(plan.table), kernels._ptr(plan.tiles),
                     kernels._ptr(out), n, h, w, plan.th, plan.tw, plan.n_ti,
-                    plan.n_tj, plan.span, 1, 3, 5.0, 5.0, rows, None, 0,
+                    plan.n_tj, plan.span, 1, 3, 5.0, 5.0, rows, None, 0, 0,
                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
                 if err:
                     raise RuntimeError(f"launch failed: CUDA error {err}")
