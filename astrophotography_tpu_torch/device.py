@@ -76,3 +76,28 @@ def synchronize(device: torch.device) -> None:
     host-clock stage ends when its device work does."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def card_line(index: int = 0) -> str:
+    """Card ``index``'s name and power limit as nvidia-smi reports them
+    (``"NVIDIA H100 80GB HBM3, 700.00 W"``)."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[index]
+
+
+def device_info(device: torch.device) -> dict:
+    """``{"name", "power_limit_w", "count"}`` of the device a measurement
+    ran on: a card's name from torch and its power limit from nvidia-smi,
+    or ``name`` "cpu" with no power limit."""
+    if device.type != "cuda":
+        return {"name": "cpu", "power_limit_w": None, "count": 1}
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    limit = card_line(index).rsplit(",", 1)[1].split()[0]
+    return {"name": torch.cuda.get_device_name(index),
+            "power_limit_w": float(limit),
+            "count": torch.cuda.device_count()}

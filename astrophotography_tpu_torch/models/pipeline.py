@@ -471,6 +471,22 @@ def stack_registered(cal: torch.Tensor, matrices: torch.Tensor,
     return torch.cat(bands, dim=0)
 
 
+def lean_detect_fused(config: PipelineConfig, h: int, w: int) -> bool:
+    """Whether the lean path detects an (H, W) stack with the fused
+    raw->candidate kernel (K1): always under detect_impl='fused' (which
+    raises where the geometry or the config does not allow it), under
+    'auto' where they allow it and the frame has at least ``max_stars``
+    tiles."""
+    ok = _fused_detect_ok(config, h, w)
+    if config.detect_impl == "fused" and not ok:
+        raise ValueError("detect_impl='fused' needs detect_fast + "
+                         "detect_bin_rows + detect_topk='tile' and "
+                         "H % 64 == 0, W % 256 == 0")
+    return (config.detect_impl == "fused"
+            or (config.detect_impl == "auto" and ok
+                and (h // 64) * (w // 256) >= config.max_stars))
+
+
 def detect_lean(frames: torch.Tensor, bias, dark, flat,
                 exp_ratios: torch.Tensor, config: PipelineConfig) -> Stars:
     """The lean path's Stars tables (N, max_stars) of a raw (N, H, W)
@@ -483,15 +499,7 @@ def detect_lean(frames: torch.Tensor, bias, dark, flat,
     c = config.detect_chunk if config.detect_mode == "chunked" else n
     if n % c:
         raise ValueError(f"frame count {n} not divisible by chunk {c}")
-    ok = _fused_detect_ok(config, h, w)
-    if config.detect_impl == "fused" and not ok:
-        raise ValueError("detect_impl='fused' needs detect_fast + "
-                         "detect_bin_rows + detect_topk='tile' and "
-                         "H % 64 == 0, W % 256 == 0")
-    use_fused = (config.detect_impl == "fused"
-                 or (config.detect_impl == "auto" and ok
-                     and (h // 64) * (w // 256) >= config.max_stars))
-    if use_fused:
+    if lean_detect_fused(config, h, w):
         return _detect_stars_fused(frames, bias, dark, flat, exp_ratios,
                                    config)
     parts = []

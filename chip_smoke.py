@@ -61,20 +61,26 @@ the stacks:
   made on the card: K2's global route), the unfused path on 1200 frames
   of 512^2 (K3's global route), K2 against its twin at 1200 x 512^2
   (snap and lowrank), K3 against its twin on a masked 1200 x 1024 x 2048
-  stack, K1 at radii 24 and 48 (its separable route) on 16 x 4096^2.
+  stack, K1 at radii 24 and 48 (its separable route) on 16 x 4096^2;
+* the benchmark entry point (``bench``): ``python3 bench_torch.py`` as
+  a subprocess (its three lines: lean snap, RAW->grey, lean rotated),
+  then again with ``BENCH_FRAMES=24 BENCH_SIZE=4096 BENCH_IMPL=pallas``
+  and the RAW and rotated lines skipped (the unfused K3 line); every
+  line in bench.py's order, finite and positive, on this card, with the
+  launches its path must make.
 
 Beside the checks against the plain twins it times K2 at 100x4096^2 with
 ``combine='average'`` against ``combine='mean'`` (the same warp without
 the sort and clip): the warp phase against the combine phase.
 
 Run from the repository root with ``python3 chip_smoke.py``; every phase
-runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip,deep}``
+runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip,deep,bench}``
 runs one group of phases (the kernel check and timing of K1, K2 or K3 at
 the main paths' shapes, the lean path, the unfused path with and without
 the mask, the 16x1024^2 chunked run and the small kernel matrix, the
 band loop, the measurement ops, the RAW half, the calibration-file
-engines, the file-to-file reduction, the multi-device layer, or the
-routes past the shared-memory limits) and prints no ``kernels`` line.  Every phase raises
+engines, the file-to-file reduction, the multi-device layer, the
+routes past the shared-memory limits, or the benchmark) and prints no ``kernels`` line.  Every phase raises
 on failure.  Each phase prints one JSON line; the build line carries
 ptxas' register, shared-memory and spill report for every kernel; the
 line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -100,18 +106,23 @@ import time
 import numpy as np
 import torch
 
+from astrophotography_tpu_torch.device import card_line
+from bench_torch import (SKY, _gaussian_star, check_launches, check_stack,
+                         config_for, lean_config, make_workload)
+from bench_torch import require as _require
+
 N_FRAMES, SIZE = 100, 4096
 UNFUSED_FRAMES = 24
-SKY = 800.0
 #: translation error bound against the true dithers where stars come from
 #: find_stars (the unfused path, the lean path's chunked detection): its
 #: 5x5 centre-of-mass centroids carry a sub-pixel-phase bias (the JAX
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
 PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure",
-          "raw", "files", "reduce", "multichip", "deep")
-#: the RAW half: 24 lossless-JPEG DNGs of 3904^2 uint16, black level 128
-RAW_FRAMES, RAW_SIZE, RAW_BLACK = 24, 3904, 128
+          "raw", "files", "reduce", "multichip", "deep", "bench")
+#: the RAW half: 24 lossless-JPEG DNGs of 3904^2 uint16 (bench_rawgrey's
+#: set: black level 128)
+RAW_FRAMES, RAW_SIZE = 24, 3904
 #: the calibration-file engines: frames per master, light frames
 CAL_FRAMES, LIGHT_FRAMES = 9, 8
 #: the band loop: 4 bands of 1024 rows with a halo of one K2 tile row
@@ -131,99 +142,11 @@ def _print(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_line() -> str:
-    """The card's name and power limit as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def _gaussian_star(shape, x, y, flux, fwhm):
-    """Circular Gaussian star image (float64) integrating to ~flux."""
-    h, w = shape
-    sigma = fwhm / 2.35482
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    amp = flux / (2 * np.pi * sigma * sigma)
-    return amp * np.exp(-0.5 * (((xx - x) / sigma) ** 2
-                                + ((yy - y) / sigma) ** 2))
-
-
-def make_workload(n_frames: int, size: int, rotate: bool = False):
-    """Synthetic observing run with a full master set, the same numbers
-    as ``bench.py``'s workload: uint16 frames = scene*flat + bias +
-    0.5*dark_counts with sub-pixel dithers uniform(-4, 4) and, with
-    ``rotate``, 0.1-0.25 deg rotations about the centre.
-
-    Returns (frames, bias, dark_master, flat, exp_ratio, max_offset_px,
-    matrices (N, 2, 3) of the true reference->frame similarities)."""
-    rng = np.random.default_rng(0)
-    yy = (np.arange(size, dtype=np.float32) - size / 2) / size
-    r2 = yy[:, None] ** 2 + yy[None, :] ** 2
-    flat = (1.0 - 0.08 * r2 / r2.max()).astype(np.float32)
-    bias = np.full((size, size), 300.0, np.float32)
-    dark_counts = np.full((size, size), 40.0, np.float32)
-    hot = rng.integers(0, size, (200, 2))
-    dark_counts[hot[:, 0], hot[:, 1]] = 5000.0
-    dark_master = bias + dark_counts
-    exp_ratio = 0.5
-    xs = rng.uniform(48, size - 48, 40)
-    ys = rng.uniform(48, size - 48, 40)
-    fl = rng.uniform(20000, 60000, 40)
-    base_fixed = SKY * flat + bias + exp_ratio * dark_counts
-    noise_bank = [rng.normal(0, 8.0, (size, size)).astype(np.float32)
-                  for _ in range(min(4, n_frames))]
-    cx = cy = (size - 1) / 2.0
-    frames = np.empty((n_frames, size, size), np.uint16)
-    mats = np.zeros((n_frames, 2, 3), np.float64)
-    max_off = 0.0
-    for i in range(n_frames):
-        if i == 0:
-            dx = dy = theta = 0.0
-        else:
-            dx, dy = rng.uniform(-4.0, 4.0, 2)
-            theta = (float(rng.choice([-1.0, 1.0])
-                           * np.deg2rad(rng.uniform(0.1, 0.25)))
-                     if rotate else 0.0)
-        c, s = np.cos(theta), np.sin(theta)
-        mats[i] = [[c, -s, cx + dx - c * cx + s * cy],
-                   [s, c, cy + dy - s * cx - c * cy]]
-        f = base_fixed + noise_bank[i % len(noise_bank)]
-        for x, y, amp in zip(xs, ys, fl):
-            px = c * (x - cx) - s * (y - cy) + cx + dx
-            py = s * (x - cx) + c * (y - cy) + cy + dy
-            x0, y0 = int(px) - 12, int(py) - 12
-            patch = _gaussian_star((25, 25), px - x0, py - y0, amp, 3.0)
-            f[y0:y0 + 25, x0:x0 + 25] += patch * flat[y0:y0 + 25,
-                                                      x0:x0 + 25]
-            max_off = max(max_off, float(np.hypot(px - x, py - y)))
-        frames[i] = np.clip(f, 0, 65535).astype(np.uint16)
-    return frames, bias, dark_master, flat, exp_ratio, max_off, mats
-
-
-def lean_config(rotate: bool):
-    """bench.py's lean configurations (rotation: lowrank taps, budget
-    32; snap: span 8, budget 8)."""
-    from astrophotography_tpu_torch.models import PipelineConfig
-
-    common = dict(max_stars=48, match_k=10, detect_mode="chunked",
-                  detect_chunk=2, detect_topk="tile", detect_fast=True,
-                  detect_bin_rows=True, centroid="kernel", fused_apron=False,
-                  general_taps="lowrank")
-    if rotate:
-        return PipelineConfig(dither_budget=32, **common)
-    return PipelineConfig(warp_span=8, dither_budget=8, **common)
-
-
 def unfused_config():
-    """bench.py's unfused rung at 24x4096^2 (bench.py:260-270): exact
-    f32 detection, global top-k, two bands by bench.py's memory rule,
-    the K3 combine."""
-    from astrophotography_tpu_torch.models import PipelineConfig
-
-    return PipelineConfig(max_stars=48, match_k=10, interp="separable",
-                          n_bands=2, detect_mode="vmap",
-                          combine_impl="pallas")
+    """bench.py's unfused rung at 24x4096^2 (``config_for('pallas')``:
+    exact f32 detection, global top-k, two bands by the memory rule, the
+    K3 combine)."""
+    return config_for("pallas", UNFUSED_FRAMES, SIZE)
 
 
 def _timed(fn):
@@ -251,11 +174,6 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise RuntimeError(f"check failed: {what}")
 
 
 def _nbytes(*tensors) -> int:
@@ -486,18 +404,6 @@ def _workload_on_device(rotate, dev, keep_host=False):
             host if keep_host else None)
 
 
-def _check_launches(label, launches, required) -> None:
-    """Every kernel in ``required`` ({name: exact count or None for any
-    positive count}) was launched; no other kernel was."""
-    for name, count in launches.items():
-        want = required.get(name, 0)
-        if want is None:
-            _require(count > 0, f"{label}: kernel {name} not launched")
-        else:
-            _require(count == want, f"{label}: kernel {name} launched "
-                                    f"{count} times, expected {want}")
-
-
 def _check_registration(label, diag, mats, t_err_max=None):
     """n_inliers >= 5 and rms < 0.5 px on every frame; returns the
     largest translation error against the true matrices."""
@@ -511,14 +417,6 @@ def _check_registration(label, diag, mats, t_err_max=None):
     if t_err_max is not None:
         _require(t_err < t_err_max, f"{label}: translation error {t_err}")
     return int(n_in.min()), float(rms.max()), float(t_err)
-
-
-def _check_stack(label, stacked, size):
-    _require(bool(torch.isfinite(stacked).all()), f"{label}: stack not finite")
-    m = size // 8
-    med = float(stacked[m:-m, m:-m].median())
-    _require(abs(med - SKY) < 0.05 * SKY, f"{label}: interior median {med}")
-    return med
 
 
 def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
@@ -576,8 +474,8 @@ def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
     single_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    _check_launches(label, launches, {"detect_tiles": None,
-                                      "warp_combine": None})
+    check_launches(label, launches, {"detect_tiles": None,
+                                     "warp_combine": None})
     _require("jax" not in sys.modules, "jax was imported")
     if "bands" in phases:
         checks["bands"] = run_bands(fr, diag, masters, er, cfg, label, card)
@@ -599,7 +497,7 @@ def run_main_path(rotate: bool, card: str, dev, phases) -> dict:
 
     # registration against the known dithers (reference = frame 0)
     min_in, max_rms, t_err = _check_registration(label, diag, mats)
-    med = _check_stack(label, stacked, SIZE)
+    med = check_stack(label, stacked)
     res = {"phase": f"main path {label}", "shape": [n, SIZE, SIZE],
            "single_run_ms": single_ms,
            "sustained_gpix_s": n * SIZE * SIZE / sustained_s / 1e9,
@@ -671,7 +569,7 @@ def run_bands(fr, diag, masters, er, cfg, label, card) -> dict:
     kernels.reset_launch_counts()
     got, banded_ms = _timed(lambda: banded(mats))
     launches = dict(kernels.launch_counts)
-    _check_launches(f"bands {label}", launches, {"warp_combine": N_BANDS})
+    check_launches(f"bands {label}", launches, {"warp_combine": N_BANDS})
     res = {"phase": f"bands {label}", "shape": list(fr.shape),
            "n_bands": N_BANDS, "halo": HALO, "launches": launches,
            "whole_frame_ms": whole_ms, "banded_ms": banded_ms,
@@ -1058,8 +956,8 @@ def _rank_launches(label, ranks, key, required) -> dict:
     out = {}
     for r in ranks:
         launches = r[key]["rank"]["launches"]
-        _check_launches(f"multichip {label} rank {r[key]['rank']['rank']}",
-                        launches, required)
+        check_launches(f"multichip {label} rank {r[key]['rank']['rank']}",
+                       launches, required)
         for name, count in launches.items():
             out.setdefault(name, []).append(count)
     return out
@@ -1765,27 +1663,19 @@ def _raw_pipeline(tmp: str, card: str, dev) -> dict:
     from astrophotography_tpu_torch import api
     from astrophotography_tpu_torch.core.raw_conv import RawConv
     from astrophotography_tpu_torch.device import to_uint16
-    from astrophotography_tpu_torch.io import losslessjpeg
     from astrophotography_tpu_torch.io.fits import (Header, read_image,
                                                     write_image)
-    from astrophotography_tpu_torch.io.raw import load_raw, write_dng
+    from astrophotography_tpu_torch.io.raw import load_raw
     from astrophotography_tpu_torch.ops import demosaic as dk
     from astrophotography_tpu_torch.parallel import AsyncWriter
+    from bench_rawgrey_torch import write_dngs
 
-    rng = np.random.default_rng(0)
-    # sky statistics (background + noise), not 16-bit white noise: the
-    # entropy decoder's cost follows real camera frames
-    base = np.clip(rng.normal(900.0, 35.0, (RAW_SIZE, RAW_SIZE)),
-                   0, 65535).astype(np.uint16)
+    # bench_rawgrey's DNG set: one mosaic of sky statistics (background +
+    # noise, not 16-bit white noise: the entropy decoder's cost follows
+    # real camera frames), encoded once, written to every file
     t0 = time.perf_counter()
-    payload = losslessjpeg.encode_lossless_jpeg(base)
-    encode_s = time.perf_counter() - t0
-    paths = []
-    for i in range(RAW_FRAMES):
-        p = os.path.join(tmp, f"f{i:03d}.dng")
-        write_dng(p, base, black_levels=(RAW_BLACK,) * 4, compression=7,
-                  strip_payload=payload)
-        paths.append(p)
+    base, paths = write_dngs(tmp, RAW_FRAMES, RAW_SIZE)
+    dng_set_s = time.perf_counter() - t0
     mpix = RAW_SIZE * RAW_SIZE / 1e6
 
     # what every output must hold: the conversion of the decoded mosaic
@@ -1887,7 +1777,7 @@ def _raw_pipeline(tmp: str, card: str, dev) -> dict:
     res = {"phase": "raw pipeline", "frames": RAW_FRAMES,
            "frame": [RAW_SIZE, RAW_SIZE], "mpix": mpix,
            "dng_bytes": os.path.getsize(paths[0]),
-           "encode_s": encode_s,
+           "dng_set_s": dng_set_s,
            "api_grey": {"seconds": api_s,
                         "frames_per_s": RAW_FRAMES / api_s},
            "loop_passes": passes,
@@ -2681,7 +2571,7 @@ def run_reduce(card: str, dev) -> dict:
             wall = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
         _require(rc == 0, f"ap_reduce exited {rc}")
-        _check_launches("reduce", launches, {"warp_combine": 2})
+        check_launches("reduce", launches, {"warp_combine": 2})
         res["ap_reduce"] = {
             "wall_s": wall, "lights": n_lights,
             "lights_per_s": n_lights / wall,
@@ -2764,7 +2654,7 @@ def run_reduce(card: str, dev) -> dict:
                 sec = time.perf_counter() - t0
             _require(rc == 0, f"ap_stack {key} exited {rc}")
             launched = dict(kernels.launch_counts)
-            _check_launches(f"ap_stack {key}", launched, want)
+            check_launches(f"ap_stack {key}", launched, want)
             entry = {"wall_s": sec, "launches": launched,
                      "split": rec.split()}
             origin = (0, 0)
@@ -2969,7 +2859,7 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     single_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    _check_launches(label, launches, {"clip_combine": cfg.n_bands})
+    check_launches(label, launches, {"clip_combine": cfg.n_bands})
     _require("jax" not in sys.modules, "jax was imported")
     k = 3
     t0 = time.perf_counter()
@@ -2979,7 +2869,7 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     sustained_s = (time.perf_counter() - t0) / k
     min_in, max_rms, t_err = _check_registration(label, diag, mats,
                                                  UNFUSED_T_ERR_PX)
-    med = _check_stack(label, stacked, SIZE)
+    med = check_stack(label, stacked)
     del out, stacked
     split = _unfused_split(fr, kw, cfg)
 
@@ -2994,11 +2884,11 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     torch.cuda.synchronize()
     badpix_ms = (time.perf_counter() - t0) * 1e3
     blaunches = dict(kernels.launch_counts)
-    _check_launches(label + " badpix", blaunches,
-                    {"clip_combine": cfg.n_bands})
+    check_launches(label + " badpix", blaunches,
+                   {"clip_combine": cfg.n_bands})
     b_in, b_rms, b_terr = _check_registration(label + " badpix", bdiag, mats,
                                               UNFUSED_T_ERR_PX)
-    b_med = _check_stack(label + " badpix", stacked, SIZE)
+    b_med = check_stack(label + " badpix", stacked)
     badpix = {"single_run_ms": badpix_ms, "hot_pixels": int(hot.sum()),
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "launches": blaunches, "min_inliers": b_in, "max_rms_px": b_rms,
@@ -3089,6 +2979,90 @@ def _lean_chunked_split(fr, kw, cfg) -> dict:
             "device_total_ms": sum(device.values())}
 
 
+#: the bench phase's runs of ``bench_torch.py``: a label, the environment
+#: it adds, and the lines it must print in order, each as a fragment of
+#: its metric and the launches of one run (None: the line has none)
+_LEAN_LAUNCHES = {"detect_tiles": 1, "warp_combine": 1, "clip_combine": 0}
+BENCH_RUNS = (
+    ("default", {}, (("lean, sub-px dithers", _LEAN_LAUNCHES),
+                     ("RAW->grey", None),
+                     ("lean, rotated", _LEAN_LAUNCHES))),
+    ("pallas", {"BENCH_FRAMES": "24", "BENCH_SIZE": "4096",
+                "BENCH_IMPL": "pallas", "BENCH_SKIP_RAWGREY": "1",
+                "BENCH_SKIP_ROTATION": "1"},
+     (("24x4096^2 pallas, sub-px dithers",
+       {"detect_tiles": 0, "warp_combine": 0, "clip_combine": 2}),)),
+)
+#: what each bench line is held beside: the smoke phase that ran the
+#: same configuration in this call
+_BENCH_VS_SMOKE = {("default", 0): "snap", ("default", 2): "rotated",
+                   ("pallas", 0): "unfused"}
+
+
+def bench_lines(label: str, stdout: str, want, device: dict,
+                smoke: dict) -> tuple:
+    """The JSON lines of one run of ``bench_torch.py`` (``label``, the
+    lines ``want``, as in :data:`BENCH_RUNS`), each checked: in bench.py's
+    order, a finite positive value, ``vs_baseline`` null, ``device`` this
+    card's (name, count, a power limit), and on a stacking line the
+    launches its path must make.  ``smoke`` holds the main paths' lines
+    of this call ({"snap", "rotated", "unfused"}, as far as they ran).
+    Returns (lines, each stacking line's single run and best sustained
+    run as ratios to the smoke's figure for the same configuration)."""
+    lines = [json.loads(t) for t in stdout.splitlines() if t.startswith("{")]
+    _require(len(lines) == len(want),
+             f"bench {label}: {len(lines)} lines, expected {len(want)}")
+    vs_smoke = {}
+    for i, (line, (fragment, launches)) in enumerate(zip(lines, want)):
+        what = f"bench {label} line {i + 1}"
+        _require(fragment in line["metric"],
+                 f"{what}: '{line['metric']}' where '{fragment}' comes")
+        v = line["value"]
+        _require(isinstance(v, float) and math.isfinite(v) and v > 0,
+                 f"{what}: value {v}")
+        _require(line["vs_baseline"] is None, f"{what}: vs_baseline")
+        got = line["device"]
+        _require(got["name"] == device["name"]
+                 and got["count"] == device["count"]
+                 and (got["power_limit_w"] or 0) > 0,
+                 f"{what}: device {got}")
+        if launches is None:
+            continue
+        check_launches(what, line["launches"], launches)
+        ref = smoke.get(_BENCH_VS_SMOKE[(label, i)])
+        if ref:
+            vs_smoke[str(i + 1)] = {
+                "single_run": line["single_run_ms"] / ref["single_run_ms"],
+                "sustained": line["runs_ms"]["min"] / ref["sustained_ms"]}
+    return lines, vs_smoke
+
+
+def run_bench(card: str, smoke: dict) -> dict:
+    """``bench_torch.py`` as a subprocess, once as it runs by default and
+    once at the unfused ``pallas`` rung (:data:`BENCH_RUNS`): it must exit
+    0 and print lines that pass :func:`bench_lines`."""
+    device = {"name": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    root = os.path.dirname(os.path.abspath(__file__))
+    # each run sees only its own BENCH_* settings
+    base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    torch.cuda.empty_cache()
+    out = {}
+    for label, env, want in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "bench_torch.py")], cwd=root,
+            env={**base, **env}, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        _require(proc.returncode == 0, f"bench {label}: exit code "
+                                       f"{proc.returncode}: {proc.stderr[-3000:]}")
+        lines, vs_smoke = bench_lines(label, proc.stdout, want, device, smoke)
+        out[label] = {"env": env, "seconds": seconds, "lines": lines,
+                      "vs_smoke": vs_smoke}
+    _print({"phase": "bench", "runs": out, "card": card})
+    return out
+
+
 def run_lean_chunked(card: str, dev) -> dict:
     """The lean path with detect_impl='chunked' (calibrate + noise stats
     + find_stars chunk by chunk, then K2) at 16x1024^2: one timed run
@@ -3116,11 +3090,11 @@ def run_lean_chunked(card: str, dev) -> dict:
     torch.cuda.synchronize()
     single_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
-    _check_launches(label, launches, {"warp_combine": 1})
+    check_launches(label, launches, {"warp_combine": 1})
     # find_stars' 5x5 centre-of-mass centroids, as on the unfused path
     min_in, max_rms, t_err = _check_registration(label, diag, mats,
                                                  UNFUSED_T_ERR_PX)
-    med = _check_stack(label, stacked, size)
+    med = check_stack(label, stacked)
     later_ms = []
     for _ in range(4):
         t0 = time.perf_counter()
@@ -3493,10 +3467,10 @@ def run_deep(card: str, dev) -> dict:
     single_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    _check_launches(label, launches, {"detect_tiles": 1, "warp_combine": 1})
+    check_launches(label, launches, {"detect_tiles": 1, "warp_combine": 1})
     _require("jax" not in sys.modules, "jax was imported")
     min_in, max_rms, t_err = _check_registration(label, diag, mats)
-    med = _check_stack(label, stacked, size)
+    med = check_stack(label, stacked)
     del stacked, diag
     torch.cuda.empty_cache()
     checks = [_plain_check(kind, calls[kind].call, label)
@@ -3545,10 +3519,10 @@ def run_deep(card: str, dev) -> dict:
     u_ms = (time.perf_counter() - t0) * 1e3
     ulaunches = dict(kernels.launch_counts)
     u_peak = torch.cuda.max_memory_allocated()
-    _check_launches(ulabel, ulaunches, {"clip_combine": ucfg.n_bands})
+    check_launches(ulabel, ulaunches, {"clip_combine": ucfg.n_bands})
     u_in, u_rms, u_err = _check_registration(ulabel, diag, mats,
                                              UNFUSED_T_ERR_PX)
-    u_med = _check_stack(ulabel, stacked, small)
+    u_med = check_stack(ulabel, stacked)
     del stacked, diag
     _require(len(k3.calls) == ucfg.n_bands, f"{ulabel}: K3 calls")
     u_checks = [_plain_check("K3", c, f"{ulabel} band {i}")
@@ -3676,6 +3650,11 @@ def main(argv=None) -> int:
         rot = run_main_path(True, card, dev, phases)
     if phases & {"k3", "unfused"}:
         unfused = run_unfused_path(card, dev, phases)
+    bench = {}
+    if "bench" in phases:
+        bench = run_bench(card, {k: r["main"] for k, r in (
+            ("snap", snap), ("rotated", rot), ("unfused", unfused))
+            if "main" in r})
     if "multichip" in phases:
         multichip = run_multichip(card, dev, snap.pop("multichip"),
                                   rot.pop("multichip"))
@@ -3719,6 +3698,9 @@ def main(argv=None) -> int:
                                   mc_err["K3"], deep["K3"]["max_abs_err"],
                                   deep["unfused"]["max_abs_err"]))
         deep_lean = deep["lean"]["launches"]
+        bench_lean = {f"bench lean {k}": bench["default"]["lines"][i]
+                      ["launches"] for k, i in (("snap", 0), ("rotated", 2))}
+        bench_k3 = bench["pallas"]["lines"][0]["launches"]["clip_combine"]
         _print({"kernels": [
             _kernel_entry("detect_tiles",
                           "astrophotography_tpu/ops/pallas_detect.py:405",
@@ -3726,7 +3708,9 @@ def main(argv=None) -> int:
                           {"lean": launches["detect_tiles"],
                            "multichip": _mc_launches(multichip,
                                                      "detect_tiles"),
-                           "deep": deep_lean["detect_tiles"]},
+                           "deep": deep_lean["detect_tiles"],
+                           **{k: v["detect_tiles"]
+                              for k, v in bench_lean.items()}},
                           k1),
             _kernel_entry("warp_combine",
                           "astrophotography_tpu/ops/pallas_warp_combine.py:658",
@@ -3739,7 +3723,9 @@ def main(argv=None) -> int:
                            ["warp_combine"],
                            "multichip": _mc_launches(multichip,
                                                      "warp_combine"),
-                           "deep": deep_lean["warp_combine"]},
+                           "deep": deep_lean["warp_combine"],
+                           **{k: v["warp_combine"]
+                              for k, v in bench_lean.items()}},
                           k2),
             _kernel_entry("clip_combine",
                           "astrophotography_tpu/ops/pallas_combine.py:102",
@@ -3753,7 +3739,8 @@ def main(argv=None) -> int:
                            "multichip": _mc_launches(multichip,
                                                      "clip_combine"),
                            "deep unfused": deep["unfused"]["launches"]
-                           ["clip_combine"]},
+                           ["clip_combine"],
+                           "bench pallas": bench_k3},
                           k3),
         ]})
     print(card, flush=True)

@@ -819,3 +819,20 @@ def test_frame_loaders_and_writer_on_the_card(cuda, tmp_path):
     for at in (0, 3, 6):
         data, _ = read_image(str(tmp_path / f"out{at}.fits"))
         np.testing.assert_array_equal(data, frames[at] * 2.0)
+
+
+def test_bench_attempt_lean_on_the_card(cuda):
+    """bench_torch's lean line at 8x1024^2 on the card: K1 and K2 launched
+    once each in one run, K3 not at all, the stack's interior median
+    within 5% of the sky, the card's name and power limit in the line."""
+    import bench_torch
+
+    line = bench_torch.attempt(8, 1024, 1, "lean", device=cuda)
+    assert line["launches"] == {"detect_tiles": 1, "warp_combine": 1,
+                                "clip_combine": 0}
+    assert abs(line["interior_median"] - bench_torch.SKY) \
+        < 0.05 * bench_torch.SKY
+    assert line["vs_baseline"] is None and line["value"] > 0
+    assert line["peak_mem_bytes"] > 0
+    assert line["device"]["name"] == torch.cuda.get_device_name(0)
+    assert line["device"]["power_limit_w"] > 0

@@ -211,13 +211,16 @@ def test_unported_paths_raise():
 
 
 def test_smoke_workload_equals_bench_workload():
-    """chip_smoke.py's jax-free workload generator makes bench.py's
-    workload exactly, and its matrices map reference stars onto frames."""
+    """bench_torch.py's jax-free workload generator (the one chip_smoke.py
+    uses) makes bench.py's workload exactly, and its matrices map
+    reference stars onto frames."""
     import bench
+    import bench_torch
     import chip_smoke
 
+    assert chip_smoke.make_workload is bench_torch.make_workload
     for rotate in (False, True):
-        ours = chip_smoke.make_workload(3, 160, rotate=rotate)
+        ours = bench_torch.make_workload(3, 160, rotate=rotate)
         ref = bench._make_workload(3, 160, rotate=rotate)
         for a, b in zip(ours[:6], ref):
             np.testing.assert_array_equal(a, b)
