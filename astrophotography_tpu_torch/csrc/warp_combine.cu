@@ -62,7 +62,7 @@
 // the median.  No per-thread array is indexed at run time (no local
 // memory).
 //
-// Two routes (kernels._warp_route picks one by frames and span):
+// Three routes (kernels._warp_route picks one by frames and span):
 //  * 'smem', the few-frame route: the columns are shared memory, as
 //    above, and each thread sorts its own, in blocks of 8 rows
 //    (kernels._WARP_SMEM_ROWS; past the frames where they fit, 'cols'
@@ -91,6 +91,28 @@
 //    gathered from the runs into the warp's column and sorted there
 //    (combine_runs).
 //    Only the card's memory limits N.
+//  * 'wide', windows past one row of a shared block (span > 192 at 32
+//    columns; warp_combine_wide_kernel): a block's window, (rows + span) x
+//    (32 + span) floats, no longer fits 227 KB.  What bounds the route
+//    on this card is the mid rows, not the window: a block of up to 32
+//    output rows (8 warps, 4 rows a thread) keeps its (rows + span) x 32
+//    mid rows in shared memory and stages the window one calibrated row
+//    per warp, only the columns that row's taps reach, so the route takes
+//    spans up to 1436 (one row's mid rows and 8 staged rows in 227 KB;
+//    kernels._WARP_WIDE_MAX_SPAN), where the wrapper raises.  Per frame
+//    the block first finds the mid rows its pixels read (the 'exact'
+//    body's taps per pixel, the lowrank body's per column) and filters
+//    only those, each once: ~rows + 15 of them at 5-15 degree rotations,
+//    not rows + span, so the horizontal pass costs ~1.5 rows per output
+//    row, as the TPU kernel's tile of th > span rows amortises it.  Its
+//    samples go to the 'cols' scratch and cols_combine combines them
+//    (any N); the grid stops where that scratch would pass 1 GiB (218
+//    blocks at 1200 frames).  Four barriers a frame and 116 B of spills:
+//    15.3 ms at 24 x 2048^2, span 256, 'exact' (36x its bound, which
+//    counts ~1.02 mid rows per output row; chip_smoke.py's wide phase);
+//    untuned.  Forced below span 193 it gives the 'cols' route's bits
+//    but is 1.15-1.7x its time at most frame counts of the route sweep
+//    (faster only near 600 frames), so 'cols' keeps its own warp phase.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -904,18 +926,20 @@ __device__ float combine_runs(const Runs& R, int count, int combine,
   return combine == 2 ? acc : acc / (float)cnt;
 }
 
-// The combine of one output block on 'cols', after the warp phase: W =
-// by pixels at a time (tid order: neighbours in a row), warp w on pixel
-// g + w.  With n <= run the block reads the group's n x W samples from
-// the slot (W words a frame row) into one column per warp once and each
-// warp sorts and combines its own; past `run` the runs are read, sorted
-// and written back one after another, then combine_runs reads them.
+// The combine of one output block of nt pixels on 'cols' or 'wide', after
+// the warp phase: W (the block's warps) pixels at a time (tid order:
+// neighbours in a row), warp w on pixel g + w.  With n <= run the block
+// reads the group's n x W samples from the slot (W words a frame row) into
+// one column per warp once and each warp sorts and combines its own; past
+// `run` the runs are read, sorted and written back one after another, then
+// combine_runs reads them.
 __device__ __forceinline__ void cols_combine(float* __restrict__ slot,
                                              float* __restrict__ out, int n,
-                                             int by, int run, int combine,
-                                             float sigma_lo, float sigma_hi) {
+                                             int W, int nt, int run,
+                                             int combine, float sigma_lo,
+                                             float sigma_hi) {
   extern __shared__ float smem[];
-  const int W = by, nt = BX * by, lane = threadIdx.x, wp = threadIdx.y;
+  const int lane = threadIdx.x, wp = threadIdx.y, nth = BX * W;
   const int tid = wp * BX + lane;
   const int* pc = reinterpret_cast<const int*>(slot + (size_t)n * nt);
   const int CS = cols_stride(min(n, run), W);
@@ -932,7 +956,7 @@ __device__ __forceinline__ void cols_combine(float* __restrict__ slot,
       const int f0 = r * run, len = min(run, n - f0), s = col_shift(len);
       __syncthreads();  // the tile's readers are done
 #pragma unroll 8
-      for (int i = tid; i < len * W; i += nt) {
+      for (int i = tid; i < len * W; i += nth) {
         const int f = i / W, p = i - f * W;
         smem[p * CS + swz(f, s)] = tile[(size_t)(f0 + f) * nt + p];
       }
@@ -944,7 +968,7 @@ __device__ __forceinline__ void cols_combine(float* __restrict__ slot,
         if (count > 0) sort_col(col, len, lane);
         __syncthreads();
 #pragma unroll 8
-        for (int i = tid; i < len * W; i += nt) {
+        for (int i = tid; i < len * W; i += nth) {
           const int f = i / W, p = i - f * W;
           tile[(size_t)(f0 + f) * nt + p] = smem[p * CS + swz(f, s)];
         }
@@ -985,7 +1009,385 @@ warp_combine_cols_kernel(const T* __restrict__ frames,
                         sigma_hi, by, sbx, sby, b % nbx, b / nbx, slot);
     if (combine != 3) {
       __syncthreads();
-      cols_combine(slot, out, n, by, run, combine, sigma_lo, sigma_hi);
+      cols_combine(slot, out, n, by, BX * by, run, combine, sigma_lo,
+                   sigma_hi);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The 'wide' route: windows that leave no room for even one output row of
+// a shared block (span past 192 at 32 columns).  A block of WIDE_WARPS
+// warps covers up to WIDE_WARPS x WIDE_PIX output rows by BX columns of
+// one tile (`rows`, kernels._warp_wide_rows); per frame it computes the
+// mid rows its pixels read — mid row k is the horizontal pass of source
+// row vbase + r0 + k, and output row kr reads mid rows kr + s — each
+// once: each warp stages one calibrated window row at a time, only the
+// columns that row's taps reach, into its own row of shared memory and
+// filters it into the mid buffer ((rows + span) x BX floats), in the
+// twin's order; after a barrier the vertical pass reads the buffer.  The
+// samples go to the block's slot of the 'cols' scratch and cols_combine
+// combines them, so any frame count works.
+constexpr int WIDE_WARPS = 8;  // warps of a block: BX x 8 threads
+constexpr int WIDE_PIX = 4;    // output rows per thread: blocks of <= 32 rows
+constexpr int NO_ROW = 0x7fffffff;
+
+struct WideLayout {
+  int wc, mid, stage, vw, vr, sw, par, rng, total;
+};
+
+// Shared memory of a 'wide' block's warp phase, in words
+// (kernels._warp_wide_smem_bytes mirrors the total).
+__host__ __device__ inline WideLayout wide_layout(int rows, int span) {
+  WideLayout L;
+  L.wc = BX + span;                      // window columns
+  L.mid = 0;                             // [rows + span][BX] mid rows
+  L.stage = L.mid + (rows + span) * BX;  // [WIDE_WARPS][wc] a row per warp
+  L.vw = L.stage + WIDE_WARPS * L.wc;    // [HT][BX] lowrank column weights
+  L.vr = L.vw + HT * BX;                 // [BX][2] lowrank column taps
+  L.sw = L.vr + 2 * BX;                  // [16] snap weights and masks
+  L.par = L.sw + 16;                     // [PSLOT] the frame's parameters
+  L.rng = L.par + PSLOT;                 // [2] first and last mid row read
+  L.total = L.rng + 2;
+  return L;
+}
+
+// The block's words: the warp phase and the combine's tile over the same
+// words (kernels._warp_wide_smem_total mirrors it).
+__host__ __device__ inline int wide_words(int L, int rows, int span) {
+  const int warp = wide_layout(rows, span).total;
+  const int tile = WIDE_WARPS * cols_stride(L, WIDE_WARPS);
+  return warp > tile ? warp : tile;
+}
+
+// One output block of the 'wide' route, (bid_x, bid_y) in its grid: the
+// warp phase into `vals`, the block's slot ([n + 2][nt] words, nt = BX x
+// rows), then each pixel's count of covered samples and output offset in
+// the slot's rows n and n + 1, as warp_block leaves them on 'cols'.
+template <typename T>
+__device__ __forceinline__ void wide_block(
+    const T* __restrict__ frames, const float* __restrict__ masters,
+    const float* __restrict__ ftab, const int* __restrict__ ttab,
+    float* __restrict__ out, int n, int h0, int w0, int th, int tw, int n_tj,
+    int n_tiles, int span, int lowrank, int combine, int rows, int sbx,
+    int sby, int bid_x, int bid_y, float* __restrict__ vals) {
+  extern __shared__ float smem[];
+  const WideLayout L = wide_layout(rows, span);
+  float* mid = smem + L.mid;
+  float* stage = smem + L.stage + threadIdx.y * L.wc;
+  float* vw = smem + L.vw;
+  int* vr = reinterpret_cast<int*>(smem + L.vr);
+  float* sw = smem + L.sw;
+  float* P = smem + L.par;
+  const int* Pi = reinterpret_cast<const int*>(P);
+  int* rng = reinterpret_cast<int*>(smem + L.rng);
+  const unsigned FULL = 0xffffffffu;
+  const int nt = BX * rows, last_mid = rows + span - 1;
+  const int lane = threadIdx.x, wp = threadIdx.y;
+  const int tid = wp * BX + lane;
+  // block -> (tile, sub-block): rows r0 + [0, rows), columns c0 + [0, BX)
+  const int j = bid_x / sbx, c0 = (bid_x - j * sbx) * BX;
+  const int i = bid_y / sby, r0 = (bid_y - i * sby) * rows;
+  const int tile = i * n_tj + j;
+  const int c = c0 + lane, x = j * tw + c;
+  const bool col_live = c < tw && x < w0;
+  const int rows_here = min(rows, th - r0);  // the tile clips its last block
+  const float x_out = (float)x;
+  const float ti = (float)(i * th), tj = (float)(j * tw);
+  const int t_lo = span >= 7 ? 1 : 0;
+  const int t_hi = span >= 7 ? min(span, 7) : span;
+  const int nk = t_hi - t_lo;
+  const int t1hi = min(span, 9);
+  const Src<T> S{frames, masters, (size_t)h0 * w0, h0, w0};
+
+  // this thread's output rows k = wp + m * WIDE_WARPS (block-relative)
+  auto live = [&](int k) {
+    return col_live && k < rows_here && i * th + r0 + k < h0;
+  };
+  auto covered = [&](int k) {
+    const float y_out = (float)(i * th + r0 + k);
+    const float v = affine_rn(P[3], x_out, P[4], y_out, P[5]);
+    const float sx = affine_rn(P[0], x_out, P[1], y_out, P[2]);
+    return sx >= 2.0f && sx <= (float)w0 - 4.0f && v >= P[9] && v <= P[10];
+  };
+  // the 'exact' body's vertical coordinate of output row k
+  auto v_local = [&](int k) {
+    const float y_out = (float)(i * th + r0 + k);
+    return affine_rn(P[3], x_out, P[4], y_out, P[5]) - (float)Pi[16];
+  };
+  int count[WIDE_PIX];
+  float macc[WIDE_PIX];
+#pragma unroll
+  for (int m = 0; m < WIDE_PIX; ++m) {
+    count[m] = 0;
+    macc[m] = 0.0f;
+  }
+
+  for (int f = 0; f < n; ++f) {
+    __syncthreads();  // the previous frame's readers are done
+    if (tid < 16)
+      P[tid] = ftab[16 * (size_t)f + tid];
+    else if (tid < 19)
+      reinterpret_cast<int*>(P)[tid] =
+          ttab[3 * ((size_t)f * n_tiles + tile) + tid - 16];
+    else if (tid == 19) {
+      rng[0] = NO_ROW;
+      rng[1] = -1;
+    }
+    __syncthreads();
+    // the window contained and, for the general bodies, the span / lowrank
+    // gate: the same for the whole block
+    const bool use = Pi[18] != 0 && (P[8] > 0.5f || P[14] > 0.5f);
+    const int kind = !use ? OFF : (P[8] > 0.5f ? SNAP : (lowrank ? LOW : EXACT));
+    if (kind == OFF) {
+#pragma unroll
+      for (int m = 0; m < WIDE_PIX; ++m) {
+        const int k = wp + m * WIDE_WARPS;
+        if (live(k)) vals[(size_t)f * nt + k * BX + lane] = BIG;
+      }
+      continue;
+    }
+    const float vb_f = (float)Pi[16], ub_f = (float)Pi[17];
+    const float gx = P[11], gy = P[12], g0 = P[13];
+
+    // the body's weights, and the mid rows [klo, khi] this thread's pixels
+    // read (the block's range goes to rng)
+    int klo = NO_ROW, khi = -1;
+    if (kind == SNAP) {
+      if (wp == 0) {
+        // the 12 tap weights and two reciprocals (lanes 0-7 horizontal,
+        // 8-15 vertical), scaled, and the masks of the non-zero taps
+        const int q0 = lane & 7;
+        const float a = lane < 8 ? (tj + g0) - ub_f : (ti + P[5]) - vb_f;
+        const float w = q0 < nk ? l3(a - (float)(t_lo + q0)) : 0.0f;
+        float ws[6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) ws[q] = __shfl_sync(FULL, w, (lane & 8) + q);
+        float sum = ws[0];
+#pragma unroll
+        for (int q = 1; q < 6; ++q)
+          if (q < nk) sum = add(sum, ws[q]);
+        const float inv = fabsf(sum) > 1e-3f ? 1.0f / sum : 0.0f;
+        const unsigned nz = __ballot_sync(FULL, q0 < nk && w != 0.0f);
+        if (q0 < nk && lane < 16) sw[lane] = mul(w, inv);
+        if (lane == 0) {
+          reinterpret_cast<int*>(sw)[6] = nz & 0xffu;
+          reinterpret_cast<int*>(sw)[14] = (nz >> 8) & 0xffu;
+        }
+      }
+      klo = t_lo;
+      khi = rows_here - 1 + t_hi - 1;
+    } else if (kind == LOW) {
+      // column weights of the block: tap lo + q of column cx
+      const float m11 = P[4];
+      for (int t = tid; t < HT * BX; t += BX * WIDE_WARPS) {
+        const int q = t / BX, cx = t - q * BX;
+        const float xo = (float)(j * tw + c0 + cx);
+        const float bv = add(affine_rn(P[3], xo, m11, ti, P[5]) - vb_f,
+                             mul(m11 - 1.0f, (float)(th - 1) * 0.5f));
+        const int lo = tap_lo(bv, 1), hi = tap_hi(bv, span - 1);
+        vw[t] = lo + q <= hi ? l3(bv - (float)(lo + q)) : 0.0f;
+        if (q == 0) {
+          vr[2 * cx] = lo;
+          vr[2 * cx + 1] = hi;
+          if (lo <= hi) {
+            klo = min(klo, lo);
+            khi = max(khi, hi + rows_here - 1);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < WIDE_PIX; ++m) {
+        const int k = wp + m * WIDE_WARPS;
+        if (live(k) && covered(k)) {
+          const float vrel = v_local(k) - (float)(r0 + k);
+          const int lo = tap_lo(vrel, 0), hi = tap_hi(vrel, span - 1);
+          if (lo <= hi) {
+            klo = min(klo, k + lo);
+            khi = max(khi, k + hi);
+          }
+        }
+      }
+    }
+    klo = __reduce_min_sync(FULL, klo);
+    khi = __reduce_max_sync(FULL, khi);
+    if (lane == 0 && klo <= khi) {
+      atomicMin(rng, klo);
+      atomicMax(rng + 1, khi);
+    }
+    __syncthreads();
+
+    // horizontal pass: warp wp stages and filters mid rows qlo + wp, ...
+    // (none where no pixel of the block is covered)
+    const int qlo = rng[0], qhi = min(rng[1], last_mid);
+    for (int k = qlo <= qhi ? qlo + wp : qhi + 1; k <= qhi; k += WIDE_WARPS) {
+      const float vrow = vb_f + (float)(r0 + k);  // source row vbase + r0 + k
+      // the window columns [clo, chi] that this row's taps reach
+      int clo, chi;
+      float u_loc = 0.0f;
+      if (kind == SNAP) {
+        clo = t_lo;
+        chi = BX - 1 + t_hi - 1;
+      } else if (kind == LOW) {
+        clo = 1;
+        chi = BX - 1 + t1hi - 1;
+      } else {
+        u_loc = affine_rn(gx, x_out, gy, vrow, g0) - ub_f;
+        const float urel = u_loc - (float)c;
+        const int lo = tap_lo(urel, 0), hi = tap_hi(urel, span - 1);
+        const bool any = col_live && lo <= hi;
+        clo = __reduce_min_sync(FULL, any ? lane + lo : NO_ROW);
+        chi = __reduce_max_sync(FULL, any ? lane + hi : -1);
+      }
+      const int gy_src = Pi[16] + r0 + k, gx_src = Pi[17] + c0;
+      if (clo <= chi)  // no lane of an 'exact' row may reach a tap
+        for (int col = clo + lane; col <= chi; col += 32)
+          stage[col] = S.load_cal(f, gy_src, gx_src + col, P[6], P[7]);
+      __syncwarp();
+      float mv = 0.0f;
+      if (kind == SNAP) {
+        const int hmask = reinterpret_cast<const int*>(sw)[6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+          if (q < nk && ((hmask >> q) & 1))
+            mv = add(mv, mul(sw[q], stage[lane + t_lo + q]));
+      } else if (kind == LOW) {
+        // the row's weights, 8 lanes, the sum in tap order by shuffles
+        const float bu = add(affine_rn(gx, tj, gy, vrow, g0) - ub_f,
+                             mul(gx - 1.0f, (float)(tw - 1) * 0.5f));
+        const int s2 = 1 + (lane & 7);
+        const float w = s2 >= tap_lo(bu, 1) && s2 <= tap_hi(bu, t1hi - 1)
+                            ? l3(bu - (float)s2)
+                            : 0.0f;
+        float ws[HT];
+#pragma unroll
+        for (int q = 0; q < HT; ++q) ws[q] = __shfl_sync(FULL, w, q);
+        float w0s = 0.0f;
+#pragma unroll
+        for (int q = 0; q < HT; ++q)
+          if (ws[q] != 0.0f) w0s = add(w0s, ws[q]);
+        const float hinv = fabsf(w0s) > 1e-3f ? 1.0f / w0s : 0.0f;
+        float acc0 = 0.0f;
+#pragma unroll
+        for (int q = 0; q < HT; ++q)
+          if (q < t1hi - 1 && ws[q] != 0.0f)
+            acc0 = add(acc0, mul(ws[q], stage[lane + 1 + q]));
+        mv = mul(acc0, hinv);
+      } else if (col_live) {
+        const float urel = u_loc - (float)c;
+        float acc = 0.0f, wsum = 0.0f;
+        for (int s2 = tap_lo(urel, 0); s2 <= tap_hi(urel, span - 1); ++s2) {
+          const float wt = l3(u_loc - (float)(c + s2));
+          if (wt == 0.0f) continue;
+          acc = add(acc, mul(wt, stage[lane + s2]));
+          wsum = add(wsum, wt);
+        }
+        mv = fabsf(wsum) > 1e-3f ? acc / wsum : 0.0f;
+      }
+      mid[k * BX + lane] = mv;
+      __syncwarp();  // the stage's readers are done
+    }
+    __syncthreads();
+
+    // vertical pass of this thread's rows
+#pragma unroll
+    for (int m = 0; m < WIDE_PIX; ++m) {
+      const int k = wp + m * WIDE_WARPS;
+      if (!live(k)) continue;
+      float* o = vals + (size_t)f * nt + k * BX + lane;
+      if (!covered(k)) {
+        *o = BIG;
+        continue;
+      }
+      float val;
+      if (kind == SNAP) {
+        const int vmask = reinterpret_cast<const int*>(sw)[14];
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          const float mq = mid[min(k + t_lo + q, last_mid) * BX + lane];
+          if (q < nk && ((vmask >> q) & 1)) acc = add(acc, mul(sw[8 + q], mq));
+        }
+        val = acc;
+      } else if (kind == LOW) {
+        const int lo = vr[2 * lane], hi = vr[2 * lane + 1];
+        float acc2 = 0.0f, v0s = 0.0f;
+#pragma unroll
+        for (int q = 0; q < HT; ++q) {  // at most 8 taps in [lo, hi]
+          const int s = max(min(lo + q, hi), 0);
+          const float wvt = vw[q * BX + lane];
+          const float mq = mid[min(k + s, last_mid) * BX + lane];
+          if (lo + q <= hi && wvt != 0.0f) {
+            acc2 = add(acc2, mul(wvt, mq));
+            v0s = add(v0s, wvt);
+          }
+        }
+        val = mul(acc2, fabsf(v0s) > 1e-3f ? 1.0f / v0s : 0.0f);
+      } else {
+        const int rr = r0 + k;
+        const float v_loc = v_local(k), vrel = v_loc - (float)rr;
+        float acc2 = 0.0f, wsum2 = 0.0f;
+        for (int s = tap_lo(vrel, 0); s <= tap_hi(vrel, span - 1); ++s) {
+          const float wvt = l3(v_loc - (float)(rr + s));
+          if (wvt == 0.0f) continue;
+          acc2 = add(acc2, mul(wvt, mid[(k + s) * BX + lane]));
+          wsum2 = add(wsum2, wvt);
+        }
+        val = fabsf(wsum2) > 1e-3f ? acc2 / wsum2 : 0.0f;
+      }
+      ++count[m];  // a covered sample, in frame order
+      macc[m] = add(macc[m], val);
+      *o = val;
+    }
+  }
+
+  int* pc = reinterpret_cast<int*>(vals + (size_t)n * nt);
+#pragma unroll
+  for (int m = 0; m < WIDE_PIX; ++m) {
+    const int k = wp + m * WIDE_WARPS;
+    if (k >= rows) continue;
+    const int p = k * BX + lane, off = (i * th + r0 + k) * w0 + x;
+    int left = 0;
+    if (live(k)) {
+      if (count[m] == 0)
+        out[off] = 0.0f;
+      else if (combine == 3)
+        out[off] = macc[m] / (float)count[m];
+      else
+        left = count[m];
+    }
+    pc[p] = left;
+    pc[nt + p] = live(k) ? off : 0;
+  }
+}
+
+// The 'wide' route's kernel: like warp_combine_cols_kernel, a grid of the
+// blocks the card keeps resident (no more than a 1 GiB scratch holds),
+// each walking the output blocks with the grid's stride, its samples in
+// its own slot of `scratch` ((n + 2) x nt words, nt = BX x rows).
+template <typename T>
+__global__ void __launch_bounds__(BX * WIDE_WARPS, 2)
+warp_combine_wide_kernel(const T* __restrict__ frames,
+                         const float* __restrict__ masters,
+                         const float* __restrict__ ftab,
+                         const int* __restrict__ ttab,
+                         float* __restrict__ out, int n, int h0, int w0,
+                         int th, int tw, int n_tj, int n_tiles, int span,
+                         int lowrank, int combine, float sigma_lo,
+                         float sigma_hi, int rows, int sbx, int sby, int nbx,
+                         int nblocks, int run, float* __restrict__ scratch) {
+  const int nt = BX * rows;
+  float* slot = scratch + (size_t)blockIdx.x * (n + 2) * nt;
+  for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
+    if (b != (int)blockIdx.x) __syncthreads();
+    wide_block<T>(frames, masters, ftab, ttab, out, n, h0, w0, th, tw, n_tj,
+                  n_tiles, span, lowrank, combine, rows, sbx, sby, b % nbx,
+                  b / nbx, slot);
+    if (combine != 3) {
+      __syncthreads();
+      cols_combine(slot, out, n, WIDE_WARPS, nt, run, combine, sigma_lo,
+                   sigma_hi);
     }
   }
 }
@@ -1055,6 +1457,49 @@ int cols_blocks(int n, int span, int by, int run) {
   return sms * per_sm;
 }
 
+template <typename T>
+cudaError_t launch_wide(const void* frames, const float* masters,
+                        const float* ftab, const int* ttab, float* out, int n,
+                        int h0, int w0, int th, int tw, int n_ti, int n_tj,
+                        int span, int lowrank, int combine, float sigma_lo,
+                        float sigma_hi, int rows, int run, float* scratch,
+                        int grid_blocks, cudaStream_t stream) {
+  if (rows < 1 || rows > WIDE_WARPS * WIDE_PIX || scratch == nullptr ||
+      grid_blocks < 1 || run < 32)
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)wide_words(min(n, run), rows, span);
+  cudaError_t err = cudaFuncSetAttribute(
+      warp_combine_wide_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int sbx = (tw + BX - 1) / BX, sby = (th + rows - 1) / rows;
+  const int nbx = n_tj * sbx, nblocks = nbx * n_ti * sby;
+  dim3 block(BX, WIDE_WARPS);
+  warp_combine_wide_kernel<T>
+      <<<min(grid_blocks, nblocks), block, smem, stream>>>(
+          static_cast<const T*>(frames), masters, ftab, ttab, out, n, h0, w0,
+          th, tw, n_tj, n_ti * n_tj, span, lowrank, combine, sigma_lo,
+          sigma_hi, rows, sbx, sby, nbx, nblocks, run, scratch);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int wide_blocks(int n, int span, int rows, int run) {
+  int dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = sizeof(float) * (size_t)wide_words(min(n, run), rows, span);
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(warp_combine_wide_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, warp_combine_wide_kernel<T>, BX * WIDE_WARPS, smem) !=
+          cudaSuccess)
+    return -1;
+  return sms * per_sm;
+}
+
 }  // namespace
 
 // Blocks of the 'cols' route the card keeps resident at once for n
@@ -1095,5 +1540,39 @@ extern "C" int warp_combine_launch(const void* frames, int is_u16,
                  : launch<float>(frames, masters, ftab, ttab, out, n, h0, w0,
                                  th, tw, n_ti, n_tj, span, lowrank, combine,
                                  sigma_lo, sigma_hi, block_rows, s);
+  return static_cast<int>(err);
+}
+
+// Blocks of the 'wide' route the card keeps resident at once for n frames,
+// this window (span), block (rows) and run.
+extern "C" int warp_combine_wide_blocks(int is_u16, int n, int span, int rows,
+                                        int run) {
+  return is_u16 ? wide_blocks<uint16_t>(n, span, rows, run)
+                : wide_blocks<float>(n, span, rows, run);
+}
+
+// The 'wide' route: the arguments of warp_combine_launch, with block_rows
+// the output rows of a block (kernels._warp_wide_rows) and the scratch
+// (n + 2) x 32 x block_rows words for each of its grid_blocks blocks.
+extern "C" int warp_combine_wide_launch(const void* frames, int is_u16,
+                                        const float* masters,
+                                        const float* ftab, const int* ttab,
+                                        float* out, int n, int h0, int w0,
+                                        int th, int tw, int n_ti, int n_tj,
+                                        int span, int lowrank, int combine,
+                                        float sigma_lo, float sigma_hi,
+                                        int block_rows, float* scratch,
+                                        int grid_blocks, int run,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      is_u16 ? launch_wide<uint16_t>(frames, masters, ftab, ttab, out, n, h0,
+                                     w0, th, tw, n_ti, n_tj, span, lowrank,
+                                     combine, sigma_lo, sigma_hi, block_rows,
+                                     run, scratch, grid_blocks, s)
+             : launch_wide<float>(frames, masters, ftab, ttab, out, n, h0, w0,
+                                  th, tw, n_ti, n_tj, span, lowrank, combine,
+                                  sigma_lo, sigma_hi, block_rows, run, scratch,
+                                  grid_blocks, s);
   return static_cast<int>(err);
 }

@@ -11,7 +11,7 @@ point launches on PyTorch's current stream and returns
 Each kernel has a launch counter: a plain integer in
 :data:`launch_counts`, raised by one where the wrapper launches the
 kernel and nowhere else, so a run can show that its main path went
-through the kernels.
+through the kernels; :data:`warp_route_counts` splits K2's by route.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {name: 0 for name in _SOURCES}
+#: K2's launches by route since the last :func:`reset_launch_counts`
+warp_route_counts = {"smem": 0, "cols": 0, "wide": 0}
 
 _lock = threading.Lock()
 _libs: Optional[dict] = None
@@ -52,8 +54,9 @@ build_info: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, warp_route_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -127,13 +130,17 @@ def _load() -> dict:
             fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                            p, i, p]
             fn.restype = i
-            fn = libs["warp_combine"].warp_combine_launch
-            fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
-                           f, i, p, i, i, p]
-            fn.restype = i
-            fn = libs["warp_combine"].warp_combine_cols_blocks
-            fn.argtypes = [i, i, i, i, i]
-            fn.restype = i
+            for route in ("", "_wide"):
+                fn = getattr(libs["warp_combine"],
+                             f"warp_combine{route}_launch")
+                fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                               i, f, f, i, p, i, i, p]
+                fn.restype = i
+            for route in ("cols", "wide"):
+                fn = getattr(libs["warp_combine"],
+                             f"warp_combine_{route}_blocks")
+                fn.argtypes = [i, i, i, i, i]
+                fn.restype = i
             fn = libs["clip_combine"].clip_combine_launch
             fn.argtypes = [p, p, p, i, i, i, f, f, i, i, p]
             fn.restype = i
@@ -289,20 +296,27 @@ _WARP_BX, _WARP_MAX_ROWS = 32, 8
 #: 4.41, 6.06 / 6.39) on, 1.5-2x at 300-400 where a shared block would
 #: keep 5 or 4 rows, 7-24x from 600.
 _WARP_SMEM_ROWS, _WARP_COLS_FRAMES = 8, 150
+#: K2's 'wide' route, for windows that leave no room for one row of a
+#: shared block (span past 192): blocks of 8 warps and up to 32 output
+#: rows of 32 columns (4 rows a thread), whose mid rows ((rows + span) x
+#: 32 floats) are what shared memory must hold; its scratch is capped at
+#: 1 GiB (218 blocks of 32 rows at 1200 frames)
+_WARP_WIDE_WARPS, _WARP_WIDE_ROWS = 8, 32
+_WARP_WIDE_SCRATCH_MAX = 1 << 30
 
 
-#: (kernel, device index, *arguments) -> blocks of a persistent route the
-#: card keeps resident at once
+#: (kernel, route, device index, *arguments) -> blocks of a persistent
+#: route the card keeps resident at once
 _resident: dict = {}
 
 
-def _resident_blocks(kernel: str, dev, *args) -> int:
-    """Blocks of K2's 'cols' route the card keeps resident at once (the
-    route's grid and scratch slots), from the occupancy API; cached per
-    device and arguments."""
-    key = (kernel, dev.index, *args)
+def _resident_blocks(kernel: str, route: str, dev, *args) -> int:
+    """Blocks of K2's 'cols' or 'wide' route the card keeps resident at
+    once (the route's grid and scratch slots), from the occupancy API;
+    cached per route, device and arguments."""
+    key = (kernel, route, dev.index, *args)
     if key not in _resident:
-        fn = getattr(_load()[kernel], f"{kernel}_cols_blocks")
+        fn = getattr(_load()[kernel], f"{kernel}_{route}_blocks")
         with torch.cuda.device(dev):
             blocks = fn(*args)
         if blocks < 1:
@@ -339,14 +353,46 @@ def _warp_smem_rows(n: int, span: int) -> int:
                  if _warp_smem_bytes(n, r, span) <= _SMEM_MAX), 0)
 
 
+def _warp_wide_smem_bytes(rows: int, span: int) -> int:
+    """Shared memory of one K2 'wide' block's warp phase of ``rows``
+    output rows (mirrors ``wide_layout`` in csrc/warp_combine.cu): the mid
+    rows, a window row per warp, the lowrank column weights and taps, the
+    snap weights, the frame's parameters and the block's mid-row range."""
+    bx = _WARP_BX
+    words = ((rows + span) * bx + _WARP_WIDE_WARPS * (bx + span) + 8 * bx
+             + 2 * bx + 16 + 20 + 2)
+    return 4 * words
+
+
+def _warp_wide_rows(span: int) -> int:
+    """The output rows of a K2 'wide' block at ``span``: the most of
+    :data:`_WARP_WIDE_ROWS` (32), 16, 8, 4, 2, 1 whose warp phase fits
+    shared memory; 0 past the route's reach
+    (:data:`_WARP_WIDE_MAX_SPAN`)."""
+    rows = _WARP_WIDE_ROWS
+    while rows and _warp_wide_smem_bytes(rows, span) > _SMEM_MAX:
+        rows //= 2
+    return rows
+
+
+#: the widest window K2 takes: one output row's mid rows, the 8 warps'
+#: window rows and the rest of a 'wide' block in 227 KB (1436)
+_WARP_WIDE_MAX_SPAN = max(s for s in range(1, 4096)
+                          if _warp_wide_rows(s) > 0)
+
+
 def _warp_route(n: int, span: int) -> str:
     """Which of K2's routes ``n`` frames with a window of ``span`` take:
-    'smem' below :data:`_WARP_COLS_FRAMES` frames where a block keeps
-    :data:`_WARP_SMEM_ROWS` rows with its columns and window in shared
-    memory, the threads sorting their own columns; 'cols' otherwise, the
-    samples in a scratch of device memory and the warps sorting one
-    column each on chip (the wrapper passes the scratch only there, and
-    ``warp_combine_launch`` follows it)."""
+    'wide' where not even one output row's window fits a shared block
+    (span past 192), its mid rows in shared memory and its samples in the
+    'cols' scratch; else 'smem' below :data:`_WARP_COLS_FRAMES` frames
+    where a block keeps :data:`_WARP_SMEM_ROWS` rows with its columns and
+    window in shared memory, the threads sorting their own columns;
+    'cols' otherwise, the samples in a scratch of device memory and the
+    warps sorting one column each on chip (the wrapper passes the scratch
+    only there, and ``warp_combine_launch`` follows it)."""
+    if _warp_smem_rows(0, span) == 0:
+        return "wide"
     if n < _WARP_COLS_FRAMES and _warp_smem_rows(n, span) >= _WARP_SMEM_ROWS:
         return "smem"
     return "cols"
@@ -356,17 +402,30 @@ def _warp_block_rows(n: int, span: int, route: Optional[str] = None) -> int:
     """The rows of a K2 block with ``n`` frames on ``route`` (by default
     the one :func:`_warp_route` picks): 8 on 'smem', which takes no
     smaller block (its columns and window must fit 8 rows); on 'cols' the
-    most (<= 8) whose window fits.  Raises for a window that one row does
-    not fit (span past 192)."""
+    most (<= 8) whose window fits; on 'wide' :func:`_warp_wide_rows`.
+    Raises for a window that a route's block does not fit: one row's
+    window on 'smem' and 'cols' (span past 192), one row's mid rows on
+    'wide' (span past :data:`_WARP_WIDE_MAX_SPAN`)."""
     route = route or _warp_route(n, span)
+    if route == "wide":
+        rows = _warp_wide_rows(span)
+        if rows == 0:
+            raise ValueError(
+                f"warp_combine kernel: a window of span {span} needs more "
+                f"than {_SMEM_MAX} B of shared memory per block for one "
+                f"output row's mid rows; the 'wide' route takes spans up "
+                f"to {_WARP_WIDE_MAX_SPAN}")
+        return rows
     rows = _warp_smem_rows(n if route == "smem" else 0, span)
     if route == "smem" and 0 < rows < _WARP_SMEM_ROWS:
         raise ValueError(f"warp_combine 'smem' route: {n} frames at span "
                          f"{span} leave a block {rows} rows, not "
                          f"{_WARP_SMEM_ROWS}")
     if rows == 0:
-        raise ValueError(f"warp_combine kernel: a window of span {span} needs "
-                         f"more than {_SMEM_MAX} B of shared memory per block")
+        raise ValueError(f"warp_combine kernel '{route}' route: a window of "
+                         f"span {span} needs more than {_SMEM_MAX} B of "
+                         f"shared memory per block (the 'wide' route takes "
+                         f"it)")
     return rows
 
 
@@ -388,10 +447,27 @@ def _warp_cols_smem_bytes(n: int, rows: int, span: int, run: int) -> int:
 
 
 def _warp_scratch_bytes(n: int, rows: int, blocks: int) -> int:
-    """The 'cols' route's scratch: for each of the 32 x ``rows`` pixels
-    of each of ``blocks`` resident blocks an N-sample column and two words
-    (its count of covered samples and its output offset)."""
+    """The 'cols' and 'wide' routes' scratch: for each of the 32 x
+    ``rows`` pixels of each of ``blocks`` resident blocks an N-sample
+    column and two words (its count of covered samples and its output
+    offset)."""
     return 4 * (n + 2) * _WARP_BX * rows * blocks
+
+
+def _warp_wide_smem_total(n: int, rows: int, span: int, run: int) -> int:
+    """Shared memory of one K2 'wide' block (mirrors ``wide_words``): its
+    warp phase and the combine's tile of 8 columns of min(n, run) samples
+    over the same words."""
+    tile = _WARP_WIDE_WARPS * _cols_stride(min(n, run), _WARP_WIDE_WARPS)
+    return 4 * max(_warp_wide_smem_bytes(rows, span) // 4, tile)
+
+
+def _warp_wide_grid(n: int, rows: int, blocks: int, resident: int) -> int:
+    """The 'wide' route's grid: the output ``blocks``, at most the
+    ``resident`` ones, and no more than a scratch of
+    :data:`_WARP_WIDE_SCRATCH_MAX` holds (at least one)."""
+    cap = max(1, _WARP_WIDE_SCRATCH_MAX // _warp_scratch_bytes(n, rows, 1))
+    return min(blocks, resident, cap)
 
 
 def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
@@ -399,12 +475,12 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
                       route: Optional[str] = None):
     """Launch K2 (``csrc/warp_combine.cu``) on a prepared
     ``ops.warp_combine.WarpPlan``; see ``ops.warp_combine.warp_combine``
-    for the semantics.  ``route`` ('smem' or 'cols') overrides
+    for the semantics.  ``route`` ('smem', 'cols' or 'wide') overrides
     :func:`_warp_route`, for the route sweep."""
     dev = frames.device
     n, h0, w0 = frames.shape
     route = route or _warp_route(n, plan.span)
-    if route not in ("smem", "cols"):
+    if route not in warp_route_counts:
         raise ValueError(f"warp_combine kernel has no route {route!r}")
     rows = _warp_block_rows(n, plan.span, route)
     frames, is_u16 = _frames_arg(frames)
@@ -414,24 +490,29 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
                    (n, plan.n_ti * plan.n_tj, 3), dtype=torch.int32)
     out = torch.empty((h0, w0), dtype=torch.float32, device=dev)
     scratch, grid, run = None, 0, 0
-    if route == "cols":
-        run = _warp_cols_run(rows, plan.span)
+    if route != "smem":
+        run = _warp_cols_run(_WARP_WIDE_WARPS if route == "wide" else rows,
+                             plan.span)
         blocks = (plan.n_tj * -(-plan.tw // _WARP_BX)
                   * plan.n_ti * -(-plan.th // rows))
-        grid = min(blocks, _resident_blocks("warp_combine", dev, is_u16,
-                                             min(n, run), plan.span, rows,
-                                             run))
+        resident = _resident_blocks("warp_combine", route, dev, is_u16,
+                                    min(n, run), plan.span, rows, run)
+        grid = (min(blocks, resident) if route == "cols"
+                else _warp_wide_grid(n, rows, blocks, resident))
         scratch = torch.empty((_warp_scratch_bytes(n, rows, grid) // 4,),
                               dtype=torch.float32, device=dev)
     lib = _load()["warp_combine"]
+    launch = (lib.warp_combine_wide_launch if route == "wide"
+              else lib.warp_combine_launch)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.warp_combine_launch(
+    err = launch(
         _ptr(frames), is_u16, _ptr(masters), _ptr(table), _ptr(tiles),
         _ptr(out), n, h0, w0, plan.th, plan.tw, plan.n_ti, plan.n_tj,
         plan.span, int(lowrank), combine, sigma_lower, sigma_upper, rows,
         _ptr(scratch), grid, run, ctypes.c_void_p(stream))
     _raise_on(err, "warp_combine")
     launch_counts["warp_combine"] += 1
+    warp_route_counts[route] += 1
     return out
 
 

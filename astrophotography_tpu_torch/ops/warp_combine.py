@@ -330,42 +330,64 @@ def _warp_frame_plain(cal: torch.Tensor, f: int, plan: WarpPlan,
                 mid = mid + (ws[k2] * inv) * img(vbase + rr_i + s,
                                                  ubase + cc_i + s2)
             warped = warped + (ws2[k] * inv2) * mid
-    elif general_taps == "lowrank":
-        t1hi = min(span, 9)
-        bv = (m10 * x_out + m11 * ti_f + m12 - vb_f
-              + (m11 - 1.0) * ((th - 1) * 0.5))
-        acc2, v0s = zero, zero
-        for s in range(1, span):
-            bu = (gx * tj_f + gy * (vb_f + (rr + s)) + g0 - ub_f
+    else:
+        # The horizontal pass of output row rr at vertical tap s is the
+        # tile's mid row q = rr + s (source row vbase + q), so each mid row
+        # is computed once per tile (the TPU kernel's order): mid[i, q, x]
+        # for the tile row i of column x's tile.  (rr + s) and q are the
+        # same exact float, so the values are those of a pass per pixel.
+        n_q = th + span
+        q_i = torch.arange(n_q, device=dev)[None, :, None]
+        q = q_i.to(torch.float32)
+        tab_q = plan.tiles[f].reshape(plan.n_ti, plan.n_tj, 3)[:, tj_i[0]]
+        vb_q, ub_q = tab_q[:, None, :, 0].long(), tab_q[:, None, :, 1].long()
+        vbq_f, ubq_f = vb_q.to(torch.float32), ub_q.to(torch.float32)
+        zero_q = torch.zeros((plan.n_ti, n_q, w0), dtype=torch.float32,
+                             device=dev)
+        if general_taps == "lowrank":
+            t1hi = min(span, 9)
+            bu = (gx * tj_f + gy * (vbq_f + q) + g0 - ubq_f
                   + (gx - 1.0) * ((tw - 1) * 0.5))
-            acc0, w0s = zero, zero
+            acc0, w0s = zero_q, zero_q
             for s2 in range(1, t1hi):
                 wt = lanczos3_poly(bu - s2)
-                acc0 = acc0 + wt * img(vbase + rr_i + s, ubase + cc_i + s2)
+                acc0 = acc0 + wt * img(vb_q + q_i, ub_q + cc_i + s2)
                 w0s = w0s + wt
-            mid = acc0 * torch.where(w0s.abs() > 1e-3, 1.0 / w0s, 0.0)
-            wt = lanczos3_poly(bv - s)
-            acc2 = acc2 + wt * mid
-            v0s = v0s + wt
-        warped = acc2 * torch.where(v0s.abs() > 1e-3, 1.0 / v0s, 0.0)
-        cover = cover & (gate > 0.5)
-    else:
-        v_loc = v - vb_f
-        acc2, wsum2 = zero, zero
-        for s in range(span):
-            u_loc = gx * x_out + gy * (vb_f + (rr + s)) + g0 - ub_f
-            acc, wsum = zero, zero
+            mid_q = acc0 * torch.where(w0s.abs() > 1e-3, 1.0 / w0s, 0.0)
+        else:
+            u_loc = gx * x_out + gy * (vbq_f + q) + g0 - ubq_f
+            acc, wsum = zero_q, zero_q
             for s2 in range(span):
                 wt = lanczos3_poly(u_loc - (cc + s2))
-                acc = acc + wt * img(vbase + rr_i + s, ubase + cc_i + s2)
+                acc = acc + wt * img(vb_q + q_i, ub_q + cc_i + s2)
                 wsum = wsum + wt
             safe = wsum.abs() > 1e-3
-            mid = torch.where(safe, acc / torch.where(safe, wsum, 1.0), 0.0)
-            wt = lanczos3_poly(v_loc - (rr + s))
-            acc2 = acc2 + wt * mid
-            wsum2 = wsum2 + wt
-        safe2 = wsum2.abs() > 1e-3
-        warped = torch.where(safe2, acc2 / torch.where(safe2, wsum2, 1.0), 0.0)
+            mid_q = torch.where(safe, acc / torch.where(safe, wsum, 1.0), 0.0)
+        mid_q = mid_q.reshape(plan.n_ti * n_q, w0)
+        first = (ti_i * n_q + rr_i).reshape(-1)
+
+        def mid(s):
+            return mid_q.index_select(0, first + s)
+
+        if general_taps == "lowrank":
+            bv = (m10 * x_out + m11 * ti_f + m12 - vb_f
+                  + (m11 - 1.0) * ((th - 1) * 0.5))
+            acc2, v0s = zero, zero
+            for s in range(1, span):
+                wt = lanczos3_poly(bv - s)
+                acc2 = acc2 + wt * mid(s)
+                v0s = v0s + wt
+            warped = acc2 * torch.where(v0s.abs() > 1e-3, 1.0 / v0s, 0.0)
+        else:
+            v_loc = v - vb_f
+            acc2, wsum2 = zero, zero
+            for s in range(span):
+                wt = lanczos3_poly(v_loc - (rr + s))
+                acc2 = acc2 + wt * mid(s)
+                wsum2 = wsum2 + wt
+            safe2 = wsum2.abs() > 1e-3
+            warped = torch.where(safe2,
+                                 acc2 / torch.where(safe2, wsum2, 1.0), 0.0)
         cover = cover & (gate > 0.5)
     return torch.where(cover, warped, _BIG)
 
@@ -586,7 +608,18 @@ def warp_combine(
     Returns (H, W) float32.
 
     CUDA tensors run the hand-written kernel; CPU tensors run
-    :func:`warp_combine_plain`."""
+    :func:`warp_combine_plain`.  The kernel has three routes
+    (``kernels._warp_route``): 'smem' below 150 frames, where a block of
+    8 x 32 pixels keeps its samples and its source window in shared
+    memory; 'cols' from 150 frames, the samples in a scratch of device
+    memory and each pixel's column sorted by a warp; and 'wide' for a
+    ``span`` past 192, where one output row's window no longer fits a
+    block's 227 KB: a block of up to 32 x 32 pixels keeps only its
+    (rows + span) x 32 mid rows (the horizontal pass) in shared memory,
+    filled from one staged window row per warp, each mid row it reads
+    computed once, and combines through the 'cols' scratch.  Shared
+    memory bounds it: spans up to 1436 (``kernels._WARP_WIDE_MAX_SPAN``);
+    past that the wrapper raises."""
     _validate(frames, matrices, masters, combine)
     if frames.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no warp+combine kernel for device {frames.device}")

@@ -62,6 +62,14 @@ the stacks:
   of 512^2 (K3's global route), K2 against its twin at 1200 x 512^2
   (snap and lowrank), K3 against its twin on a masked 1200 x 1024 x 2048
   stack, K1 at radii 24 and 48 (its separable route) on 16 x 4096^2;
+* K2 past span 192 (``wide``): its 'wide' route against the twin bit
+  for bit at spans 193, 256 and 1436 (the route's reach) on every tap
+  body, uint16 with masters and float32 without, then
+  ``calibrate_register_stack`` with ``combine_impl='fused'``, span 256
+  and tiles of 320 x 1024 on 24 frames of 2048^2 turning 0-12 deg about
+  the centre (an alt-az mount's field rotation over about an hour):
+  registration and stack checked, K2 once on 'wide', its call replayed on
+  the twin, its time and bound;
 * the benchmark entry point (``bench``): ``python3 bench_torch.py`` as
   a subprocess (its three lines: lean snap, RAW->grey, lean rotated),
   then again with ``BENCH_FRAMES=24 BENCH_SIZE=4096 BENCH_IMPL=pallas``
@@ -74,13 +82,14 @@ Beside the checks against the plain twins it times K2 at 100x4096^2 with
 the sort and clip): the warp phase against the combine phase.
 
 Run from the repository root with ``python3 chip_smoke.py``; every phase
-runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip,deep,bench}``
+runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip,deep,wide,bench}``
 runs one group of phases (the kernel check and timing of K1, K2 or K3 at
 the main paths' shapes, the lean path, the unfused path with and without
 the mask, the 16x1024^2 chunked run and the small kernel matrix, the
 band loop, the measurement ops, the RAW half, the calibration-file
 engines, the file-to-file reduction, the multi-device layer, the
-routes past the shared-memory limits, or the benchmark) and prints no ``kernels`` line.  Every phase raises
+routes past the shared-memory limits, K2 past span 192, or the
+benchmark) and prints no ``kernels`` line.  Every phase raises
 on failure.  Each phase prints one JSON line; the build line carries
 ptxas' register, shared-memory and spill report for every kernel; the
 line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -119,7 +128,7 @@ UNFUSED_FRAMES = 24
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
 PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure",
-          "raw", "files", "reduce", "multichip", "deep", "bench")
+          "raw", "files", "reduce", "multichip", "deep", "wide", "bench")
 #: the RAW half: 24 lossless-JPEG DNGs of 3904^2 uint16 (bench_rawgrey's
 #: set: black level 128)
 RAW_FRAMES, RAW_SIZE = 24, 3904
@@ -2741,15 +2750,18 @@ def run_reduce(card: str, dev) -> dict:
     return {"main": res, **checks}
 
 
-def _kernel_entry(name, replaces, main, by_path, check) -> dict:
+def _kernel_entry(name, replaces, main, by_path, check, route=None) -> dict:
     """One kernel's entry of the ``kernels`` line: ``launches`` is the
     count on its main path (``main``, a key of ``by_path``), each path's
     own counted from 0 in that path's run (the multichip phase's per
     step, one count a rank); error and times of its check at the main
-    path's shape, the bound from that check's inputs.  No single PyTorch
-    call computes any of the three kernels' functions, so ``library_ms``
-    is null."""
-    return {"name": name, "route": "cuda",
+    path's shape, the bound from that check's inputs.  A ``route`` of
+    the kernel with an entry of its own (K2's 'wide') is named after the
+    kernel and counts only its own launches.  No single PyTorch call
+    computes any of the three kernels' functions, so ``library_ms`` is
+    null."""
+    return {"name": name if route is None else f"{name} ({route} route)",
+            "route": "cuda",
             "source": f"astrophotography_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": by_path[main],
             "launches_by_path": by_path,
@@ -3284,13 +3296,15 @@ def _route_times(calls: dict) -> dict:
 def run_route_sweep(card: str, dev) -> dict:
     """K2's and K3's routes against each other at the frame counts of
     SWEEP_K2_FRAMES / SWEEP_K3_FRAMES: every route the launcher has at
-    that count (K2: 'smem' where a shared block of 8 rows fits, 'cols';
-    K3: 'smem' up to its 227 frames, 'cols', 'select'), forced through the wrapper,
-    their images equal bit for bit, their ms in turns, and the route the
-    wrapper picks.  One count of each new route is replayed on its twin.
-    Prints a line per count and one with the crossings: the frame count
-    from which 'cols' is faster than every other route at every larger
-    count of the sweep."""
+    that count (K2: 'smem' where a shared block of 8 rows fits, 'cols',
+    and 'wide', which takes every span, against 'cols' whose warp phase
+    it could replace; K3: 'smem' up to its 227 frames, 'cols', 'select'),
+    forced through the wrapper, their images equal bit for bit, their ms
+    in turns, and the route the wrapper picks.  One count of each new
+    route is replayed on its twin.  Prints a line per count and one with
+    the crossings: the frame count from which 'cols' is faster than every
+    other route the launcher picks from at every larger count of the
+    sweep, and K2 'wide' over 'cols' at each count."""
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.ops import clip_combine as cc
     from astrophotography_tpu_torch.ops import warp_combine as wc
@@ -3313,7 +3327,7 @@ def run_route_sweep(card: str, dev) -> dict:
                       dither_budget=cfg.dither_budget,
                       general_taps=cfg.general_taps)
             plan = wc.plan_warp_combine(f.shape, m, er, **kw)
-            routes = ["cols"] + (["smem"] if kernels._warp_smem_rows(
+            routes = ["cols", "wide"] + (["smem"] if kernels._warp_smem_rows(
                 n, plan.span) >= kernels._WARP_SMEM_ROWS else [])
             calls = {r: (lambda r=r: kernels.warp_combine_cuda(
                 f, masters, plan, 0, True, 5.0, 5.0, route=r)) for r in routes}
@@ -3333,6 +3347,7 @@ def run_route_sweep(card: str, dev) -> dict:
                    **_k2_bound(f, masters, size * size), "card": card}
             rec["ns_per_frame_pixel"] = {r: v * 1e6 / f.numel()
                                          for r, v in rec["ms"].items()}
+            rec["wide_over_cols"] = rec["ms"]["wide"] / rec["ms"]["cols"]
             if n == SWEEP_K2_TWIN and not rotate:
                 p, plain_ms = _timed(lambda: wc.warp_combine_plain(
                     f, m, masters=masters, exp_ratios=er, **kw))
@@ -3379,11 +3394,13 @@ def run_route_sweep(card: str, dev) -> dict:
     torch.cuda.empty_cache()
 
     def crossing(recs):
-        """The fewest frames from which 'cols' beats every other route at
+        """The fewest frames from which 'cols' beats every other route
+        the launcher picks from ('wide' is not one below span 193) at
         each larger count of the sweep (None where it never does)."""
         best = None
         for rec in reversed(recs):
-            if min(rec["ms"], key=rec["ms"].get) != "cols":
+            ms = {r: v for r, v in rec["ms"].items() if r != "wide"}
+            if min(ms, key=ms.get) != "cols":
                 break
             best = rec["frames"]
         return best
@@ -3393,7 +3410,11 @@ def run_route_sweep(card: str, dev) -> dict:
         "K3": crossing([r for r in out["K3"] if "smem" in r["ms"]]
                        + [r for r in out["K3"] if "smem" not in r["ms"]])}
     out["wall_s"] = time.perf_counter() - t0
+    out["K2 wide over cols"] = {
+        w: {r["frames"]: r["wide_over_cols"] for r in rs}
+        for w, rs in out["K2"].items()}
     _print({"sweep": "crossings", "crossings": out["crossings"],
+            "K2_wide_over_cols": out["K2 wide over cols"],
             "K2_smem_rows": kernels._WARP_SMEM_ROWS,
             "K3_cols_reach": kernels._CLIP_COLS_REACH,
             "wall_s": out["wall_s"], "card": card})
@@ -3621,6 +3642,256 @@ def run_deep(card: str, dev) -> dict:
     return out
 
 
+#: the 'wide' phase: K2 past span 192 (its 'wide' route) against its twin
+#: bit for bit on WIDE_TWIN_FRAMES x WIDE_TWIN_SIZE^2 at each of
+#: WIDE_SPANS (193, 256 and the route's reach), every tap body, uint16
+#: with masters and float32 without; then the unfused pipeline with the
+#: fused combine on a field-rotation stack: WIDE_FRAMES of WIDE_SIZE^2
+#: turning 0 to WIDE_MAX_DEG about the centre (an alt-az mount over about
+#: an hour), span WIDE_SPAN, tiles WIDE_TILE, a dither budget that keeps
+#: the outer tiles' windows holding the turned frames
+WIDE_SPANS = (193, 256, 1436)
+WIDE_TWIN_FRAMES, WIDE_TWIN_SIZE = 6, 512
+WIDE_FRAMES, WIDE_SIZE, WIDE_MAX_DEG = 24, 2048, 12.0
+WIDE_SPAN, WIDE_TILE, WIDE_BUDGET = 256, (320, 1024), 256
+
+
+def make_field_rotation(n_frames: int, size: int, max_deg: float,
+                        seed: int = 5):
+    """:func:`make_workload`'s observing run (its masters, sky, noise and
+    3 px FWHM stars) with the field turning: frame i rotated by max_deg *
+    i / (n - 1) about the centre (0 for the reference) and dithered by up
+    to 4 px; the 48 stars lie in a disk that stays inside every frame.
+    Returns what :func:`make_workload` returns."""
+    rng = np.random.default_rng(seed)
+    yy = (np.arange(size, dtype=np.float32) - size / 2) / size
+    r2 = yy[:, None] ** 2 + yy[None, :] ** 2
+    flat = (1.0 - 0.08 * r2 / r2.max()).astype(np.float32)
+    bias = np.full((size, size), 300.0, np.float32)
+    dark_counts = np.full((size, size), 40.0, np.float32)
+    hot = rng.integers(0, size, (200, 2))
+    dark_counts[hot[:, 0], hot[:, 1]] = 5000.0
+    exp_ratio = 0.5
+    cx = cy = (size - 1) / 2.0
+    rad = np.sqrt(rng.uniform(0, 1, 48)) * (0.5 * size - 48)
+    ang = rng.uniform(0, 2 * np.pi, 48)
+    xs, ys = cx + rad * np.cos(ang), cy + rad * np.sin(ang)
+    fl = rng.uniform(20000, 60000, 48)
+    base_fixed = SKY * flat + bias + exp_ratio * dark_counts
+    noise_bank = [rng.normal(0, 8.0, (size, size)).astype(np.float32)
+                  for _ in range(min(4, n_frames))]
+    frames = np.empty((n_frames, size, size), np.uint16)
+    mats = np.zeros((n_frames, 2, 3), np.float64)
+    max_off = 0.0
+    for i in range(n_frames):
+        theta = np.deg2rad(max_deg * i / max(n_frames - 1, 1))
+        dx, dy = rng.uniform(-4.0, 4.0, 2) if i else (0.0, 0.0)
+        c, s = np.cos(theta), np.sin(theta)
+        mats[i] = [[c, -s, cx + dx - c * cx + s * cy],
+                   [s, c, cy + dy - s * cx - c * cy]]
+        f = base_fixed + noise_bank[i % len(noise_bank)]
+        for x, y, amp in zip(xs, ys, fl):
+            px = c * (x - cx) - s * (y - cy) + cx + dx
+            py = s * (x - cx) + c * (y - cy) + cy + dy
+            x0, y0 = int(px) - 12, int(py) - 12
+            patch = _gaussian_star((25, 25), px - x0, py - y0, amp, 3.0)
+            f[y0:y0 + 25, x0:x0 + 25] += patch * flat[y0:y0 + 25,
+                                                      x0:x0 + 25]
+            max_off = max(max_off, float(np.hypot(px - x, py - y)))
+        frames[i] = np.clip(f, 0, 65535).astype(np.uint16)
+    return frames, bias, bias + dark_counts, flat, exp_ratio, max_off, mats
+
+
+def _wide_mats(n: int, body: str, size: int, seed: int) -> np.ndarray:
+    """Matrices of a 'wide' twin check: frame 0 identity and frame 2 a
+    pure translation (both snapped), the others translated by up to 4 px
+    and, for 'exact', rotated by 5-15 deg about the centre, for 'lowrank'
+    by 0.0002-0.0006 rad (its gate, |gy| (th + span) <= 2, admits no more
+    at the reach's tile)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = {"snap": (0.0, 0.0), "exact": (np.deg2rad(5.0), np.deg2rad(15.0)),
+              "lowrank": (2e-4, 6e-4)}[body]
+    c0 = (size - 1) / 2.0
+    mats = np.zeros((n, 2, 3), np.float32)
+    for f in range(n):
+        th = 0.0 if f in (0, 2) else rng.choice([-1, 1]) * rng.uniform(lo, hi)
+        tx, ty = rng.uniform(-4, 4, 2) if f else (0.0, 0.0)
+        c, s = np.cos(th), np.sin(th)
+        mats[f] = [[c, -s, c0 - c * c0 + s * c0 + tx],
+                   [s, c, c0 - s * c0 - c * c0 + ty]]
+    return mats
+
+
+def _k2_wide_bound(frames, masters, plan, body: str) -> dict:
+    """K2's least time on its 'wide' route: the stack and the masters read
+    once and the image written, against the operations this run's frames
+    need.  Per covered (frame, pixel), with the twin's coverage (the
+    frame's bounds, its tile's base and gate): 5 flops of calibration
+    (with masters), the vertical pass, a reciprocal and log2(N) compares
+    of the sort.  Per mid value a covered pixel reads, the horizontal
+    pass: a tile column of k covered rows reads |m11| (k - 1) + 6 source
+    rows (6 non-zero taps about a line of slope m11).  A pass is 6 taps
+    at 2 flops plus, on the 'exact' body's rotated frames, each tap's
+    weight (the degree-10 polynomial in t^2: 22 flops) and its sum (1),
+    and a reciprocal."""
+    n, h0, w0 = frames.shape
+    th, tw = plan.th, plan.tw
+    dev = plan.table.device
+    ys = torch.arange(h0, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(w0, device=dev, dtype=torch.float32)[None, :]
+    ti = torch.arange(h0, device=dev) // th
+    tj = torch.arange(w0, device=dev) // tw
+    pad = plan.n_ti * th - h0
+    ops = 0.0
+    for f in range(n):
+        (m00, m01, m02, m10, m11, m12, _er, _fs, trans, vlo, vhi,
+         _gx, _gy, _g0, gate, _p) = plan.table[f].tolist()
+        if trans <= 0.5 and gate <= 0.5:
+            continue
+        ok = plan.tiles[f].reshape(plan.n_ti, plan.n_tj, 3)[..., 2] > 0
+        v = m10 * xs + m11 * ys + m12
+        sx = m00 * xs + m01 * ys + m02
+        cov = ((sx >= 2.0) & (sx <= w0 - 4.0) & (v >= vlo) & (v <= vhi)
+               & ok[ti][:, tj])
+        pixels = int(cov.sum())
+        columns = int(torch.nn.functional.pad(cov, (0, 0, 0, pad))
+                      .reshape(plan.n_ti, th, w0).any(1).sum())
+        mids = abs(m11) * (pixels - columns) + 6 * columns
+        tap = 25 if body == "exact" and trans <= 0.5 else 2
+        ops += (pixels * ((5 if masters is not None else 0) + 6 * tap + 1
+                          + math.log2(max(n, 2)))
+                + mids * (6 * tap + 1))
+    n_out = h0 * w0
+    return _bound(_nbytes(frames, masters) + 4 * n_out, ops)
+
+
+def run_wide(card: str, dev) -> dict:
+    """K2's 'wide' route: the twin checks at each span, body and input
+    type (small frames: the twin's 'exact' body costs ~span taps a pixel
+    and frame); then ``calibrate_register_stack`` with
+    ``combine_impl='fused'`` at span WIDE_SPAN on the field-rotation
+    stack through the normal entry point: K2 launched once and on
+    'wide', the registration rule, a finite stack at the sky, the
+    kernel's call replayed on its twin bit for bit, the kernel alone
+    timed on that call's plan, its bound and the twin's time."""
+    import contextlib
+
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.device import to_float32
+    from astrophotography_tpu_torch.models import (PipelineConfig,
+                                                   calibrate_register_stack)
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+
+    t_phase = time.perf_counter()
+    out = {"checks": []}
+    n, size = WIDE_TWIN_FRAMES, WIDE_TWIN_SIZE
+    frames, bias, dark, flat, exp_ratio, _off, _m = make_field_rotation(
+        n, size, WIDE_MAX_DEG, seed=9)
+    raw = torch.from_numpy(frames).to(dev)
+    masters = _masters(bias, dark, flat, dev)[0]
+    er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
+    cal = (to_float32(raw) * masters[0] - masters[1]
+           - exp_ratio * masters[2])
+    for span in WIDE_SPANS:
+        for body in ("snap", "exact", "lowrank"):
+            mats = torch.from_numpy(_wide_mats(n, body, size, span)).to(dev)
+            kw = dict(span=span, tile=(span + 8, 128), dither_budget=128,
+                      general_taps="lowrank" if body == "lowrank"
+                      else "exact")
+            plan = wc.plan_warp_combine(raw.shape, mats, er, **kw)
+            used = plan.table[:, 8 if body == "snap" else 14] > 0.5
+            _require(bool(used.all()), f"wide {body} span {span}: frames "
+                                       f"on the body {used.tolist()}")
+            for kind, (fr, m_, e_) in (("uint16", (raw, masters, er)),
+                                       ("float32", (cal, None, None))):
+                label = f"wide {body} span {span} {kind} {n}x{size}^2"
+                before = kernels.warp_route_counts["wide"]
+                rec = check_warp_exact(fr, mats, label, card, reps=3,
+                                       masters=m_, er=e_, **kw)
+                _require(rec["route"] == "wide" and kernels.warp_route_counts
+                         ["wide"] > before, f"{label}: route {rec['route']}")
+                out["checks"].append(dict(rec, body=body, span=span,
+                                          input=kind,
+                                          block_rows=kernels._warp_block_rows(
+                                              n, span)))
+    del raw, cal, masters
+    torch.cuda.empty_cache()
+
+    n, size = WIDE_FRAMES, WIDE_SIZE
+    label = f"wide pipeline {n}x{size}^2 0-{WIDE_MAX_DEG:g} deg"
+    t0 = time.perf_counter()
+    frames, bias, dark, flat, exp_ratio, max_off, mats = make_field_rotation(
+        n, size, WIDE_MAX_DEG)
+    gen_s = time.perf_counter() - t0
+    fr = torch.from_numpy(frames).to(dev)
+    del frames
+    kw = dict(bias=torch.from_numpy(bias).to(dev),
+              dark=torch.from_numpy(dark).to(dev),
+              flat=torch.from_numpy(flat).to(dev),
+              exp_ratios=torch.full((n,), exp_ratio, dtype=torch.float32,
+                                    device=dev))
+    cfg = PipelineConfig(combine_impl="fused", warp_span=WIDE_SPAN,
+                         fused_tile=WIDE_TILE, dither_budget=WIDE_BUDGET)
+    _require(kernels._warp_route(n, WIDE_SPAN) == "wide", f"{label}: route")
+    calibrate_register_stack(fr, config=cfg, **kw)          # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        k2 = stack.enter_context(_FirstCall(*_PIPELINE_CALLS["K2"]))
+        clock = stack.enter_context(_KernelClock())
+        stacked, diag = calibrate_register_stack(fr, config=cfg, **kw)
+        torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launch_counts)
+    routes = dict(kernels.warp_route_counts)
+    check_launches(label, launches, {"warp_combine": 1})
+    _require(routes == {"smem": 0, "cols": 0, "wide": 1},
+             f"{label}: K2 routes {routes}")
+    _require("jax" not in sys.modules, "jax was imported")
+    min_in, max_rms, t_err = _check_registration(label, diag, mats,
+                                                 UNFUSED_T_ERR_PX)
+    theta = diag["theta"].cpu().numpy()
+    theta_err = float(np.max(np.abs(theta - np.arctan2(mats[:, 1, 0],
+                                                       mats[:, 0, 0]))))
+    med = check_stack(label, stacked)
+    covered = float((stacked != 0).float().mean())
+    del stacked
+    a, k, _res = k2.call
+    check = _plain_check("K2", k2.call, label)
+    plan = wc.plan_warp_combine(
+        a[0].shape, a[1], span=k["span"], tile=k["tile"], apron=k["apron"],
+        dither_budget=k["dither_budget"], general_taps=k["general_taps"])
+    used = ((plan.tiles[:, :, 2] > 0)
+            & (plan.table[:, 14, None] > 0.5)).float().mean()
+    ms = _time_ms(lambda: kernels.warp_combine_cuda(
+        a[0], None, plan, 0, False, cfg.sigma_lower, cfg.sigma_upper), 3)
+    out["pipeline"] = {
+        "phase": label, "shape": [n, size, size], "span": WIDE_SPAN,
+        "tile": list(WIDE_TILE), "dither_budget": WIDE_BUDGET,
+        "route": "wide", "block_rows": kernels._warp_block_rows(n, WIDE_SPAN),
+        "launches": launches, "warp_routes": routes,
+        "single_run_ms": run_ms, "kernel_ms_in_run": clock.ms(),
+        "min_inliers": min_in, "max_rms_px": max_rms,
+        "max_translation_err_px": t_err, "max_theta_err_rad": theta_err,
+        "interior_median": med, "sky": SKY, "covered_fraction": covered,
+        "frame_tile_pairs_used": float(used), "max_offset_px": max_off,
+        "plain_check": check, "max_abs_err": check["max_abs_err"],
+        "ms": ms, "plain_ms": check["plain_ms"],
+        **_k2_wide_bound(a[0], None, plan, "exact"),
+        "workload_gen_s": gen_s, "card": card}
+    _print(out["pipeline"])
+    del fr, kw, k2, a, k
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = max([c["max_abs_err"] for c in out["checks"]]
+                             + [check["max_abs_err"]])
+    out["wall_s"] = time.perf_counter() - t_phase
+    _print({"phase": "wide", "wall_s": out["wall_s"],
+            "twin_checks": len(out["checks"]),
+            "max_abs_err": out["max_abs_err"], "card": card})
+    return out
+
+
 def main(argv=None) -> int:
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.device import resolve_device
@@ -3669,11 +3940,13 @@ def main(argv=None) -> int:
         run_raw(card, dev)
     if "files" in phases:
         run_files(card, dev)
-    reduce = deep = {}
+    reduce = deep = wide = {}
     if "reduce" in phases:
         reduce = run_reduce(card, dev)
     if "deep" in phases:
         deep = run_deep(card, dev)
+    if "wide" in phases:
+        wide = run_wide(card, dev)
 
     if args.only is None:
         launches = snap["main"]["launches"]
@@ -3742,6 +4015,14 @@ def main(argv=None) -> int:
                            ["clip_combine"],
                            "bench pallas": bench_k3},
                           k3),
+            _kernel_entry("warp_combine",
+                          "astrophotography_tpu/ops/pallas_warp_combine.py:658",
+                          "wide pipeline",
+                          {"wide pipeline": wide["pipeline"]["warp_routes"]
+                           ["wide"]},
+                          dict(wide["pipeline"],
+                               max_abs_err=wide["max_abs_err"]),
+                          route="wide"),
         ]})
     print(card, flush=True)
     _print({"ok": True, "device": {"platform": "gpu",

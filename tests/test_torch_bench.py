@@ -363,3 +363,46 @@ def test_bench_twins_never_import_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("body", ["exact", "lowrank"])
+def test_wide_bound_counts_the_mid_rows_the_pixels_read(body):
+    """chip_smoke's bound of K2's 'wide' route counts the work this run's
+    frames need: the samples the twin covers, and per tile column the
+    source rows their vertical taps reach (within one row a column of
+    the rows a brute-force count finds), not the tile's th + span."""
+    import chip_smoke
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+
+    n, size, span, th, tw = 4, 192, 40, 64, 96
+    frames, _b, _d, _f, er, _off, mats = chip_smoke.make_field_rotation(
+        n, size, 12.0, seed=3)
+    cal = torch.from_numpy(frames).to(torch.float32)
+    m = torch.from_numpy(mats.astype(np.float32))
+    taps = "lowrank" if body == "lowrank" else "exact"
+    if body == "lowrank":
+        m[1:, 0, 1], m[1:, 1, 0] = -4e-4, 4e-4
+        m[1:, 0, 0] = m[1:, 1, 1] = 1.0
+    plan = wc.plan_warp_combine(cal.shape, m, span=span, tile=(th, tw),
+                                dither_budget=32, general_taps=taps)
+    got = chip_smoke._k2_wide_bound(cal, None, plan, body)
+    want = slack = 0.0
+    ys, xs = np.mgrid[0:size, 0:size]
+    for f in range(n):
+        cov = (wc._warp_frame_plain(cal[f], f, plan, taps) < 1e38).numpy()
+        t = plan.table[f].numpy()
+        v = (t[3] * xs.astype(np.float32) + t[4] * ys.astype(np.float32)
+             + t[5])
+        tap = 25 if body == "exact" and t[8] <= 0.5 else 2
+        rows = set()
+        for y, x in zip(*np.nonzero(cov)):
+            lo = math.floor(v[y, x] - 3.0) + 1
+            rows.update((y // th, x, q) for q in range(lo, lo + 6)
+                        if abs(v[y, x] - q) < 3.0)
+        columns = len({(y // th, x) for y, x in zip(*np.nonzero(cov))})
+        want += (int(cov.sum()) * (6 * tap + 1 + math.log2(n))
+                 + len(rows) * (6 * tap + 1))
+        slack += columns * (6 * tap + 1)
+    assert want > 0
+    assert abs(got["bound_ops"] - want) <= slack
+    assert got["bound_bytes"] == cal.numel() * 4 + size * size * 4

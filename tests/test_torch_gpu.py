@@ -350,7 +350,8 @@ def test_warp_combine_kernel_cols_route(cuda, n, combine, body):
     if route == "cols":
         # the grid is no larger than the 2 x 8 x 4 blocks of the image
         run = kernels._warp_cols_run(8, 12)
-        key = ("warp_combine", cuda.index or 0, 1, min(n, run), 12, 8, run)
+        key = ("warp_combine", "cols", cuda.index or 0, 1, min(n, run), 12,
+               8, run)
         blocks = min(2 * 8 * 4, kernels._resident[key])
         assert torch.cuda.max_memory_allocated() - base >= \
             kernels._warp_scratch_bytes(n, 8, blocks)
@@ -383,6 +384,127 @@ def test_warp_combine_kernel_wide_window_takes_the_cols_route(cuda):
     frames = torch.from_numpy(_many_frames(n, h, w, 6)).to(cuda)
     _warp_check(frames, _warp_mats(n, 7, rotate=False),
                 _warp_masters(h, w, cuda), tile=(192, 256), span=span)
+
+
+def _field_rotation(n, h, w, seed, degrees=(5.0, 15.0)):
+    """Frame 0 identity, frame 2 a pure translation (both snapped), the
+    rest rotated by 5-15 degrees about the frame's centre (an alt-az
+    mount's field rotation over an hour or two) and shifted by up to
+    3 px: the 'exact' body at spans past 192."""
+    rng = np.random.default_rng(seed)
+    cx, cy = (w - 1) / 2, (h - 1) / 2
+    mats = []
+    for f in range(n):
+        th = 0.0 if f in (0, 2) else \
+            np.deg2rad(rng.choice([-1, 1]) * rng.uniform(*degrees))
+        tx, ty = (0.0, 0.0) if f == 0 else rng.uniform(-3, 3, 2)
+        c, s = np.cos(th), np.sin(th)
+        mats.append([[c, -s, cx - c * cx + s * cy + tx],
+                     [s, c, cy - s * cx - c * cy + ty]])
+    return np.asarray(mats, np.float32)
+
+
+def _wide_case(n, body, span, seed, uint16=True, h=None, w=384):
+    """Frames, matrices, masters and tap body of a 'wide' route case: a
+    tile one row taller than the span (the window the route exists for),
+    two tile rows; snapped translations, 5-15 degree field rotations on
+    'exact', 0.002-0.004 rad on 'lowrank' (whose gate admits no more)."""
+    th = span + 8
+    h = h or th + 56
+    frames = torch.from_numpy(_many_frames(n, h, w, seed))
+    mats = (_warp_mats(n, seed + 1, rotate=body == "lowrank")
+            if body != "exact" else _field_rotation(n, h, w, seed + 1))
+    masters = _warp_masters(h, w, "cpu")
+    if not uint16:                   # pre-calibrated input, no masters
+        frames, masters = frames.to(torch.float32) * 1.02 - 300.0, None
+    return frames, mats, masters, dict(
+        tile=(th, 128), span=span, dither_budget=128,
+        general_taps="lowrank" if body == "lowrank" else "exact")
+
+
+def _on(dev, frames, masters):
+    return frames.to(dev), None if masters is None else masters.to(dev)
+
+
+@pytest.mark.parametrize("span", [193, 256])
+@pytest.mark.parametrize("uint16", [True, False])
+@pytest.mark.parametrize("body", ["snap", "exact", "lowrank"])
+def test_warp_combine_kernel_wide_route(cuda, body, uint16, span):
+    """Past span 192 one output row's window outgrows a shared block, and
+    K2 takes its 'wide' route: the mid rows in shared memory, filled a
+    window row per warp, the samples in the 'cols' scratch.  Bit for bit
+    against the twin on every tap body, uint16 with masters and float32
+    without, one launch on that route."""
+    frames, mats, masters, kw = _wide_case(6, body, span, 3, uint16)
+    assert kernels._warp_route(6, span) == "wide"
+    frames, masters = _on(cuda, frames, masters)
+    before = kernels.warp_route_counts["wide"]
+    _warp_check(frames, mats, masters, combine="median", **kw)
+    assert kernels.warp_route_counts["wide"] == before + 1
+
+
+@pytest.mark.parametrize("combine", ["average", "sum", "mean"])
+@pytest.mark.parametrize("body", ["snap", "exact", "lowrank"])
+def test_warp_combine_kernel_wide_route_combines(cuda, body, combine):
+    """The 'wide' route's other combines, span 200, bit for bit."""
+    frames, mats, masters, kw = _wide_case(5, body, 200, 11)
+    frames, masters = _on(cuda, frames, masters)
+    _warp_check(frames, mats, masters, combine=combine, **kw)
+
+
+@pytest.mark.parametrize("body", ["snap", "exact"])
+def test_warp_combine_kernel_wide_route_many_frames(cuda, body):
+    """Past the 'cols' crossing (160 frames) the 'wide' route's combine
+    is the 'cols' route's: bit for bit at span 193."""
+    frames, mats, masters, kw = _wide_case(160, body, 193, 5, h=208,
+                                           w=256)
+    frames, masters = _on(cuda, frames, masters)
+    _warp_check(frames, mats, masters, combine="average", **kw)
+
+
+@pytest.mark.parametrize("span", [1411, 1436])
+def test_warp_combine_kernel_wide_route_at_its_limit(cuda, span):
+    """At 1411 a 'wide' block still keeps 32 rows, at 1436 (the route's
+    reach) one; both bit for bit on the 'exact' body."""
+    frames, mats, masters, kw = _wide_case(3, "exact", span, 7, h=None,
+                                           w=256)
+    assert kernels._warp_block_rows(3, span) == (32 if span == 1411 else 1)
+    frames, masters = _on(cuda, frames, masters)
+    _warp_check(frames, mats, masters, **kw)
+
+
+@pytest.mark.parametrize("body", ["snap", "exact", "lowrank"])
+def test_warp_combine_kernel_wide_route_equals_smem(cuda, body):
+    """Forced onto a span the shared route takes (12), the 'wide' route
+    gives the 'smem' and 'cols' routes' image bit for bit."""
+    n, h, w = 6, 128, 256
+    raw = torch.from_numpy(_starfield(n, h, w, 3)).to(cuda)
+    mats = torch.tensor(_warp_mats(n, 2, rotate=body != "snap"), device=cuda)
+    plan = wc.plan_warp_combine(
+        raw.shape, mats, torch.full((n,), 0.5, device=cuda), tile=(32, 128),
+        general_taps="lowrank" if body == "lowrank" else "exact")
+    imgs = {r: kernels.warp_combine_cuda(raw, _warp_masters(h, w, cuda), plan,
+                                         1, body == "lowrank", 5.0, 5.0,
+                                         route=r)
+            for r in ("smem", "cols", "wide")}
+    assert torch.equal(imgs["wide"], imgs["smem"])
+    assert torch.equal(imgs["wide"], imgs["cols"])
+    assert (imgs["wide"] != 0).float().mean() > 0.8
+
+
+@pytest.mark.parametrize("taps", ["exact", "lowrank"])
+def test_warp_combine_kernel_wide_route_bounds_and_geom(cuda, taps):
+    """The 'wide' route reads ``v_bounds`` (inside the image) and
+    ``snap_geom`` (an interior band's) from the frame table as the twin
+    does, span 200."""
+    body = "exact" if taps == "exact" else "lowrank"
+    frames, mats, masters, kw = _wide_case(5, body, 200, 13)
+    frames, masters = _on(cuda, frames, masters)
+    h, w = frames.shape[1:]
+    _warp_check(frames, mats, masters,
+                v_bounds=torch.tensor((10.0, h - 12.0), device=cuda),
+                snap_geom=torch.tensor((w / 2, -70.0, w / 2, h / 2),
+                                       device=cuda), **kw)
 
 
 @pytest.mark.parametrize("taps", ["exact", "lowrank"])

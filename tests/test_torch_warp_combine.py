@@ -296,7 +296,8 @@ def test_kernel_frame_limit_message():
 
 @pytest.mark.parametrize("n,span,rows", [
     (909, 8, 8), (909, 12, 8), (1200, 12, 8), (5000, 100, 8), (1200, 190, 4),
-    (908, 150, 8), (500, 192, 1)])
+    (908, 150, 8), (500, 192, 1), (150, 187, 8), (150, 188, 7),
+    (1, 191, 2), (100, 192, 1)])
 def test_kernel_global_route(n, span, rows):
     """Past the crossing, and below where the columns and the window of a
     shared block outgrow shared memory, K2's 'cols' block
@@ -323,7 +324,8 @@ def test_kernel_global_route(n, span, rows):
 
 @pytest.mark.parametrize("n,span,rows", [
     (1, 12, 8), (100, 8, 8), (100, 12, 8), (216, 8, 8), (216, 12, 7),
-    (400, 12, 4), (908, 100, 1)])
+    (400, 12, 4), (908, 100, 1), (1, 186, 8), (149, 90, 8), (150, 91, 7),
+    (148, 91, 8), (137, 100, 8)])
 def test_kernel_block_rows(n, span, rows):
     """A K2 'smem' block keeps 8 rows of 32 pixels while its N-sample
     columns and window fit; where they would leave fewer rows (``rows``
@@ -355,13 +357,116 @@ def test_kernel_main_shape_fits_two_blocks_per_sm():
 
 
 def test_kernel_rejects_span_beyond_shared_memory():
+    """K2 takes every span up to the 'wide' route's reach: past 192 one
+    row's window outgrows a shared block and 'wide' takes the span (its
+    mid rows in shared memory); past 1436 one output row's mid rows and
+    the 8 warps' window rows outgrow a block too, and the kernel raises,
+    naming the limit.  The shared routes forced past 192 still refuse."""
     from astrophotography_tpu_torch import kernels
 
-    with pytest.raises(ValueError, match="shared memory"):
-        kernels._warp_block_rows(908, 200)
+    assert kernels._WARP_WIDE_MAX_SPAN == 1436
     assert kernels._warp_block_rows(908, 192) == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        kernels._warp_block_rows(908, 193)
+    for n in (1, 908, 1200):
+        assert kernels._warp_block_rows(n, 193) == 32
+        assert kernels._warp_block_rows(n, 200) == 32
+        assert kernels._warp_block_rows(n, 1436) == 1
+        with pytest.raises(ValueError, match=r"shared memory .*one output "
+                                             r"row's mid rows; the 'wide' "
+                                             r"route takes spans up to 1436"):
+            kernels._warp_block_rows(n, 1437)
+    for route in ("smem", "cols"):
+        with pytest.raises(ValueError, match=f"'{route}' route: a window of "
+                                             f"span 193 needs more than "
+                                             f"232448 B"):
+            kernels._warp_block_rows(100, 193, route)
+
+
+#: K2's route table before the 'wide' route, for every span <= 192: the
+#: first frame count on 'cols' (spans 1-90: 150; 91-192: below) and the
+#: rows of a 'cols' block (8 to span 187; 188-192: below); a 'smem'
+#: block keeps 8 rows
+_OLD_CROSSING = dict(zip(range(91, 193), (
+    149, 147, 146, 145, 144, 143, 142, 140, 139, 138, 137, 135, 134, 133,
+    132, 130, 129, 128, 127, 125, 124, 123, 121, 120, 119, 117, 116, 115,
+    113, 112, 111, 109, 108, 106, 105, 104, 102, 101, 99, 98, 96, 95, 93,
+    92, 90, 89, 87, 86, 84, 83, 81, 80, 78, 77, 75, 73, 72, 70, 69, 67, 65,
+    64, 62, 61, 59, 57, 56, 54, 52, 51, 49, 47, 45, 44, 42, 40, 38, 37, 35,
+    33, 31, 30, 28, 26, 24, 22, 21, 19, 17, 15, 13, 11, 10, 8, 6, 4, 2, 1,
+    1, 1, 1, 1)))
+_OLD_COLS_ROWS = {188: 7, 189: 5, 190: 4, 191: 2, 192: 1}
+
+
+def test_kernel_routes_up_to_span_192_are_unchanged():
+    """For every span <= 192, :func:`kernels._warp_route` and
+    :func:`kernels._warp_block_rows` give the table they gave before the
+    'wide' route (around each crossing and at the frame counts the paths
+    use); 'wide' starts at 193 for every frame count."""
+    from astrophotography_tpu_torch import kernels
+
+    for span in range(1, 193):
+        cross = _OLD_CROSSING.get(span, 150)
+        rows = _OLD_COLS_ROWS.get(span, 8)
+        for n in {1, 2, 100, 149, 150, 151, 908, 1200, 7233,
+                  *range(max(cross - 2, 1), cross + 3)}:
+            want = ("smem", 8) if n < cross else ("cols", rows)
+            got = (kernels._warp_route(n, span),
+                   kernels._warp_block_rows(n, span))
+            assert got == want, (span, n)
+    for span in (193, 194, 256, 1000, 1436):
+        for n in (1, 100, 150, 1200):
+            assert kernels._warp_route(n, span) == "wide"
+
+
+@pytest.mark.parametrize("span,rows", [(193, 32), (256, 32), (1000, 32),
+                                       (1411, 32), (1412, 16), (1425, 8), (1432, 4),
+                                       (1436, 1)])
+def test_kernel_wide_route_arithmetic(span, rows):
+    """A 'wide' block keeps the most of 32, 16, ..., 1 output rows whose
+    mid rows ((rows + span) x 32 floats), one window row per warp (8 x
+    (32 + span)), the lowrank and snap weights and the frame's parameters
+    fit 227 KB; over the same words the combine's tile of one column per
+    warp, so the reach is the 'cols' route's (7232 samples).  Its scratch
+    is the 'cols' route's per pixel, and the grid stops at 1 GiB of it:
+    218 blocks of 32 rows at 1200 frames."""
+    from astrophotography_tpu_torch import kernels
+
+    assert kernels._warp_wide_rows(span) == rows
+    smem = kernels._warp_wide_smem_bytes(rows, span)
+    assert smem == 4 * ((rows + span) * 32 + 8 * (32 + span) + 256 + 64
+                        + 16 + 20 + 2)
+    assert smem <= kernels._SMEM_MAX
+    if rows < 32:
+        assert kernels._warp_wide_smem_bytes(2 * rows, span) > \
+            kernels._SMEM_MAX
+    run = kernels._warp_cols_run(kernels._WARP_WIDE_WARPS, span)
+    assert run == 7232
+    for n in (3, 160, 1200, 7232, 10 ** 5):
+        total = kernels._warp_wide_smem_total(n, rows, span, run)
+        assert max(smem, 4 * 8 * kernels._cols_stride(min(n, run), 8)) \
+            == total <= kernels._SMEM_MAX
+    assert kernels._warp_wide_smem_total(24, 32, 256, run) == 47512
+    for n, grid in ((24, 264), (1200, 218), (5000, 52)):
+        got = kernels._warp_wide_grid(n, 32, 10 ** 6, 264)
+        assert got == grid
+        assert kernels._warp_scratch_bytes(n, 32, got) <= \
+            kernels._WARP_WIDE_SCRATCH_MAX
+    assert kernels._warp_wide_grid(10 ** 7, 32, 10 ** 6, 264) == 1
+    assert kernels._warp_wide_grid(24, 32, 100, 264) == 100
+
+
+@pytest.mark.parametrize("taps", ["exact", "lowrank"])
+def test_warp_combine_span_200_matches_pallas(taps):
+    """At span 200 (past 192: the CUDA kernel's 'wide' route) with a tile
+    taller than the span, the twin against the JAX kernel in interpret
+    mode, by ``_compare``'s rule."""
+    cal, _raw, _m, mats, _er, _fs = _scene(3, 64, 128, seed=7)
+    kw = dict(tile=(208, 128), span=200, general_taps=taps)
+    ref = np.asarray(pwc.pallas_warp_combine(jnp.asarray(cal),
+                                             jnp.asarray(mats), **kw))
+    got = twc.warp_combine(torch.from_numpy(cal), torch.from_numpy(mats),
+                           **kw).numpy()
+    assert (got != 0).mean() > 0.9
+    _compare(got, ref)
 
 
 @settings(max_examples=80, deadline=None)

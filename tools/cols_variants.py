@@ -175,8 +175,8 @@ def main() -> int:
         general_taps=cfg.general_taps)
     rows = kernels._warp_block_rows(n, plan.span, "cols")
     run = kernels._warp_cols_run(rows, plan.span)
-    grid = kernels._resident_blocks("warp_combine", dev, 1, min(n, run),
-                                    plan.span, rows, run)
+    grid = kernels._resident_blocks("warp_combine", "cols", dev, 1,
+                                    min(n, run), plan.span, rows, run)
     scratch = torch.empty((kernels._warp_scratch_bytes(n, rows, grid) // 4,),
                           device=dev)
     out = torch.empty((size, size), device=dev)
