@@ -180,30 +180,33 @@ def _params_block(params: tuple):
     return (ctypes.c_float * len(params))(*params)
 
 
-#: K1's tile (binned rows x columns), the rolling kernel's columns per
-#: thread, its largest block (tile columns) and strip (tiles), and the
+#: K1's tile (binned rows x columns), the columns per thread of its strip
+#: kernels, their largest block (tile columns) and strip (tiles), and the
 #: blocks that fill the card twice over (132 SMs x 3 blocks x 2)
 _DET_TTY, _DET_TTX, _DET_CPT = 32, 256, 4
 _DET_MAX_TILE_COLS, _DET_MAX_STRIP_TILES, _DET_FILL_BLOCKS = 2, 8, 792
 #: the largest filter radius K1 takes, the TPU kernel's reach (its lane
 #: filter's 128 columns and its band of 128 binned rows each side), and
-#: the largest of the staged-tile route (csrc/detect_tiles.cu)
-_DET_MAX_RADIUS, _DET_STAGED_MAX_RADIUS = 128, 16
+#: the largest of the ring route (csrc/detect_tiles.cu)
+_DET_MAX_RADIUS, _DET_RING_MAX_RADIUS = 128, 16
 #: the most bytes the separable route's G and Box planes take at once
 #: (frames go in chunks)
 _DET_SCRATCH_MAX = 1 << 30
+#: floats of padding each side of a shared row of the ring and planes
+#: kernels (``HPAD``)
+_DET_HPAD = 16
 
 
 def _detect_route(r: int) -> str:
     """Which of K1's routes filter radius ``r`` takes (mirrors
     ``launch`` in csrc/detect_tiles.cu): 'rolling' for r = 2 and 3,
-    'staged' for 1 and 4 to 16, 'separable' for 17 to 128."""
+    'ring' for 1 and 4 to 16, 'separable' for 17 to 128."""
     if not 1 <= r <= _DET_MAX_RADIUS:
         raise ValueError(f"detect_tiles kernel takes filter radii 1 to "
                          f"{_DET_MAX_RADIUS}, got {r}")
     if r in (2, 3):
         return "rolling"
-    return "staged" if r <= _DET_STAGED_MAX_RADIUS else "separable"
+    return "ring" if r <= _DET_RING_MAX_RADIUS else "separable"
 
 
 def _detect_chunk(n: int, h: int, w: int) -> int:
@@ -212,15 +215,24 @@ def _detect_chunk(n: int, h: int, w: int) -> int:
     return max(1, min(n, _DET_SCRATCH_MAX // (8 * (h // 2) * w)))
 
 
-def _detect_layout(n: int, h: int, w: int) -> dict:
-    """The rolling K1 kernel's launch shape for ``n`` frames of ``h`` x
-    ``w`` (mirrors ``launch_rolling`` in csrc/detect_tiles.cu): a block
-    owns ``tile_cols`` tile columns (the most, up to 2, that divide the
-    frame's) with 64 threads each plus 2 halo threads, and walks
-    ``strip_tiles`` tiles of 32 binned rows; the strip is halved from 8
-    tiles while the grid has fewer blocks than fill the card.  Its shared
-    memory is 8 rows of the strip with its halo: two buffers of the G
-    and Box rows and a ring of 4 density rows."""
+def _detect_layout(n: int, h: int, w: int, r: int = 2) -> dict:
+    """The launch shape of K1's strip kernel for ``n`` frames of ``h`` x
+    ``w`` at filter radius ``r`` (mirrors ``launch_rolling``,
+    ``launch_ring`` and ``launch_separable`` in csrc/detect_tiles.cu; on
+    the separable route ``n`` is the chunk's frames): a block owns
+    ``tile_cols`` tile columns (the most, up to 2, that divide the
+    frame's) with 64 threads each and walks ``strip_tiles`` tiles of 32
+    binned rows; the strip is halved from 8 tiles while the grid has
+    fewer blocks than fill the card.  Beside the strip's threads, the
+    rolling kernel has one halo thread each side, the ring kernel
+    ceil((r + 1) / 4), the planes kernel one.  Shared memory: the rolling
+    kernel's 8 rows of the strip (two buffers of the G and Box rows, a
+    ring of 4 density rows); the ring kernel's 2r binned rows more, each
+    row as long as a strip of 2 tile columns makes it; the
+    planes kernel's 8 rows with ceil(r / 4) + 1 groups of 4 columns left
+    of the strip and 3 more right of it, and the row taps (padded to a
+    multiple of 4)."""
+    route = _detect_route(r)
     tyn, txn = h // (2 * _DET_TTY), w // _DET_TTX
     tile_cols = next(k for k in range(_DET_MAX_TILE_COLS, 0, -1)
                      if txn % k == 0)
@@ -232,10 +244,23 @@ def _detect_layout(n: int, h: int, w: int) -> dict:
     while strip_tiles > 1 and blocks(strip_tiles) < _DET_FILL_BLOCKS:
         strip_tiles = (strip_tiles + 1) // 2
     core = _DET_TTX // _DET_CPT * tile_cols
-    threads = -(-(core + 2) // 32) * 32
+    cpt = _DET_CPT
+    if route == "rolling":
+        halo = 1
+        words = 8 * (cpt * (core + 2) + 8)
+    elif route == "ring":
+        # its rows are as long for one tile column as for two
+        halo = -(-(r + 1) // cpt)
+        words = (2 * r + 8) * (cpt * (_DET_TTX // cpt * _DET_MAX_TILE_COLS
+                                      + 2 * halo) + 2 * _DET_HPAD)
+    else:
+        halo = 1
+        nv = core + 2 * (-(-r // cpt) + 1) + 3
+        words = 8 * cpt * nv + (2 * r + 1 + 3) // 4 * 4
+    threads = -(-(core + 2 * halo) // 32) * 32
     return {"tile_cols": tile_cols, "strip_tiles": strip_tiles,
-            "threads": threads, "segments": -(-tyn // strip_tiles),
-            "smem_bytes": 4 * 8 * (_DET_CPT * (core + 2) + 8)}
+            "threads": threads,
+            "segments": -(-tyn // strip_tiles), "smem_bytes": 4 * words}
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -258,17 +283,17 @@ def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
     a = _check(a_plane, "a_plane", dev, (h, w))
     mf = _check(mf_bc, "mf_bc", dev, (2, h // 2, w))
     par = _params_block(tuple(params))
-    lay = _detect_layout(n, h, w)
-    shape = (n, h // 64, w // 256)
-    out_max = torch.empty(shape, dtype=torch.float32, device=dev)
-    out_idx = torch.empty(shape, dtype=torch.int32, device=dev)
-    out_yoff = torch.empty(shape, dtype=torch.float32, device=dev)
-    out_xoff = torch.empty(shape, dtype=torch.float32, device=dev)
     scratch, chunk = None, 0
     if route == "separable":
         chunk = _detect_chunk(n, h, w)
         scratch = torch.empty((2 * chunk * (h // 2) * w,),
                               dtype=torch.float32, device=dev)
+    lay = _detect_layout(chunk or n, h, w, r)
+    shape = (n, h // 64, w // 256)
+    out_max = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_idx = torch.empty(shape, dtype=torch.int32, device=dev)
+    out_yoff = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_xoff = torch.empty(shape, dtype=torch.float32, device=dev)
     lib = _load()["detect_tiles"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.detect_tiles_launch(

@@ -61,7 +61,13 @@ the stacks:
   made on the card: K2's global route), the unfused path on 1200 frames
   of 512^2 (K3's global route), K2 against its twin at 1200 x 512^2
   (snap and lowrank), K3 against its twin on a masked 1200 x 1024 x 2048
-  stack, K1 at radii 24 and 48 (its separable route) on 16 x 4096^2;
+  stack, K1 at radii 17, 24 and 48 (its separable route) on 16 x 4096^2;
+* an oversampled rig (``oversampled``): the lean path on 100 uint16
+  frames of 4096^2 with the same masters and dithers and stars of 8 px
+  FWHM, with ``fwhm=8.0`` (K1 on its ring route at radius 6), the
+  registration and the stack checked, K1's call replayed on its twin;
+  then K1 at every radius of the ring route the FWHM can reach (4, 6, 8,
+  12, 16) on that stack against its twin, with its time and bound;
 * K2 past span 192 (``wide``): its 'wide' route against the twin bit
   for bit at spans 193, 256 and 1436 (the route's reach) on every tap
   body, uint16 with masters and float32 without, then
@@ -82,14 +88,14 @@ Beside the checks against the plain twins it times K2 at 100x4096^2 with
 the sort and clip): the warp phase against the combine phase.
 
 Run from the repository root with ``python3 chip_smoke.py``; every phase
-runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip,deep,wide,bench}``
+runs.  ``--only {k1,k2,k3,lean,unfused,small,bands,measure,raw,files,reduce,multichip,deep,oversampled,wide,bench}``
 runs one group of phases (the kernel check and timing of K1, K2 or K3 at
 the main paths' shapes, the lean path, the unfused path with and without
 the mask, the 16x1024^2 chunked run and the small kernel matrix, the
 band loop, the measurement ops, the RAW half, the calibration-file
 engines, the file-to-file reduction, the multi-device layer, the
-routes past the shared-memory limits, K2 past span 192, or the
-benchmark) and prints no ``kernels`` line.  Every phase raises
+routes past the shared-memory limits, the oversampled lean path, K2
+past span 192, or the benchmark) and prints no ``kernels`` line.  Every phase raises
 on failure.  Each phase prints one JSON line; the build line carries
 ptxas' register, shared-memory and spill report for every kernel; the
 line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -128,7 +134,8 @@ UNFUSED_FRAMES = 24
 #: package measures 0.18 / 0.24 px in x / y on 8x1024^2 of this workload)
 UNFUSED_T_ERR_PX = 0.5
 PHASES = ("k1", "k2", "k3", "lean", "unfused", "small", "bands", "measure",
-          "raw", "files", "reduce", "multichip", "deep", "wide", "bench")
+          "raw", "files", "reduce", "multichip", "deep", "oversampled", "wide",
+          "bench")
 #: the RAW half: 24 lossless-JPEG DNGs of 3904^2 uint16 (bench_rawgrey's
 #: set: black level 128)
 RAW_FRAMES, RAW_SIZE = 24, 3904
@@ -269,6 +276,7 @@ def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3,
            "route": kernels._detect_route(r), **agree,
            "ms": ms, "plain_ms": plain_ms,
            **_bound(n_bytes, frames.numel() * (3 * ntap + 9.5)), "card": card}
+    res["ms_over_bound"] = ms / res["bound_ms"]
     _print(res)
     return res
 
@@ -3171,29 +3179,23 @@ def run_small_matrix(card: str, dev) -> None:
 #: the deep phase: the lean path past the shared-memory routes' 908
 #: frames (1200 uint16 frames of 2048^2, 10.1 GB raw), the unfused path
 #: (K3) and K2's twin at 1200 x 512^2, K3 at 1200 x 1024 x 2048 (its twin
-#: on the first DEEP_K3_TWIN_ROWS rows), K1 at radii 24 and 48 (FWHM 32
-#: and 64 px) on 16 x 4096^2
+#: on the first DEEP_K3_TWIN_ROWS rows), K1 at radii 17, 24 and 48 (FWHM
+#: 22.7, 32 and 64 px) on 16 x 4096^2
 DEEP_FRAMES, DEEP_SIZE, DEEP_SMALL = 1200, 2048, 512
 #: K2's lowrank body against its twin on 'cols' (the twin's time follows
 #: the frames, not the pixels)
 DEEP_LOWRANK_FRAMES = 909
 DEEP_K3_SHAPE, DEEP_K3_TWIN_ROWS = (1200, 1024, 2048), 64
-DEEP_K1_FRAMES, DEEP_K1_SIZE, DEEP_K1_FWHM = 16, 4096, (32.0, 64.0)
+DEEP_K1_FRAMES, DEEP_K1_SIZE, DEEP_K1_FWHM = 16, 4096, (22.7, 32.0, 64.0)
 
 
-def make_workload_on_device(n_frames: int, size: int, dev, rotate=False,
-                            seed: int = 0, chunk: int = 32):
-    """:func:`make_workload`'s observing run made on the card ``chunk``
-    frames at a time, for stacks whose float copy would not fit the
-    host: the same masters, dithers, rotations and 40 stars of FWHM 3 px
-    (times the flat), but 8 ADU noise of its own in every frame (a CUDA
-    generator seeded with ``seed``) and no host copy of the stack.
-
-    Returns (frames (N, size, size) uint16 on ``dev``, bias, dark_master,
-    flat, exp_ratio, max_offset_px, matrices (N, 2, 3)), the masters and
-    matrices as numpy."""
-    from astrophotography_tpu_torch.device import to_uint16
-
+def workload_geometry(n_frames: int, size: int, rotate=False, seed: int = 0):
+    """The host half of :func:`make_workload_on_device`'s observing run:
+    the flat, bias and dark counts, the exposure ratio, 40 star positions
+    and fluxes, each frame's matrix (+-4 px dithers, with ``rotate``
+    0.1-0.25 deg rotations about the centre), the stars' positions in
+    every frame (N, 40) and the largest offset.  One numpy generator
+    seeded with ``seed`` draws them all, in that order."""
     rng = np.random.default_rng(seed)
     yy = (np.arange(size, dtype=np.float32) - size / 2) / size
     r2 = yy[:, None] ** 2 + yy[None, :] ** 2
@@ -3202,7 +3204,6 @@ def make_workload_on_device(n_frames: int, size: int, dev, rotate=False,
     dark_counts = np.full((size, size), 40.0, np.float32)
     hot = rng.integers(0, size, (200, 2))
     dark_counts[hot[:, 0], hot[:, 1]] = 5000.0
-    exp_ratio = 0.5
     xs = rng.uniform(48, size - 48, 40)
     ys = rng.uniform(48, size - 48, 40)
     fl = rng.uniform(20000, 60000, 40)
@@ -3221,27 +3222,50 @@ def make_workload_on_device(n_frames: int, size: int, dev, rotate=False,
                    [s, c, cy + dy - s * cx - c * cy]]
         px[i] = c * (xs - cx) - s * (ys - cy) + cx + dx
         py[i] = s * (xs - cx) + c * (ys - cy) + cy + dy
-    max_off = float(np.hypot(px - xs, py - ys).max())
+    return {"flat": flat, "bias": bias, "dark_counts": dark_counts,
+            "exp_ratio": 0.5, "flux": fl, "mats": mats, "px": px, "py": py,
+            "max_offset": float(np.hypot(px - xs, py - ys).max())}
 
+
+def make_workload_on_device(n_frames: int, size: int, dev, rotate=False,
+                            seed: int = 0, chunk: int = 32,
+                            star_fwhm: float = 3.0):
+    """:func:`make_workload`'s observing run made on the card ``chunk``
+    frames at a time, for stacks whose float copy would not fit the
+    host: the same masters, dithers, rotations and 40 stars
+    (:func:`workload_geometry`) of FWHM ``star_fwhm`` (3 px by default),
+    each drawn on a patch of at least +-4 sigma (+-12 px at 3 px) times
+    the flat, but 8 ADU noise of its own in every frame (a generator on
+    ``dev`` seeded with ``seed``) and no host copy of the stack.
+
+    Returns (frames (N, size, size) uint16 on ``dev``, bias, dark_master,
+    flat, exp_ratio, max_offset_px, matrices (N, 2, 3)), the masters and
+    matrices as numpy."""
+    from astrophotography_tpu_torch.device import to_uint16
+
+    geo = workload_geometry(n_frames, size, rotate, seed)
+    flat, bias, dark_counts = geo["flat"], geo["bias"], geo["dark_counts"]
+    exp_ratio = geo["exp_ratio"]
     flat_t = torch.from_numpy(flat).to(dev)
     base = SKY * flat_t + torch.from_numpy(
         bias + exp_ratio * dark_counts).to(dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     frames = torch.empty((n_frames, size, size), dtype=torch.int16,
                          device=dev)
-    sigma = 3.0 / 2.35482
-    d = torch.arange(25, device=dev)
-    pxt, pyt = (torch.from_numpy(a).to(dev) for a in (px, py))
-    amp = torch.from_numpy(fl / (2 * np.pi * sigma * sigma)).to(dev)
-    x0, y0 = pxt.long() - 12, pyt.long() - 12
+    sigma = star_fwhm / 2.35482
+    half = max(12, math.ceil(4.0 * sigma))
+    d = torch.arange(2 * half + 1, device=dev)
+    pxt, pyt = (torch.from_numpy(geo[k]).to(dev) for k in ("px", "py"))
+    amp = torch.from_numpy(geo["flux"] / (2 * np.pi * sigma * sigma)).to(dev)
+    x0, y0 = pxt.long() - half, pyt.long() - half
     for k in range(0, n_frames, chunk):
         sl = slice(k, min(k + chunk, n_frames))
         f = base + 8.0 * torch.randn((sl.stop - k, size, size), generator=g,
                                      device=dev)
         xx = (x0[sl, :, None, None] + d[None, None, None, :]) \
-            .expand(-1, -1, 25, -1)
+            .expand(-1, -1, d.numel(), -1)
         yy = (y0[sl, :, None, None] + d[None, None, :, None]) \
-            .expand(-1, -1, -1, 25)
+            .expand(-1, -1, -1, d.numel())
         star = amp[None, :, None, None] * torch.exp(
             -0.5 * (((xx - pxt[sl, :, None, None]) / sigma) ** 2
                     + ((yy - pyt[sl, :, None, None]) / sigma) ** 2))
@@ -3252,7 +3276,7 @@ def make_workload_on_device(n_frames: int, size: int, dev, rotate=False,
         frames[sl] = to_uint16(f).view(torch.int16)
         del f, star
     return (frames.view(torch.uint16), bias, bias + dark_counts, flat,
-            exp_ratio, max_off, mats)
+            exp_ratio, geo["max_offset"], geo["mats"])
 
 
 def _clip_inputs_chunked(n, h, w, dev, seed, chunk=100):
@@ -3421,6 +3445,37 @@ def run_route_sweep(card: str, dev) -> dict:
     return out
 
 
+def k1_split(n: int, size: int, fwhms, card: str) -> dict:
+    """K1's time split by kernel at each FWHM on ``n`` x ``size``^2 (the
+    same seed-3 stack as the deep phase's K1 checks): ``tools/k1_routes.py``
+    in a fresh process, whose torch.profiler sees the card's kernels (in a
+    process that has run the earlier phases, a later profiler session
+    recorded none).  Requires both of the separable route's kernels at
+    every radius."""
+    cmd = [sys.executable, os.path.join("tools", "k1_routes.py"), "--reps",
+           "3", "--frames", str(n), "--size", str(size), "--fwhm",
+           *map(str, fwhms)]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600)
+    _require(proc.returncode == 0,
+             f"tools/k1_routes.py exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    out = {}
+    for row in rows:
+        kms = row["kernel_ms"]
+        _require({"detect_vpass_kernel", "detect_planes_kernel"} <= set(kms),
+                 f"K1 split radius {row['radius']}: kernels {sorted(kms)}")
+        out[f"r={row['radius']}"] = {"ms": row["ms"], "kernel_ms": kms}
+    _require(len(out) == len(fwhms), f"K1 split: {len(out)} radii")
+    res = {"phase": "K1 split", "shape": [n, size, size], **out,
+           "card": card}
+    _print(res)
+    return res
+
+
 def run_deep(card: str, dev) -> dict:
     """The kernels' routes past the shared-memory limits and radius 16,
     at sizes users run:
@@ -3441,8 +3496,9 @@ def run_deep(card: str, dev) -> dict:
       frames of 512^2 ('cols');
     * K3 against its twin bit for bit on a masked 1200 x 1024 x 2048
       stack (10 GB and 2.5 GB of mask), the twin on the first 64 rows;
-    * K1 at radii 24 and 48 on 16 x 4096^2 against its twin by its rule
-      (the separable route);
+    * K1 at radii 17, 24 and 48 on 16 x 4096^2 against its twin by its
+      rule (the separable route), then its column pass and planes kernel
+      timed apart (:func:`k1_split`);
     * the route sweep (:func:`run_route_sweep`)."""
     import contextlib
 
@@ -3629,16 +3685,133 @@ def run_deep(card: str, dev) -> dict:
             f"deep {nk}x{sk}^2 radius {r} (fwhm {fwhm})", card, fwhm=fwhm)
         _require(out[f"K1 r={r}"]["route"] == "separable",
                  f"deep K1 radius {r}: route")
+        _require(out[f"K1 r={r}"]["max_abs_err"] == 0.0,
+                 f"deep K1 radius {r}: maxima not the twin's bits")
         _require(out[f"K1 r={r}"]["live_tiles"] > 0,
                  f"deep K1 radius {r}: no live tile")
     del fr, masters, mf
     torch.cuda.empty_cache()
+    out["K1 split"] = k1_split(DEEP_K1_FRAMES, DEEP_K1_SIZE, DEEP_K1_FWHM,
+                               card)
     out["sweep"] = run_route_sweep(card, dev)
     out["wall_s"] = time.perf_counter() - t_phase
     _print({"phase": "deep", "wall_s": out["wall_s"],
             "resident_blocks": {"/".join(map(str, k)): v
                                 for k, v in kernels._resident.items()},
             "card": card})
+    return out
+
+
+#: the oversampled phase: stars of OVERSAMPLED_FWHM px on the lean
+#: workload's 100 x 4096^2 (a C8 at 2032 mm with 2.9 um pixels samples
+#: 0.29"/px, so 2.5" seeing is ~8.5 px), detected at that FWHM; then K1 at
+#: the FWHMs of the ring route's radii 4, 6, 8, 12 and 16 on the same stack
+OVERSAMPLED_FWHM = 8.0
+OVERSAMPLED_K1_FWHM = (5.0, 8.0, 10.7, 16.0, 21.0)
+
+
+def run_oversampled(card: str, dev) -> dict:
+    """The lean path (``calibrate_register_stack_lean``, the snap lean
+    config with ``fwhm=8.0``) on 100 uint16 frames of 4096^2 with bias,
+    dark and flat, +-4 px dithers and 40 stars of 8 px FWHM
+    (``make_workload_on_device``): K1 on its ring route at radius 6, K2 on
+    its 'smem' snap body, one launch each; registration (5 inliers, rms
+    under 0.5 px, translations within 0.5 px of the true dithers) and the
+    stack's interior median checked; the wall ms of one run after a
+    warm-up, K1 and K2 by CUDA events, the peak device memory; the run's
+    own K1 call replayed on its twin.  Then K1 at radii 4, 6, 8, 12 and 16
+    on that stack with the masters against its twin (``check_detect``),
+    each on the ring route.  The ring kernel rounds op by op as the twin
+    does: its tile maxima must be the twin's bits."""
+    import contextlib
+
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.models import (
+        calibrate_register_stack_lean)
+    from astrophotography_tpu_torch.ops import detect_tiles as dt
+
+    t_phase = time.perf_counter()
+    n, size = N_FRAMES, SIZE
+    label = f"oversampled lean {n}x{size}^2 fwhm {OVERSAMPLED_FWHM}"
+    cfg = dataclasses.replace(lean_config(False), fwhm=OVERSAMPLED_FWHM)
+    t0 = time.perf_counter()
+    fr, bias, dark, flat, exp_ratio, max_off, mats = \
+        make_workload_on_device(n, size, dev, star_fwhm=OVERSAMPLED_FWHM)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
+    kw = dict(bias=torch.from_numpy(bias).to(dev),
+              dark=torch.from_numpy(dark).to(dev),
+              flat=torch.from_numpy(flat).to(dev), exp_ratios=er)
+    r = dt._kernel_params(cfg.fwhm)[1]
+    routes = {"K1": kernels._detect_route(r),
+              "K2": kernels._warp_route(n, cfg.warp_span)}
+    _require(routes == {"K1": "ring", "K2": "smem"},
+             f"{label}: routes {routes}")
+
+    def run():
+        return calibrate_register_stack_lean(fr, config=cfg, **kw)
+
+    run()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        k1 = stack.enter_context(_FirstCall(*_PIPELINE_CALLS["K1"]))
+        clock = stack.enter_context(_KernelClock())
+        stacked, diag = run()
+        torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(label, launches, {"detect_tiles": 1, "warp_combine": 1})
+    _require("jax" not in sys.modules, "jax was imported")
+    min_in, max_rms, t_err = _check_registration(label, diag, mats,
+                                                 UNFUSED_T_ERR_PX)
+    med = check_stack(label, stacked)
+    del stacked, diag
+    torch.cuda.empty_cache()
+    k1_check = _plain_check("K1", k1.call, label)
+    _require(k1_check["max_abs_err"] == 0.0,
+             f"{label}: K1 maxima not the twin's bits")
+    kernel_ms = clock.ms()
+    out = {"main": {
+        "phase": label, "shape": [n, size, size], "fwhm": cfg.fwhm,
+        "radius": r, "routes": routes, "single_run_ms": single_ms,
+        "K1_ms": kernel_ms["detect_tiles"], "K2_ms": kernel_ms["warp_combine"],
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "min_inliers": min_in, "max_rms_px": max_rms,
+        "max_translation_err_px": t_err, "interior_median": med, "sky": SKY,
+        "K1_plain_check": k1_check, "max_offset_px": max_off,
+        "workload_gen_s": gen_s, "card": card}}
+    _print(out["main"])
+    del k1
+
+    # K1 at each radius of the ring route on this stack (threshold: the
+    # lean path's nsigma x the 8 ADU noise)
+    masters, b_t, du_t, f_t = _masters(bias, dark, flat, dev)
+    thr = torch.full((n,), cfg.detect_nsigma * 8.0, device=dev)
+    for fwhm in OVERSAMPLED_K1_FWHM:
+        rk = dt._kernel_params(fwhm)[1]
+        mf = dt.master_densities(b_t, du_t, f_t, fwhm=fwhm)
+        res = check_detect(fr, thr, mf, masters[0], er,
+                           f"oversampled {n}x{size}^2 radius {rk} "
+                           f"(fwhm {fwhm})", card, fwhm=fwhm)
+        _require(res["route"] == "ring", f"{label}: K1 radius {rk} route")
+        # the ring kernel rounds op by op as its twin does
+        _require(res["max_abs_err"] == 0.0,
+                 f"{label}: K1 radius {rk} maxima not the twin's bits")
+        _require(res["live_tiles"] > 0, f"{label}: K1 radius {rk} no tile")
+        out[f"K1 r={rk}"] = res
+        del mf
+    del fr, masters, kw
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = max([k1_check["max_abs_err"]]
+                             + [v["max_abs_err"] for k, v in out.items()
+                                if k.startswith("K1 r=")])
+    out["wall_s"] = time.perf_counter() - t_phase
+    _print({"phase": "oversampled", "wall_s": out["wall_s"], "card": card})
     return out
 
 
@@ -3940,11 +4113,13 @@ def main(argv=None) -> int:
         run_raw(card, dev)
     if "files" in phases:
         run_files(card, dev)
-    reduce = deep = wide = {}
+    reduce = deep = wide = oversampled = {}
     if "reduce" in phases:
         reduce = run_reduce(card, dev)
     if "deep" in phases:
         deep = run_deep(card, dev)
+    if "oversampled" in phases:
+        oversampled = run_oversampled(card, dev)
     if "wide" in phases:
         wide = run_wide(card, dev)
 
@@ -3953,11 +4128,13 @@ def main(argv=None) -> int:
         red = reduce["main"]
         mc_err = multichip["plain_max_abs_err"]
         deep_err = deep["lean"]["max_abs_err"]
+        over = oversampled["main"]["launches"]
         k1 = dict(snap["detect_tiles"],
                   max_abs_err=max(snap["detect_tiles"]["max_abs_err"],
                                   mc_err["K1"], deep_err["K1"],
-                                  deep["K1 r=24"]["max_abs_err"],
-                                  deep["K1 r=48"]["max_abs_err"]))
+                                  oversampled["max_abs_err"],
+                                  *(deep[f"K1 r={r}"]["max_abs_err"]
+                                    for r in (17, 24, 48))))
         k2 = dict(snap["warp_combine"],
                   max_abs_err=max(snap["warp_combine"]["max_abs_err"],
                                   rot["warp_combine"]["max_abs_err"],
@@ -3982,6 +4159,7 @@ def main(argv=None) -> int:
                            "multichip": _mc_launches(multichip,
                                                      "detect_tiles"),
                            "deep": deep_lean["detect_tiles"],
+                           "oversampled": over["detect_tiles"],
                            **{k: v["detect_tiles"]
                               for k, v in bench_lean.items()}},
                           k1),
@@ -3997,6 +4175,7 @@ def main(argv=None) -> int:
                            "multichip": _mc_launches(multichip,
                                                      "warp_combine"),
                            "deep": deep_lean["warp_combine"],
+                           "oversampled": over["warp_combine"],
                            **{k: v["warp_combine"]
                               for k, v in bench_lean.items()}},
                           k2),

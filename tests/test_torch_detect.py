@@ -171,16 +171,49 @@ def test_detect_kernel_layout(n, h, w):
 def test_detect_kernel_routes():
     """K1's route for every radius the TPU kernel reaches (1 to 128: its
     lane filter spans 128 columns and its band 128 binned rows each
-    side): the rolling kernel at 2 and 3, the staged tile at 1 and 4-16,
+    side): the rolling kernel at 2 and 3, the ring kernel at 1 and 4-16,
     the separable route (column pass through device memory) from 17.
     Radii past 128 raise."""
     for r in range(1, 129):
         assert kernels._detect_route(r) == (
             "rolling" if r in (2, 3) else
-            "staged" if r <= 16 else "separable"), r
+            "ring" if r <= 16 else "separable"), r
     for r in (0, 129):
         with pytest.raises(ValueError, match="radii 1 to 128"):
             kernels._detect_route(r)
+
+
+@pytest.mark.parametrize("r", range(1, 129))
+def test_detect_kernel_layout_every_radius(r):
+    """The launch shape of each route (mirrors ``launch_rolling``,
+    ``launch_ring`` and ``launch_separable``) at 100 x 4096^2: blocks of
+    2 tile columns walking strips of 8 tiles on every route; the ring
+    kernel has ceil((r + 1) / 4) halo threads each side and keeps its 2r
+    binned rows beside the 8 shared rows, so 2 of its blocks fit an SM
+    (227 KB) up to radius 16; the rolling and planes kernels keep 8
+    shared rows, the planes kernel's with ceil(r / 4) + 1 groups of 4
+    columns left of the strip, ceil(r / 4) + 4 right of it, and the row
+    taps padded to a multiple of 4."""
+    route = kernels._detect_route(r)
+    n = kernels._detect_chunk(100, 4096, 4096) if route == "separable" \
+        else 100
+    lay = kernels._detect_layout(n, 4096, 4096, r)
+    assert (lay["tile_cols"], lay["strip_tiles"], lay["segments"]) == \
+        (2, 8, 8)
+    q = -(-r // 4)
+    if route == "rolling":
+        assert lay == kernels._detect_layout(n, 4096, 4096)
+    elif route == "ring":
+        halo = -(-(r + 1) // 4)
+        assert 128 + 2 * halo <= lay["threads"] == 160
+        assert lay["smem_bytes"] == 4 * (2 * r + 8) * (4 * (128 + 2 * halo)
+                                                       + 32)
+        assert 2 * lay["smem_bytes"] <= 232448
+    else:
+        assert lay["threads"] == 160
+        assert lay["smem_bytes"] == 4 * (8 * 4 * (128 + 2 * (q + 1) + 3)
+                                         + (2 * r + 4) // 4 * 4)
+        assert lay["smem_bytes"] <= 48 * 1024
 
 
 @pytest.mark.parametrize("n,h,w,chunk", [(16, 4096, 4096, 16),

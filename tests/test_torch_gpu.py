@@ -82,6 +82,78 @@ def _detect_check(fr, thr, fwhm=3.0, **args):
     return got
 
 
+def _offsets_f64(fr, got_idx, fwhm, mf_bc=None, a_plane=None,
+                 exp_ratios=None):
+    """The twin's parabola offsets (y, x) at the tiles' winners
+    ``got_idx``, evaluated in float64 from the same inputs."""
+    from astrophotography_tpu_torch.ops.detect import fast_density
+
+    n, h, w = fr.shape
+    cal_y, cal_x = dt._paroff_calibration(fwhm)
+    er = torch.ones(n, dtype=torch.float64, device=fr.device) \
+        if exp_ratios is None else exp_ratios.double()
+    tyn, txn = h // 64, w // 256
+    out = torch.zeros((2, n, tyn, txn), dtype=torch.float64)
+
+    def par(a, b, c, coef):
+        den = float(a - 2 * b + c)
+        e = min(max(0.5 * float(a - c) / den, -0.5), 0.5) \
+            if abs(den) > 1e-12 else 0.0
+        c1, c3, c5 = coef
+        return min(max(e * (c1 + e * e * (c3 + e * e * c5)), -0.5), 0.5)
+
+    for f in range(n):
+        x = fr[f].double()
+        if a_plane is not None:
+            x = x * a_plane.double()
+        d = fast_density(0.5 * (x[0::2] + x[1::2]), fwhm, row_sigma_scale=0.5,
+                         dtype=torch.float64)
+        if mf_bc is not None:
+            d = d - (mf_bc[0].double() + er[f] * mf_bc[1].double())
+        d = torch.nn.functional.pad(d, (1, 1, 1, 1)).cpu()
+        idx = got_idx[f].cpu()
+        for ty in range(tyn):
+            for tx in range(txn):
+                ly, lx = divmod(int(idx[ty, tx]), 256)
+                y, xx = ty * 32 + ly + 1, tx * 256 + lx + 1
+                out[0, f, ty, tx] = par(d[y - 1, xx], d[y, xx], d[y + 1, xx],
+                                        cal_y)
+                out[1, f, ty, tx] = par(d[y, xx - 1], d[y, xx], d[y, xx + 1],
+                                        cal_x)
+    return out
+
+
+def _k1_rule(fr, thr, fwhm=3.0, **args):
+    """K1 against its twin by chip_smoke._k1_agrees' rule: equal empty
+    tiles, maxima within 1e-2 + 1e-4 |max|, argmax equal except on tiles
+    whose two maxima tie within 1e-3 relative, offsets within 1e-4 bin;
+    one launch.  An offset may differ by more (d) only on a tile where
+    float32 cannot resolve it that finely: the twin's own offset lies at
+    least d / 3 from its float64 value there (a flat peak, whose
+    parabola offset magnifies the densities' rounding).  Returns the
+    kernel's results and the twin's."""
+    before = kernels.launch_counts["detect_tiles"]
+    got = dt.detect_tiles(fr, thr, fwhm=fwhm, **args)
+    assert kernels.launch_counts["detect_tiles"] == before + 1
+    want = dt.detect_tiles_plain(fr, thr, fwhm=fwhm, **args)
+    torch.cuda.synchronize()
+    live = want[0] > -1e37
+    assert torch.equal(got[0] > -1e37, live)
+    err = (got[0] - want[0]).abs()
+    assert bool((err[live] <= 1e-2 + 1e-4 * want[0][live].abs()).all())
+    same = got[1] == want[1]
+    tie = ~same & (err <= 1e-3 * want[0].abs().clamp(min=1.0))
+    assert bool((same | tie).all())
+    off = torch.stack([(got[2] - want[2]).abs(), (got[3] - want[3]).abs()])
+    wide = (off > 1e-4) & same
+    if bool(wide.any()):
+        exact = _offsets_f64(fr, want[1], fwhm, **args).to(off.device)
+        twin_err = (torch.stack([want[2], want[3]]).double() - exact).abs()
+        assert bool((twin_err[wide] >= off[wide].double() / 3).all()), (
+            off[wide], twin_err[wide])
+    return got, want
+
+
 def _detect_masters(n, h, w, dev, fwhm=3.0):
     rng = np.random.default_rng(1)
     bias = torch.from_numpy((250 + rng.normal(0, 2, (h, w)))
@@ -194,33 +266,111 @@ def test_detect_kernel_flat_plateau(cuda):
     _detect_check(fr, torch.full((2,), -1.0, device=cuda))
 
 
-@pytest.mark.parametrize("fwhm,r", [(4.0, 3), (5.0, 4), (8.0, 6)])
-def test_detect_kernel_other_fwhm(cuda, fwhm, r):
-    """Radius 3 takes the rolling kernel's second instance, larger radii
-    the staged-tile route."""
-    assert dt._kernel_params(fwhm)[1] == r <= kernels._DET_MAX_RADIUS
-    n, h, w = 2, 256, 512
+def _fwhm_for(r, monkeypatch):
+    """A FWHM whose filter radius is ``r``: round(0.75 FWHM) for r >= 2
+    (4, 5 and 8 px for radii 3, 4 and 6, as this file used before);
+    radius 1, which no FWHM reaches (the radius is at least 2) but the
+    kernel takes, by patching the radius of one FWHM that nothing else
+    uses (``clear_k1_caches`` drops its cached taps and calibration)."""
+    if r >= 2:
+        return {3: 4.0, 4: 5.0, 6: 8.0}.get(r, r / 0.75)
+    from astrophotography_tpu_torch.ops import detect as tdetect
+
+    fwhm, orig = 1.3, tdetect._kernel_radius
+    for mod in (tdetect, dt):
+        monkeypatch.setattr(mod, "_kernel_radius",
+                            lambda f: 1 if f == fwhm else orig(f))
+    return fwhm
+
+
+@pytest.fixture
+def clear_k1_caches():
+    """K1's cached taps and calibration dropped before and after a test
+    that may patch a FWHM's radius."""
+    dt._kernel_params.cache_clear()
+    dt._paroff_calibration.cache_clear()
+    yield
+    dt._kernel_params.cache_clear()
+    dt._paroff_calibration.cache_clear()
+
+
+@pytest.mark.parametrize("geometry", ["256x512", "448x1536 strips of 3"])
+@pytest.mark.parametrize("masters", [False, True])
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.float32])
+@pytest.mark.parametrize("r", list(range(1, 17)))
+def test_detect_kernel_other_fwhm(cuda, monkeypatch, clear_k1_caches, r,
+                                  dtype, masters, geometry):
+    """Every radius below the separable route's: 2 and 3 take the rolling
+    kernel's instances, 1 and 4-16 the ring kernel's; uint16 and float32
+    frames, with and without masters; on 256 x 512 and on 448 x 1536 with
+    strips of 3 tiles (3 strips of 2 tile columns, 3 segments: odd
+    counts, the last segment one tile).  Held by :func:`_k1_rule`; the
+    three cases the test had before (radii 3, 4 and 6, uint16 with
+    masters on 256 x 512) keep the exact argmax of
+    :func:`_detect_check`.  The ring kernel's maxima and argmax are the
+    twin's bits."""
+    fwhm = _fwhm_for(r, monkeypatch)
+    assert dt._kernel_params(fwhm)[1] == r
+    assert kernels._detect_route(r) == (
+        "rolling" if r in (2, 3) else "ring")
+    h, w = (256, 512) if geometry == "256x512" else (448, 1536)
+    if h == 448:
+        _long_strips(monkeypatch, 3)
+        lay = kernels._detect_layout(2, h, w, r)
+        assert (lay["strip_tiles"], lay["segments"]) == (3, 3)
+        assert (w // 256) // lay["tile_cols"] == 3
+    n = 2
     fr = torch.from_numpy(_starfield(n, h, w, 9)).to(cuda)
-    _detect_check(fr, torch.full((n,), 60.0, device=cuda), fwhm=fwhm,
-                  **_detect_masters(n, h, w, cuda, fwhm=fwhm))
+    if dtype == torch.float32:
+        fr = fr.to(torch.float32)
+    args = _detect_masters(n, h, w, cuda, fwhm=fwhm) if masters else {}
+    thr = torch.full((n,), 60.0, device=cuda)
+    if (h, dtype, masters) == (256, torch.uint16, True) and r in (3, 4, 6):
+        # the cases this test held before the ring route: exact argmax
+        got = _detect_check(fr, thr, fwhm=fwhm, **args)
+        want = dt.detect_tiles_plain(fr, thr, fwhm=fwhm, **args)
+    else:
+        got, want = _k1_rule(fr, thr, fwhm=fwhm, **args)
+    if r not in (2, 3):
+        # the ring kernel rounds op by op as the twin does
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+    assert int((got[0] > -1e37).sum()) >= 4
 
 
+@pytest.mark.parametrize("geometry", ["512x1024", "448x1536 strips of 3"])
+@pytest.mark.parametrize("masters", [False, True])
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.float32])
 @pytest.mark.parametrize("fwhm,r", [(22.7, 17), (32.0, 24), (64.0, 48)])
 @pytest.mark.parametrize("chunked", [False, True])
-def test_detect_kernel_separable_route(cuda, monkeypatch, fwhm, r, chunked):
+def test_detect_kernel_separable_route(cuda, monkeypatch, fwhm, r, chunked,
+                                       dtype, masters, geometry):
     """Radii past 16 (FWHM above ~22 px) take the separable route: the
-    column pass into G and Box planes in device memory, then the staged
-    tile's row pass and peak test on them; with ``chunked`` the planes
-    hold one frame at a time (three chunks)."""
+    column pass into G and Box planes in device memory, then the planes
+    kernel's strip walk with the row pass and peak test on them; with
+    ``chunked`` the planes hold one frame at a time (three chunks).  It
+    rounds op by op as the twin does, so its maxima are the twin's
+    bits."""
     assert dt._kernel_params(fwhm)[1] == r
     assert kernels._detect_route(r) == "separable"
-    n, h, w = 3, 512, 1024
+    n = 3
+    h, w = (512, 1024) if geometry == "512x1024" else (448, 1536)
+    if h == 448:
+        _long_strips(monkeypatch, 3)
+        lay = kernels._detect_layout(kernels._detect_chunk(n, h, w), h, w, r)
+        assert (lay["strip_tiles"], lay["segments"]) == (3, 3)
     if chunked:
         monkeypatch.setattr(kernels, "_DET_SCRATCH_MAX", 8 * (h // 2) * w)
     assert kernels._detect_chunk(n, h, w) == (1 if chunked else n)
     fr = torch.from_numpy(_starfield(n, h, w, 9)).to(cuda)
+    if dtype == torch.float32:
+        fr = fr.to(torch.float32)
+    args = _detect_masters(n, h, w, cuda, fwhm=fwhm) if masters else {}
     got = _detect_check(fr, torch.full((n,), 2.0, device=cuda), fwhm=fwhm,
-                        **_detect_masters(n, h, w, cuda, fwhm=fwhm))
+                        **args)
+    want = dt.detect_tiles_plain(fr, torch.full((n,), 2.0, device=cuda),
+                                 fwhm=fwhm, **args)
+    assert torch.equal(got[0], want[0])
     assert bool((got[0] > -1e37).any())
 
 
