@@ -71,13 +71,21 @@
 //    several).  No scratch: the stack and the mask are read once and
 //    nothing else touches device memory but the image.
 //  * 'select' (past the reach, where one pixel's two columns outgrow a
-//    block's shared memory): one warp per pixel, no copy at all.  Each
-//    rank is the smallest monotone key (float_key) whose count of
-//    samples at or below it exceeds the rank, bisected over the 32 key
-//    bits, every count a pass of the warp over the pixel's column of the
-//    stack (invalid samples count as +3.4e38, as in the twin's sort), so
-//    the ranks are the sort's.  ~66 passes over the stack: the route
-//    trades time for having no limit on N but the card's memory.
+//    block's shared memory; clip_select_kernel): a block of 8 warps owns
+//    32 neighbouring pixels of a row, so every frame row it reads is one
+//    128 B line.  Each rank pair (the median's lo, hi; the MAD's) is an
+//    exact MSB-first radix select over the 32-bit monotone keys, one
+//    8-bit digit a pass with per-pixel histograms in shared memory (the
+//    two ranks share the walk until hi leaves lo's bucket, then hi is the
+//    least key of its bucket, taken with an atomicMin in the next pass;
+//    ops/clip_combine.pair_by_radix states the rule), and the clip pass
+//    stages chunks of frame rows in shared memory for one warp's serial
+//    frame-order sums: 9 coalesced passes over the stack whatever the
+//    data, no limit on N but the card's memory.  H100: 241.5-243.3 ms at
+//    30000 x 480 x 640 masked (46.1 GB; bisecting each rank over the
+//    stack, ~130 uncoalesced passes, took 8642 ms), 17.6x the 13.8 ms
+//    bound: the 9 passes would take 124 ms at 3.35 TB/s, so they move
+//    their bytes at about half the rate.
 // What is left over the bound at N = 24 is the load phase of a
 // thread-per-pixel layout (tools/k1_variants.py: without either network
 // the kernel is only a fifth faster); on 'cols' at 1200 x 256 x 1024
@@ -393,54 +401,264 @@ clip_warp_kernel(const float* __restrict__ stack,
   }
 }
 
-// 'select': one warp per pixel (blocks of (32, 8)), the ranks bisected
-// over the keys of the pixel's column in the stack
-__global__ void __launch_bounds__(256)
+// 'select': a block of SEL_WARPS warps owns SEL_PIX = 32 neighbouring
+// pixels of a row, lane p on pixel p, so each frame row a warp reads is one
+// 128 B line of the stack and 32 B of the mask.  Each rank is an exact
+// MSB-first radix select over the 32-bit monotone keys (float_key), one
+// 8-bit digit a pass: a pass counts, per pixel, the digits of the samples
+// whose key matches the digits found so far (a histogram [256][SEL_PIX] in
+// shared memory, bank = pixel), then one warp per pixel walks the
+// histogram to the bucket that holds the rank.  The median's two ranks
+// lo <= hi = lo or lo + 1 share the walk while they share a bucket; where
+// hi leaves lo's bucket it is the first sample of the next non-empty one,
+// the least key with that prefix, which the next pass takes with an
+// atomicMin beside the counts (a split at the last digit names the key
+// itself).  Invalid samples are key(+3.4e38), as in the twin's sort, so
+// the ranks are the sorted column's elements.  Four passes give the
+// median, four more the MAD's two ranks of |x - med| (invalid +3.4e38),
+// and the clip pass sums the kept samples in frame order: the block stages
+// SEL_CHUNK frame rows at a time in shared memory (two buffers, every warp
+// loading) and lane p of warp 0 sums pixel p's, serially, while the next
+// chunk's loads are in flight.  Nine passes over the stack, every one
+// coalesced, whatever the data; the first also counts the valid samples.
+constexpr int SEL_PIX = 32, SEL_WARPS = 8, SEL_BINS = 256, SEL_CHUNK = 64;
+constexpr int SEL_UNROLL = 8;  // frame rows a thread has in flight
+constexpr unsigned SEL_NO_KEY = 0xffffffffu;
+
+// per-pixel state of one rank pair's select (in shared memory)
+struct SelState {
+  unsigned pa[SEL_PIX];    // lo's digits so far (the whole key at the end)
+  unsigned ra[SEL_PIX];    // lo's rank among the keys with that prefix
+  int off[SEL_PIX];        // hi - lo (0 or 1)
+  unsigned pb[SEL_PIX];    // hi's prefix once it left (its key when done)
+  int bmode[SEL_PIX];      // 0 shares lo's walk, 1 takes a min, 2 done
+  unsigned hmin[SEL_PIX];  // the min of the keys with hi's prefix
+};
+
+struct SelShared {
+  union {
+    unsigned hist[SEL_BINS * SEL_PIX];    // the digit counts, [bin][pixel]
+    float chunk[2][SEL_CHUNK * SEL_PIX];  // the clip pass's frame rows
+  };
+  SelState st;
+  int count[SEL_PIX];
+  float med[SEL_PIX], lo_b[SEL_PIX], hi_b[SEL_PIX];
+};
+
+// One counting pass at digit `level` (0..3) over the pixel's samples:
+// their keys are float_key(valid ? value : BIG), or of the deviations
+// |value - med| (DEV); each thread takes frames wp, wp + SEL_WARPS, ...
+// of pixel `lane`.  The first pass also counts the valid samples.
+template <bool DEV>
+__device__ __forceinline__ void sel_pass(SelShared& S, const float* stack,
+                                         const uint8_t* mask, size_t plane,
+                                         size_t pix, bool in, int n, int level,
+                                         int lane, int wp) {
+  const unsigned pa = S.st.pa[lane];
+  const bool tmin = level > 0 && S.st.bmode[lane] == 1;
+  const unsigned pb = S.st.pb[lane];
+  const float med = DEV ? S.med[lane] : 0.0f;
+  const int up = 32 - 8 * level, dn = 24 - 8 * level;
+  int valid_n = 0;
+  if (in) {
+    for (int f0 = wp; f0 < n; f0 += SEL_WARPS * SEL_UNROLL) {
+      float v[SEL_UNROLL];
+      bool ok[SEL_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SEL_UNROLL; ++u) {
+        const int f = f0 + u * SEL_WARPS;
+        ok[u] = false;
+        v[u] = BIG;
+        if (f < n) {
+          ok[u] = mask == nullptr || mask[f * plane + pix] != 0;
+          v[u] = stack[f * plane + pix];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SEL_UNROLL; ++u) {
+        if (f0 + u * SEL_WARPS >= n) break;
+        valid_n += ok[u];
+        const float x = !ok[u] ? BIG : DEV ? fabsf(sub(v[u], med)) : v[u];
+        const unsigned key = float_key(x);
+        // level 0: every key matches (a shift by 32 is undefined)
+        if (level == 0 || (key >> up) == pa)
+          atomicAdd(&S.hist[((key >> dn) & 0xffu) * SEL_PIX + lane], 1u);
+        if (tmin && (key >> up) == pb) atomicMin(&S.st.hmin[lane], key);
+      }
+    }
+  }
+  if (!DEV && level == 0) atomicAdd(&S.count[lane], valid_n);
+}
+
+// After the pass at digit `level`: warp wp walks the histograms of pixels
+// wp, wp + SEL_WARPS, ... (those inside the image) to the buckets of the
+// ranks, and zeroes them for the next pass.  At level 0 the ranks are the
+// median's, lo = max((count - 1) / 2, 0) and hi = count / 2 (the MAD's are
+// the same two).
+__device__ __forceinline__ void sel_walk(SelShared& S, int level, int x0,
+                                         int w, int lane, int wp) {
+  for (int q = wp; q < SEL_PIX; q += SEL_WARPS) {
+    if (x0 + q >= w) continue;  // warp-uniform
+    unsigned c[8];
+    unsigned sum = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      c[b] = S.hist[(lane * 8 + b) * SEL_PIX + q];
+      S.hist[(lane * 8 + b) * SEL_PIX + q] = 0u;
+      sum += c[b];
+    }
+    unsigned incl = sum;  // inclusive scan over the lanes' groups of 8 bins
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned t = __shfl_up_sync(WARP_ALL, incl, d);
+      if (lane >= d) incl += t;
+    }
+    const unsigned excl = incl - sum;
+    // the bucket of rank r (r below the histogram's total): its digit and
+    // r's rank among its keys
+    auto find = [&](unsigned r, unsigned& digit, unsigned& inner) {
+      const unsigned owner = __ballot_sync(WARP_ALL, excl <= r && r < incl);
+      const int src = __ffs(owner) - 1;
+      unsigned d = 0, k = 0, acc = excl;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        if (acc <= r && r < acc + c[b]) {
+          d = lane * 8 + b;
+          k = r - acc;
+        }
+        acc += c[b];
+      }
+      digit = __shfl_sync(WARP_ALL, d, src);
+      inner = __shfl_sync(WARP_ALL, k, src);
+    };
+    // the pair's state: at level 0 the ranks, from the count
+    unsigned pa = 0u, ra;
+    int off, mode = 0;
+    if (level == 0) {
+      const int cnt = S.count[q];
+      ra = max((cnt - 1) / 2, 0);
+      off = max(cnt / 2, 0) - (int)ra;
+    } else {
+      pa = S.st.pa[q];
+      ra = S.st.ra[q];
+      off = S.st.off[q];
+      mode = S.st.bmode[q];
+    }
+    const bool shared_b = mode == 0 && off == 1;
+    unsigned da, ia, db, ib;
+    find(ra, da, ia);
+    find(shared_b ? ra + 1 : ra, db, ib);
+    if (lane == 0) {
+      const unsigned prefix = pa << 8;
+      if (mode == 1) {  // this pass took hi's least key
+        S.st.pb[q] = S.st.hmin[q];
+        mode = 2;
+      } else if (shared_b && db != da) {
+        // hi is the first key of the next non-empty bucket (ib == 0)
+        S.st.pb[q] = prefix | db;
+        S.st.hmin[q] = SEL_NO_KEY;
+        mode = level < 3 ? 1 : 2;
+      }
+      S.st.pa[q] = prefix | da;
+      S.st.ra[q] = ia;
+      S.st.off[q] = off;
+      S.st.bmode[q] = mode;
+    }
+    __syncwarp();
+  }
+}
+
+// the pair's two keys, as floats, after the four digits
+__device__ __forceinline__ float sel_pair(const SelShared& S, int q) {
+  const float a = float_of_key(S.st.pa[q]);
+  const float b = S.st.bmode[q] == 2 ? float_of_key(S.st.pb[q]) : a;
+  return mul(0.5f, add(a, b));
+}
+
+__global__ void __launch_bounds__(SEL_PIX * SEL_WARPS)
 clip_select_kernel(const float* __restrict__ stack,
                    const uint8_t* __restrict__ mask, float* __restrict__ out,
                    int n, int h, int w, float sigma_lo, float sigma_hi) {
-  const int lane = threadIdx.x;
-  const int x = blockIdx.x * blockDim.y + threadIdx.y;
-  if (x >= w) return;  // no block-wide sync below
+  __shared__ SelShared S;
+  const float QNAN = __int_as_float(0x7fc00000);
+  const int lane = threadIdx.x, wp = threadIdx.y;
+  const int tid = wp * SEL_PIX + lane;
+  const int x0 = blockIdx.x * SEL_PIX, x = x0 + lane;
+  const bool in = x < w;
   const size_t plane = (size_t)h * w;
+  for (int i = tid; i < SEL_BINS * SEL_PIX; i += SEL_PIX * SEL_WARPS)
+    S.hist[i] = 0u;
   for (int y = blockIdx.y; y < h; y += gridDim.y) {
     const size_t pix = (size_t)y * w + x;
-    auto valid = [&](int f) {
-      return mask == nullptr || mask[f * plane + pix] != 0;
-    };
-    int count = 0;
-    for (int f = lane; f < n; f += 32) count += valid(f);
-    count = __reduce_add_sync(WARP_ALL, count);
-    float res = __int_as_float(0x7fc00000);
-    if (count > 0) {
-      // the smallest key t with more than k samples at or below it: the
-      // key of the sorted column's element k
-      auto rank = [&](auto sample, int k) {
-        unsigned lo = 0u, hi = 0xffffffffu;
-        while (lo < hi) {
-          const unsigned mid = lo + ((hi - lo) >> 1);
-          int c = 0;
-          for (int f = lane; f < n; f += 32) c += float_key(sample(f)) <= mid;
-          if (__reduce_add_sync(WARP_ALL, c) > k) hi = mid; else lo = mid + 1;
-        }
-        return float_of_key(lo);
-      };
-      const int lo = max((count - 1) / 2, 0), hi = max(count / 2, 0);
-      auto value = [&](int f) { return valid(f) ? stack[f * plane + pix] : BIG; };
-      const float med = mul(0.5f, add(rank(value, lo), rank(value, hi)));
-      auto dev = [&](int f) {
-        return valid(f) ? fabsf(sub(stack[f * plane + pix], med)) : BIG;
-      };
-      const Clip clip(med, mul(0.5f, add(rank(dev, lo), rank(dev, hi))),
-                      sigma_lo, sigma_hi);
-      float acc = 0.0f;
-      int kept = 0;
-      for (int f = 0; f < n; ++f)
-        clip.take(valid(f) ? stack[f * plane + pix] : __int_as_float(0x7fc00000),
-                  acc, kept);
-      res = Clip::result(acc, kept);
+    if (wp == 0) S.count[lane] = 0;
+    __syncthreads();  // the histograms are zero, the last row's sums done
+    // the median: four digits of the pair lo, hi
+    for (int level = 0; level < 4; ++level) {
+      sel_pass<false>(S, stack, mask, plane, pix, in, n, level, lane, wp);
+      __syncthreads();
+      sel_walk(S, level, x0, w, lane, wp);
+      __syncthreads();
     }
-    if (lane == 0) out[pix] = res;
+    if (wp == 0) S.med[lane] = sel_pair(S, lane);
+    __syncthreads();
+    // the MAD: the same ranks of the deviations
+    for (int level = 0; level < 4; ++level) {
+      sel_pass<true>(S, stack, mask, plane, pix, in, n, level, lane, wp);
+      __syncthreads();
+      sel_walk(S, level, x0, w, lane, wp);
+      __syncthreads();
+    }
+    if (wp == 0) {
+      const Clip clip(S.med[lane], sel_pair(S, lane), sigma_lo, sigma_hi);
+      S.lo_b[lane] = clip.lo;
+      S.hi_b[lane] = clip.hi;
+    }
+    __syncthreads();  // the histograms are free: the clip pass's buffers
+    // the clip pass: chunks of SEL_CHUNK frame rows, thread (lane, wp)
+    // staging rows wp, wp + SEL_WARPS, ... of each (NaN where invalid)
+    Clip clip(0.0f, 0.0f, 0.0f, 0.0f);
+    clip.lo = S.lo_b[lane];
+    clip.hi = S.hi_b[lane];
+    constexpr int PER = SEL_CHUNK / SEL_WARPS;
+    float v[PER];
+    auto fetch = [&](int f0) {
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int f = f0 + wp + u * SEL_WARPS;
+        v[u] = QNAN;
+        if (in && f < n) {
+          const bool ok = mask == nullptr || mask[f * plane + pix] != 0;
+          const float s = stack[f * plane + pix];
+          v[u] = ok ? s : QNAN;
+        }
+      }
+    };
+    auto put = [&](int b) {
+#pragma unroll
+      for (int u = 0; u < PER; ++u)
+        S.chunk[b][(wp + u * SEL_WARPS) * SEL_PIX + lane] = v[u];
+    };
+    float acc = 0.0f;
+    int kept = 0;
+    const int chunks = (n + SEL_CHUNK - 1) / SEL_CHUNK;
+    fetch(0);
+    put(0);
+    __syncthreads();
+    for (int k = 0; k < chunks; ++k) {
+      if (k + 1 < chunks) fetch((k + 1) * SEL_CHUNK);
+      if (wp == 0) {
+        const float* rows = S.chunk[k & 1];
+        const int m = min(SEL_CHUNK, n - k * SEL_CHUNK);
+#pragma unroll 8
+        for (int f = 0; f < m; ++f) clip.take(rows[f * SEL_PIX + lane], acc, kept);
+      }
+      if (k + 1 < chunks) put((k + 1) & 1);
+      __syncthreads();
+    }
+    if (wp == 0 && in) out[pix] = Clip::result(acc, kept);
+    __syncthreads();  // the buffers are the histograms again: zero them
+    for (int i = tid; i < SEL_BINS * SEL_PIX; i += SEL_PIX * SEL_WARPS)
+      S.hist[i] = 0u;
   }
 }
 
@@ -478,9 +696,9 @@ extern "C" int clip_combine_launch(const float* stack, const uint8_t* mask,
     return static_cast<int>(cudaGetLastError());
   }
   if (route == ROUTE_SELECT) {
-    dim3 grid((w + 7) / 8, rows);
-    clip_select_kernel<<<grid, dim3(32, 8), 0, s>>>(stack, mask, out, n, h, w,
-                                                    sigma_lo, sigma_hi);
+    dim3 grid((w + SEL_PIX - 1) / SEL_PIX, rows);
+    clip_select_kernel<<<grid, dim3(SEL_PIX, SEL_WARPS), 0, s>>>(
+        stack, mask, out, n, h, w, sigma_lo, sigma_hi);
     return static_cast<int>(cudaGetLastError());
   }
   if (route == ROUTE_COLS) {

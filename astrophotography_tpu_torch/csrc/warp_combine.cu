@@ -97,22 +97,27 @@
 //    on this card is the mid rows, not the window: a block of up to 32
 //    output rows (8 warps, 4 rows a thread) keeps its (rows + span) x 32
 //    mid rows in shared memory and stages the window one calibrated row
-//    per warp, only the columns that row's taps reach, so the route takes
-//    spans up to 1436 (one row's mid rows and 8 staged rows in 227 KB;
-//    kernels._WARP_WIDE_MAX_SPAN), where the wrapper raises.  Per frame
-//    the block first finds the mid rows its pixels read (the 'exact'
-//    body's taps per pixel, the lowrank body's per column) and filters
-//    only those, each once: ~rows + 15 of them at 5-15 degree rotations,
-//    not rows + span, so the horizontal pass costs ~1.5 rows per output
-//    row, as the TPU kernel's tile of th > span rows amortises it.  Its
-//    samples go to the 'cols' scratch and cols_combine combines them
-//    (any N); the grid stops where that scratch would pass 1 GiB (218
-//    blocks at 1200 frames).  Four barriers a frame and 116 B of spills:
-//    15.3 ms at 24 x 2048^2, span 256, 'exact' (36x its bound, which
-//    counts ~1.02 mid rows per output row; chip_smoke.py's wide phase);
-//    untuned.  Forced below span 193 it gives the 'cols' route's bits
-//    but is 1.15-1.7x its time at most frame counts of the route sweep
-//    (faster only near 600 frames), so 'cols' keeps its own warp phase.
+//    per warp, only the columns that row's taps reach; spans up to 1436
+//    (kernels._WARP_WIDE_MAX_SPAN, 8 rows a block there), where the
+//    wrapper raises.  Per frame the block filters only the mid rows its
+//    pixels read, each once (~rows + 15 at 5-15 degree rotations), the
+//    frame's parameters, snap weights and mid-row range prepared a frame
+//    ahead, two barriers a frame; the 'exact' passes evaluate their 8
+//    tap weights side by side.  Each thread combines its own pixels from
+//    the block's slot of the 'cols' scratch: in registers to 32 frames,
+//    in its column of its warp's shared words to 112, through the 'cols'
+//    combine past that (any N; the grid stops where the scratch would
+//    pass 1 GiB).  3 blocks an SM where their shared memory fits, else 2.
+//    H100, 'exact', span 256: 5.0-5.2 ms at 24 x 2048^2 u16 (the first
+//    design 15.2), 4.7-4.8 ms on the wide pipeline's calibrated f32 stack;
+//    107-112 ms at 100 x 4096^2 (160.5); 99-102 ms at 360 x 2048^2, span
+//    288 (120.9); 11-15x the bound, which counts the exact taps' weights
+//    at the f32 FMA rate while every tap here rounds op by op (~25
+//    instructions, no FMA).  The warp phase is ~87 % of the time at 100
+//    frames, its horizontal pass ~2/3 of it and the vertical ~1/3
+//    (tools/wide_variants.py).  Forced below span 193 it beats 'cols'
+//    from 100 to 600 frames (0.68-0.97x) and loses from 908 on
+//    (chip_smoke.py's route sweep); 'cols' keeps its own warp phase.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1020,20 +1025,46 @@ warp_combine_cols_kernel(const T* __restrict__ frames,
 // a shared block (span past 192 at 32 columns).  A block of WIDE_WARPS
 // warps covers up to WIDE_WARPS x WIDE_PIX output rows by BX columns of
 // one tile (`rows`, kernels._warp_wide_rows); per frame it computes the
-// mid rows its pixels read — mid row k is the horizontal pass of source
-// row vbase + r0 + k, and output row kr reads mid rows kr + s — each
-// once: each warp stages one calibrated window row at a time, only the
-// columns that row's taps reach, into its own row of shared memory and
-// filters it into the mid buffer ((rows + span) x BX floats), in the
-// twin's order; after a barrier the vertical pass reads the buffer.  The
-// samples go to the block's slot of the 'cols' scratch and cols_combine
-// combines them, so any frame count works.
+// mid rows its pixels read (mid row k is the horizontal pass of source
+// row vbase + r0 + k, and output row kr reads mid rows kr + s), each once:
+// each warp stages one calibrated window row at a time, only the columns
+// that row's taps reach, into its own row of shared memory and filters it
+// into the mid rows ((rows + span) x BX floats), in the twin's order;
+// after a block barrier the vertical pass reads them.
+//
+// The frame pipeline.  A frame's parameters reach the block through a
+// ring of WIDE_RING shared slots, loaded by warp 0 two frames ahead; the
+// frame's body weights (the snap taps) and the range of mid rows its
+// pixels read are prepared during the frame before (`prep`), into slots
+// of their own, so two barriers a frame remain: after the horizontal
+// pass, and after the vertical pass and the next frame's preparation.
+// (Two mid buffers, the vertical pass of one frame beside the horizontal
+// pass of the next behind one barrier, with two staged rows a warp, were
+// 17-24 % slower, their 128 registers spilling more: 676 B of spill
+// loads against 236; so were the next row's pixels loaded into registers
+// a row ahead; tools/wide_variants.py.)  The 'exact' body evaluates a pass's 8
+// tap weights side by side (exact_taps).  The lowrank body's column
+// weights are each lane's own (every warp's pixels share the lane's
+// column), so each thread computes them in the vertical pass.
+//
+// The combine.  Each thread combines its own pixels' samples, which it
+// wrote itself into the block's slot of the scratch (in L2): up to
+// WIDE_REG_MAX (32) frames with a register network, no barrier and no
+// shared memory; up to WIDE_COL_MAX (112) sorted in its column of its
+// warp's [n][BX] words of shared memory (the smem route's network and
+// arithmetic), after one barrier, where two blocks still fit an SM;
+// past that the block combines through the 'cols' combine (cols_combine).
+// Any frame count works.
 constexpr int WIDE_WARPS = 8;  // warps of a block: BX x 8 threads
 constexpr int WIDE_PIX = 4;    // output rows per thread: blocks of <= 32 rows
+constexpr int WIDE_RING = 4;   // parameter slots: frames f .. f + 2 in use
+constexpr int WIDE_SLOTS = 2;  // weights and ranges: frames f, f + 1
+constexpr int WIDE_REG_MAX = 32;
+constexpr int WIDE_COL_MAX = 112;  // a warp's [n][BX] columns: 2 blocks an SM
 constexpr int NO_ROW = 0x7fffffff;
 
 struct WideLayout {
-  int wc, mid, stage, vw, vr, sw, par, rng, total;
+  int wc, mid, stage, sw, ring, rng, total;
 };
 
 // Shared memory of a 'wide' block's warp phase, in words
@@ -1043,44 +1074,240 @@ __host__ __device__ inline WideLayout wide_layout(int rows, int span) {
   L.wc = BX + span;                      // window columns
   L.mid = 0;                             // [rows + span][BX] mid rows
   L.stage = L.mid + (rows + span) * BX;  // [WIDE_WARPS][wc] a row per warp
-  L.vw = L.stage + WIDE_WARPS * L.wc;    // [HT][BX] lowrank column weights
-  L.vr = L.vw + HT * BX;                 // [BX][2] lowrank column taps
-  L.sw = L.vr + 2 * BX;                  // [16] snap weights and masks
-  L.par = L.sw + 16;                     // [PSLOT] the frame's parameters
-  L.rng = L.par + PSLOT;                 // [2] first and last mid row read
-  L.total = L.rng + 2;
+  L.sw = L.stage + WIDE_WARPS * L.wc;    // [WIDE_SLOTS][16] snap weights
+  L.ring = L.sw + WIDE_SLOTS * 16;       // [WIDE_RING][PSLOT] parameters
+  L.rng = L.ring + WIDE_RING * PSLOT;    // [WIDE_SLOTS][2] mid rows read
+  L.total = L.rng + WIDE_SLOTS * 2;
   return L;
 }
 
-// The block's words: the warp phase and the combine's tile over the same
-// words (kernels._warp_wide_smem_total mirrors it).
-__host__ __device__ inline int wide_words(int L, int rows, int span) {
+// The block's words: the warp phase and, past WIDE_REG_MAX frames, the
+// 'cols' combine's tile over the same words (kernels._warp_wide_smem_total
+// mirrors it).
+__host__ __device__ inline int wide_words(int n, int L, int rows, int span) {
   const int warp = wide_layout(rows, span).total;
-  const int tile = WIDE_WARPS * cols_stride(L, WIDE_WARPS);
+  const int tile = n <= WIDE_REG_MAX   ? 0
+                   : n <= WIDE_COL_MAX ? WIDE_WARPS * n * BX
+                                       : WIDE_WARPS * cols_stride(L, WIDE_WARPS);
   return warp > tile ? warp : tile;
+}
+
+// compare-exchange of the register networks: min and max order -0 below
+// +0, so they only permute their operands
+__device__ __forceinline__ void cswap_mm(float& a, float& b) {
+  const float lo = fminf(a, b);
+  b = fmaxf(a, b);
+  a = lo;
+}
+
+__host__ __device__ constexpr int pow2_at_least(int m) {
+  return m <= 1 ? 1 : 2 * pow2_at_least((m + 1) / 2);
+}
+
+// ascending bitonic sort of M registers: the network of P = the next power
+// of two, without the comparators that would touch the padding [M, P)
+template <int M>
+__device__ __forceinline__ void sort_regs(float (&v)[M]) {
+  constexpr int P = pow2_at_least(M);
+#pragma unroll
+  for (int k = 2; k <= P; k <<= 1) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      if (!(i & (k >> 1)) && (i ^ (k - 1)) < M) cswap_mm(v[i], v[i ^ (k - 1)]);
+#pragma unroll
+    for (int j = k >> 2; j > 0; j >>= 1)
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        if (!(i & j) && (i ^ j) < M) cswap_mm(v[i], v[i ^ j]);
+  }
+}
+
+// bitonic merge of M registers that fall and then rise (the padding
+// [M, P) standing for a maximum), in log2 P stages
+template <int M>
+__device__ __forceinline__ void merge_regs(float (&v)[M]) {
+  constexpr int P = pow2_at_least(M);
+#pragma unroll
+  for (int j = P >> 1; j > 0; j >>= 1)
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      if (!(i & j) && (i ^ j) < M) cswap_mm(v[i], v[i ^ j]);
+}
+
+// v[k], k < M, by a select tree over the bits of k (no register array is
+// indexed at run time)
+template <int M>
+__device__ __forceinline__ float pick(const float (&v)[M], int k) {
+  constexpr int P = pow2_at_least(M);
+  float r[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) r[i] = v[i < M ? i : M - 1];
+#pragma unroll
+  for (int bit = 1; bit < P; bit <<= 1) {
+    const bool up = (k & bit) != 0;
+#pragma unroll
+    for (int i = 0; i + bit < P; i += 2 * bit) r[i] = up ? r[i + bit] : r[i];
+  }
+  return r[0];
+}
+
+// The combine of one pixel's n <= M samples (col[f * stride], uncovered
+// ones +3.4e38), count of them covered, in registers, in the 'smem'
+// route's arithmetic: the sorted samples' median at ranks lo, hi; the MAD
+// at the same ranks of all n sorted deviations (they fall to the median
+// and rise after it, padding +inf: one bitonic merge sorts them); the
+// clip; the kept run's median, sum or mean, summed in ascending order.
+template <int M>
+__device__ __forceinline__ float combine_regs(const float* col, int stride,
+                                              int n, int count, int combine,
+                                              float sigma_lo, float sigma_hi) {
+  const float INF = __int_as_float(0x7f800000);
+  float v[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) v[i] = i < n ? col[(size_t)i * stride] : INF;
+  sort_regs<M>(v);
+  const int lo = max((count - 1) / 2, 0), hi = max(count / 2, 0);
+  const float med = mul(0.5f, add(pick<M>(v, lo), pick<M>(v, hi)));
+  float d[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) d[i] = i < n ? fabsf(v[i] - med) : INF;
+  merge_regs<M>(d);
+  const float sdev = mul(MAD_HALF, add(pick<M>(d, lo), pick<M>(d, hi)));
+  const float lo_b = sub(med, mul(sigma_lo, sdev));
+  const float hi_b = add(med, mul(sigma_hi, sdev));
+  float acc = 0.0f;
+  int cnt = 0, below = 0;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (i < count) {
+      const float s = v[i];
+      if (s < lo_b) {
+        ++below;
+      } else if (s <= hi_b) {
+        acc = add(acc, s);
+        ++cnt;
+      }
+    }
+  }
+  if (cnt == 0) return 0.0f;
+  if (combine == 1)
+    return mul(0.5f, add(pick<M>(v, below + max((cnt - 1) / 2, 0)),
+                         pick<M>(v, below + cnt / 2)));
+  return combine == 2 ? acc : acc / (float)cnt;
+}
+
+__device__ __noinline__ float combine_small(const float* col, int stride,
+                                            int n, int count, int combine,
+                                            float sigma_lo, float sigma_hi) {
+  if (n <= 8)
+    return combine_regs<8>(col, stride, n, count, combine, sigma_lo, sigma_hi);
+  if (n <= 16)
+    return combine_regs<16>(col, stride, n, count, combine, sigma_lo, sigma_hi);
+  if (n <= 24)
+    return combine_regs<24>(col, stride, n, count, combine, sigma_lo, sigma_hi);
+  return combine_regs<32>(col, stride, n, count, combine, sigma_lo, sigma_hi);
+}
+
+// One 'exact' pass at coordinate t of a pixel at b: the taps s in
+// [tap_lo(t - b, 0), tap_hi(t - b, span - 1)] (at most 8) with weights
+// l3(t - (b + s)), normalised by their sum, in the twin's order; the eight
+// weights are evaluated side by side (eight polynomial chains in flight)
+// and summed in tap order, a zero weight skipped.  at(s) reads tap s.
+template <typename F>
+__device__ __forceinline__ float exact_taps(float t, int b, int span, F at) {
+  const float rel = t - (float)b;
+  const int lo = tap_lo(rel, 0), hi = tap_hi(rel, span - 1);
+  float w[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    w[q] = lo + q <= hi ? l3(t - (float)(b + lo + q)) : 0.0f;
+  float acc = 0.0f, wsum = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if (lo + q <= hi && w[q] != 0.0f) {
+      acc = add(acc, mul(w[q], at(lo + q)));
+      wsum = add(wsum, w[q]);
+    }
+  return fabsf(wsum) > 1e-3f ? acc / wsum : 0.0f;
+}
+
+// a body as a type, for the loops written once per body
+template <int K>
+struct Kind {
+  static constexpr int value = K;
+};
+
+// The combine of one pixel's sorted column col[0, n) (stride st, the
+// uncovered samples +3.4e38 last), count of them covered, in the 'smem'
+// route's arithmetic (warp_block): the median at ranks lo, hi; the MAD by
+// merging the two monotone runs of deviations around it, over all n; the
+// clip; the kept run's median, sum or mean in ascending order.
+__device__ __noinline__ float combine_sorted(const float* col, int st, int n,
+                                             int count, int combine,
+                                             float sigma_lo, float sigma_hi) {
+  const float INF = __int_as_float(0x7f800000);
+  const int lo = max((count - 1) / 2, 0), hi = max(count / 2, 0);
+  const float med = mul(0.5f, add(col[lo * st], col[hi * st]));
+  int p = 0;
+  while (p < n && col[p * st] < med) ++p;
+  int a = p - 1, b = p;
+  float d_lo = 0.0f, d_hi = 0.0f;
+  for (int k = 0; k <= hi; ++k) {
+    const float da = a >= 0 ? fabsf(col[a * st] - med) : INF;
+    const float db = b < n ? fabsf(col[b * st] - med) : INF;
+    float d;
+    if (da <= db) {
+      d = da;
+      --a;
+    } else {
+      d = db;
+      ++b;
+    }
+    if (k == lo) d_lo = d;
+    if (k == hi) d_hi = d;
+  }
+  const float sdev = mul(MAD_HALF, add(d_lo, d_hi));
+  const float lo_b = sub(med, mul(sigma_lo, sdev));
+  const float hi_b = add(med, mul(sigma_hi, sdev));
+  float acc = 0.0f;
+  int cnt = 0, below = 0;
+  for (int k = 0; k < count; ++k) {
+    const float s = col[k * st];
+    if (s < lo_b) {
+      ++below;
+    } else if (s <= hi_b) {
+      acc = add(acc, s);
+      ++cnt;
+    }
+  }
+  if (cnt == 0) return 0.0f;
+  if (combine == 1)
+    return mul(0.5f, add(col[(below + max((cnt - 1) / 2, 0)) * st],
+                         col[(below + max(cnt / 2, 0)) * st]));
+  return combine == 2 ? acc : acc / (float)cnt;
 }
 
 // One output block of the 'wide' route, (bid_x, bid_y) in its grid: the
 // warp phase into `vals`, the block's slot ([n + 2][nt] words, nt = BX x
-// rows), then each pixel's count of covered samples and output offset in
-// the slot's rows n and n + 1, as warp_block leaves them on 'cols'.
+// rows); then, up to WIDE_REG_MAX frames, each thread's combine of its own
+// pixels; past it each pixel's count of covered samples and output offset
+// in the slot's rows n and n + 1, as warp_block leaves them on 'cols'.
 template <typename T>
 __device__ __forceinline__ void wide_block(
     const T* __restrict__ frames, const float* __restrict__ masters,
     const float* __restrict__ ftab, const int* __restrict__ ttab,
     float* __restrict__ out, int n, int h0, int w0, int th, int tw, int n_tj,
-    int n_tiles, int span, int lowrank, int combine, int rows, int sbx,
-    int sby, int bid_x, int bid_y, float* __restrict__ vals) {
+    int n_tiles, int span, int lowrank, int combine, float sigma_lo,
+    float sigma_hi, int rows, int sbx, int sby, int bid_x, int bid_y,
+    float* __restrict__ vals) {
   extern __shared__ float smem[];
+  constexpr int NSLOT = WIDE_SLOTS;
   const WideLayout L = wide_layout(rows, span);
-  float* mid = smem + L.mid;
+  float* midb = smem + L.mid;
   float* stage = smem + L.stage + threadIdx.y * L.wc;
-  float* vw = smem + L.vw;
-  int* vr = reinterpret_cast<int*>(smem + L.vr);
-  float* sw = smem + L.sw;
-  float* P = smem + L.par;
-  const int* Pi = reinterpret_cast<const int*>(P);
-  int* rng = reinterpret_cast<int*>(smem + L.rng);
+  float* swb = smem + L.sw;
+  float* ring = smem + L.ring;
+  int* rngb = reinterpret_cast<int*>(smem + L.rng);
   const unsigned FULL = 0xffffffffu;
   const int nt = BX * rows, last_mid = rows + span - 1;
   const int lane = threadIdx.x, wp = threadIdx.y;
@@ -1100,65 +1327,66 @@ __device__ __forceinline__ void wide_block(
   const int t1hi = min(span, 9);
   const Src<T> S{frames, masters, (size_t)h0 * w0, h0, w0};
 
+  auto slot = [&](int g) { return ring + (g % WIDE_RING) * PSLOT; };
+  auto param_load = [&](int g) -> int {  // warp 0, one word a lane
+    if (lane < 16) return __float_as_int(ftab[16 * (size_t)g + lane]);
+    if (lane < 19) return ttab[3 * ((size_t)g * n_tiles + tile) + lane - 16];
+    return 0;
+  };
+  auto param_store = [&](int g, int pv) {
+    if (lane < 19) reinterpret_cast<int*>(slot(g))[lane] = pv;
+  };
+  // how the block uses frame g: the window contained and, for the general
+  // bodies, the span / lowrank gate (the same for the whole block)
+  auto kind_of = [&](const float* P) {
+    const bool use = reinterpret_cast<const int*>(P)[18] != 0 &&
+                     (P[8] > 0.5f || P[14] > 0.5f);
+    return !use ? OFF : (P[8] > 0.5f ? SNAP : (lowrank ? LOW : EXACT));
+  };
   // this thread's output rows k = wp + m * WIDE_WARPS (block-relative)
   auto live = [&](int k) {
     return col_live && k < rows_here && i * th + r0 + k < h0;
   };
-  auto covered = [&](int k) {
+  auto covered = [&](const float* P, int k) {
     const float y_out = (float)(i * th + r0 + k);
     const float v = affine_rn(P[3], x_out, P[4], y_out, P[5]);
     const float sx = affine_rn(P[0], x_out, P[1], y_out, P[2]);
     return sx >= 2.0f && sx <= (float)w0 - 4.0f && v >= P[9] && v <= P[10];
   };
   // the 'exact' body's vertical coordinate of output row k
-  auto v_local = [&](int k) {
+  auto v_local = [&](const float* P, int k) {
     const float y_out = (float)(i * th + r0 + k);
-    return affine_rn(P[3], x_out, P[4], y_out, P[5]) - (float)Pi[16];
+    return affine_rn(P[3], x_out, P[4], y_out, P[5]) -
+           (float)reinterpret_cast<const int*>(P)[16];
   };
-  int count[WIDE_PIX];
-  float macc[WIDE_PIX];
-#pragma unroll
-  for (int m = 0; m < WIDE_PIX; ++m) {
-    count[m] = 0;
-    macc[m] = 0.0f;
-  }
+  // the lowrank body's vertical taps of this lane's column: [lo, hi] and
+  // the weights of taps lo + q
+  auto low_taps = [&](const float* P, int& lo, int& hi) {
+    const float m11 = P[4];
+    const float bv = add(affine_rn(P[3], x_out, m11, ti, P[5]) -
+                             (float)reinterpret_cast<const int*>(P)[16],
+                         mul(m11 - 1.0f, (float)(th - 1) * 0.5f));
+    lo = tap_lo(bv, 1);
+    hi = tap_hi(bv, span - 1);
+    return bv;
+  };
 
-  for (int f = 0; f < n; ++f) {
-    __syncthreads();  // the previous frame's readers are done
-    if (tid < 16)
-      P[tid] = ftab[16 * (size_t)f + tid];
-    else if (tid < 19)
-      reinterpret_cast<int*>(P)[tid] =
-          ttab[3 * ((size_t)f * n_tiles + tile) + tid - 16];
-    else if (tid == 19) {
-      rng[0] = NO_ROW;
-      rng[1] = -1;
-    }
-    __syncthreads();
-    // the window contained and, for the general bodies, the span / lowrank
-    // gate: the same for the whole block
-    const bool use = Pi[18] != 0 && (P[8] > 0.5f || P[14] > 0.5f);
-    const int kind = !use ? OFF : (P[8] > 0.5f ? SNAP : (lowrank ? LOW : EXACT));
-    if (kind == OFF) {
-#pragma unroll
-      for (int m = 0; m < WIDE_PIX; ++m) {
-        const int k = wp + m * WIDE_WARPS;
-        if (live(k)) vals[(size_t)f * nt + k * BX + lane] = BIG;
-      }
-      continue;
-    }
-    const float vb_f = (float)Pi[16], ub_f = (float)Pi[17];
-    const float gx = P[11], gy = P[12], g0 = P[13];
-
-    // the body's weights, and the mid rows [klo, khi] this thread's pixels
-    // read (the block's range goes to rng)
-    int klo = NO_ROW, khi = -1;
+  // Prepare frame g (its parameters are in the ring): the snap weights
+  // (one warp: the 12 tap weights and two reciprocals, lanes 0-7
+  // horizontal, 8-15 vertical, scaled, and the masks of the non-zero
+  // taps) and the range of mid rows the block's pixels read, into slot
+  // g % NSLOT (its range was reset to empty before).
+  auto prep = [&](int g) {
+    const float* P = slot(g);
+    const int kind = kind_of(P);
+    int* rng = rngb + (g % NSLOT) * 2;
+    if (kind == OFF) return;
     if (kind == SNAP) {
-      if (wp == 0) {
-        // the 12 tap weights and two reciprocals (lanes 0-7 horizontal,
-        // 8-15 vertical), scaled, and the masks of the non-zero taps
+      if (wp == g % WIDE_WARPS) {
+        const int* Pi = reinterpret_cast<const int*>(P);
         const int q0 = lane & 7;
-        const float a = lane < 8 ? (tj + g0) - ub_f : (ti + P[5]) - vb_f;
+        const float a = lane < 8 ? (tj + P[13]) - (float)Pi[17]
+                                 : (ti + P[5]) - (float)Pi[16];
         const float w = q0 < nk ? l3(a - (float)(t_lo + q0)) : 0.0f;
         float ws[6];
 #pragma unroll
@@ -1169,39 +1397,32 @@ __device__ __forceinline__ void wide_block(
           if (q < nk) sum = add(sum, ws[q]);
         const float inv = fabsf(sum) > 1e-3f ? 1.0f / sum : 0.0f;
         const unsigned nz = __ballot_sync(FULL, q0 < nk && w != 0.0f);
+        float* sw = swb + (g % NSLOT) * 16;
         if (q0 < nk && lane < 16) sw[lane] = mul(w, inv);
         if (lane == 0) {
           reinterpret_cast<int*>(sw)[6] = nz & 0xffu;
           reinterpret_cast<int*>(sw)[14] = (nz >> 8) & 0xffu;
+          rng[0] = t_lo;
+          rng[1] = rows_here - 1 + t_hi - 1;
         }
       }
-      klo = t_lo;
-      khi = rows_here - 1 + t_hi - 1;
-    } else if (kind == LOW) {
-      // column weights of the block: tap lo + q of column cx
-      const float m11 = P[4];
-      for (int t = tid; t < HT * BX; t += BX * WIDE_WARPS) {
-        const int q = t / BX, cx = t - q * BX;
-        const float xo = (float)(j * tw + c0 + cx);
-        const float bv = add(affine_rn(P[3], xo, m11, ti, P[5]) - vb_f,
-                             mul(m11 - 1.0f, (float)(th - 1) * 0.5f));
-        const int lo = tap_lo(bv, 1), hi = tap_hi(bv, span - 1);
-        vw[t] = lo + q <= hi ? l3(bv - (float)(lo + q)) : 0.0f;
-        if (q == 0) {
-          vr[2 * cx] = lo;
-          vr[2 * cx + 1] = hi;
-          if (lo <= hi) {
-            klo = min(klo, lo);
-            khi = max(khi, hi + rows_here - 1);
-          }
-        }
+      return;
+    }
+    int klo = NO_ROW, khi = -1;
+    if (kind == LOW) {
+      if (wp != 0) return;
+      int lo, hi;
+      low_taps(P, lo, hi);
+      if (lo <= hi) {  // every column of the block
+        klo = lo;
+        khi = hi + rows_here - 1;
       }
     } else {
 #pragma unroll
       for (int m = 0; m < WIDE_PIX; ++m) {
         const int k = wp + m * WIDE_WARPS;
-        if (live(k) && covered(k)) {
-          const float vrel = v_local(k) - (float)(r0 + k);
+        if (live(k) && covered(P, k)) {
+          const float vrel = v_local(P, k) - (float)(r0 + k);
           const int lo = tap_lo(vrel, 0), hi = tap_hi(vrel, span - 1);
           if (lo <= hi) {
             klo = min(klo, k + lo);
@@ -1216,132 +1437,245 @@ __device__ __forceinline__ void wide_block(
       atomicMin(rng, klo);
       atomicMax(rng + 1, khi);
     }
-    __syncthreads();
+  };
 
-    // horizontal pass: warp wp stages and filters mid rows qlo + wp, ...
-    // (none where no pixel of the block is covered)
+  // The horizontal pass of frame f into the mid rows: warp wp stages
+  // and filters mid rows qlo + wp, qlo + wp + WIDE_WARPS, ...  One loop
+  // per body (K), so each keeps only its own state live.
+  auto horizontal = [&](int f) {
+    const float* P = slot(f);
+    const int kind = kind_of(P);
+    if (kind == OFF) return;
+    const int* Pi = reinterpret_cast<const int*>(P);
+    const int* rng = rngb + (f % NSLOT) * 2;
     const int qlo = rng[0], qhi = min(rng[1], last_mid);
-    for (int k = qlo <= qhi ? qlo + wp : qhi + 1; k <= qhi; k += WIDE_WARPS) {
-      const float vrow = vb_f + (float)(r0 + k);  // source row vbase + r0 + k
-      // the window columns [clo, chi] that this row's taps reach
-      int clo, chi;
-      float u_loc = 0.0f;
-      if (kind == SNAP) {
-        clo = t_lo;
-        chi = BX - 1 + t_hi - 1;
-      } else if (kind == LOW) {
-        clo = 1;
-        chi = BX - 1 + t1hi - 1;
-      } else {
-        u_loc = affine_rn(gx, x_out, gy, vrow, g0) - ub_f;
-        const float urel = u_loc - (float)c;
-        const int lo = tap_lo(urel, 0), hi = tap_hi(urel, span - 1);
-        const bool any = col_live && lo <= hi;
-        clo = __reduce_min_sync(FULL, any ? lane + lo : NO_ROW);
-        chi = __reduce_max_sync(FULL, any ? lane + hi : -1);
-      }
-      const int gy_src = Pi[16] + r0 + k, gx_src = Pi[17] + c0;
-      if (clo <= chi)  // no lane of an 'exact' row may reach a tap
-        for (int col = clo + lane; col <= chi; col += 32)
-          stage[col] = S.load_cal(f, gy_src, gx_src + col, P[6], P[7]);
-      __syncwarp();
-      float mv = 0.0f;
-      if (kind == SNAP) {
-        const int hmask = reinterpret_cast<const int*>(sw)[6];
-#pragma unroll
-        for (int q = 0; q < 6; ++q)
-          if (q < nk && ((hmask >> q) & 1))
-            mv = add(mv, mul(sw[q], stage[lane + t_lo + q]));
-      } else if (kind == LOW) {
-        // the row's weights, 8 lanes, the sum in tap order by shuffles
-        const float bu = add(affine_rn(gx, tj, gy, vrow, g0) - ub_f,
-                             mul(gx - 1.0f, (float)(tw - 1) * 0.5f));
-        const int s2 = 1 + (lane & 7);
-        const float w = s2 >= tap_lo(bu, 1) && s2 <= tap_hi(bu, t1hi - 1)
-                            ? l3(bu - (float)s2)
-                            : 0.0f;
-        float ws[HT];
-#pragma unroll
-        for (int q = 0; q < HT; ++q) ws[q] = __shfl_sync(FULL, w, q);
-        float w0s = 0.0f;
-#pragma unroll
-        for (int q = 0; q < HT; ++q)
-          if (ws[q] != 0.0f) w0s = add(w0s, ws[q]);
-        const float hinv = fabsf(w0s) > 1e-3f ? 1.0f / w0s : 0.0f;
-        float acc0 = 0.0f;
-#pragma unroll
-        for (int q = 0; q < HT; ++q)
-          if (q < t1hi - 1 && ws[q] != 0.0f)
-            acc0 = add(acc0, mul(ws[q], stage[lane + 1 + q]));
-        mv = mul(acc0, hinv);
-      } else if (col_live) {
-        const float urel = u_loc - (float)c;
-        float acc = 0.0f, wsum = 0.0f;
-        for (int s2 = tap_lo(urel, 0); s2 <= tap_hi(urel, span - 1); ++s2) {
-          const float wt = l3(u_loc - (float)(c + s2));
-          if (wt == 0.0f) continue;
-          acc = add(acc, mul(wt, stage[lane + s2]));
-          wsum = add(wsum, wt);
+    // no pixel of the block is covered (qlo is NO_ROW), or no row of
+    // this warp's is read
+    if (qlo > qhi || qhi - qlo < wp) return;
+    float* mid = midb;
+    auto run = [&](auto K) {
+      constexpr int kind = decltype(K)::value;
+      const float vb_f = (float)Pi[16], ub_f = (float)Pi[17];
+      const float gx = P[11], gy = P[12], g0 = P[13];
+      const int gy0 = Pi[16] + r0, gx0 = Pi[17] + c0;
+      // the window columns [clo, chi] that row k's taps reach, and the
+      // 'exact' body's horizontal coordinate
+      auto reach = [&](int k, int& clo, int& chi, float& u_loc) {
+        if constexpr (kind == SNAP) {
+          clo = t_lo;
+          chi = BX - 1 + t_hi - 1;
+        } else if constexpr (kind == LOW) {
+          clo = 1;
+          chi = BX - 1 + t1hi - 1;
+        } else {
+          u_loc = affine_rn(gx, x_out, gy, vb_f + (float)(r0 + k), g0) - ub_f;
+          const float urel = u_loc - (float)c;
+          const int lo = tap_lo(urel, 0), hi = tap_hi(urel, span - 1);
+          const bool any = col_live && lo <= hi;
+          clo = __reduce_min_sync(FULL, any ? lane + lo : NO_ROW);
+          chi = __reduce_max_sync(FULL, any ? lane + hi : -1);
         }
-        mv = fabsf(wsum) > 1e-3f ? acc / wsum : 0.0f;
-      }
-      mid[k * BX + lane] = mv;
-      __syncwarp();  // the stage's readers are done
-    }
-    __syncthreads();
-
-    // vertical pass of this thread's rows
+      };
+      // this lane's mid value of row k, staged at st
+      auto filter = [&](const float* st, int k, float u_loc) {
+        float mv = 0.0f;
+        if constexpr (kind == SNAP) {
+          const float* sw = swb + (f % NSLOT) * 16;
+          const int hmask = reinterpret_cast<const int*>(sw)[6];
 #pragma unroll
+          for (int q = 0; q < 6; ++q)
+            if (q < nk && ((hmask >> q) & 1))
+              mv = add(mv, mul(sw[q], st[lane + t_lo + q]));
+        } else if constexpr (kind == LOW) {
+          // the row's weights, 8 lanes, the sum in tap order by shuffles
+          const float bu =
+              add(affine_rn(gx, tj, gy, vb_f + (float)(r0 + k), g0) - ub_f,
+                  mul(gx - 1.0f, (float)(tw - 1) * 0.5f));
+          const int s2 = 1 + (lane & 7);
+          const float w = s2 >= tap_lo(bu, 1) && s2 <= tap_hi(bu, t1hi - 1)
+                              ? l3(bu - (float)s2)
+                              : 0.0f;
+          float ws[HT];
+#pragma unroll
+          for (int q = 0; q < HT; ++q) ws[q] = __shfl_sync(FULL, w, q);
+          float w0s = 0.0f;
+#pragma unroll
+          for (int q = 0; q < HT; ++q)
+            if (ws[q] != 0.0f) w0s = add(w0s, ws[q]);
+          const float hinv = fabsf(w0s) > 1e-3f ? 1.0f / w0s : 0.0f;
+          float acc0 = 0.0f;
+#pragma unroll
+          for (int q = 0; q < HT; ++q)
+            if (q < t1hi - 1 && ws[q] != 0.0f)
+              acc0 = add(acc0, mul(ws[q], st[lane + 1 + q]));
+          mv = mul(acc0, hinv);
+        } else {
+          if (col_live)
+            mv = exact_taps(u_loc, c, span,
+                            [&](int s2) { return st[lane + s2]; });
+        }
+        return mv;
+      };
+      for (int k = qlo + wp; k <= qhi; k += WIDE_WARPS) {
+        int clo, chi;
+        float u_loc = 0.0f;
+        reach(k, clo, chi, u_loc);
+        // (clo > chi: no lane of an 'exact' row reaches a tap)
+        for (int col = clo + lane; col <= chi; col += 32)
+          stage[col] = S.load_cal(f, gy0 + k, gx0 + col, P[6], P[7]);
+        __syncwarp();
+        mid[k * BX + lane] = filter(stage, k, u_loc);
+        __syncwarp();  // the stage's readers are done
+      }
+    };
+    if (kind == SNAP)
+      run(Kind<SNAP>{});
+    else if (kind == LOW)
+      run(Kind<LOW>{});
+    else
+      run(Kind<EXACT>{});
+  };
+
+  int count[WIDE_PIX];
+  float macc[WIDE_PIX];
+#pragma unroll
+  for (int m = 0; m < WIDE_PIX; ++m) {
+    count[m] = 0;
+    macc[m] = 0.0f;
+  }
+
+  // The vertical pass of frame f from the mid rows: this thread's
+  // samples (+3.4e38 where not covered), in frame order; one loop per body.
+  auto vertical = [&](int f) {
+    const float* P = slot(f);
+    const int kind = kind_of(P);
+    const float* mid = midb;
+    auto run = [&](auto K) {
+      constexpr int kind = decltype(K)::value;
+      float vw[HT];
+      int vlo = 0, vhi = -1;
+      if constexpr (kind == LOW) {
+        const float bv = low_taps(P, vlo, vhi);
+#pragma unroll
+        for (int q = 0; q < HT; ++q)
+          vw[q] = vlo + q <= vhi ? l3(bv - (float)(vlo + q)) : 0.0f;
+      }
+#pragma unroll
+      for (int m = 0; m < WIDE_PIX; ++m) {
+        const int k = wp + m * WIDE_WARPS;
+        if (!live(k)) continue;
+        float* o = vals + (size_t)f * nt + k * BX + lane;
+        if (kind == OFF || !covered(P, k)) {
+          *o = BIG;
+          continue;
+        }
+        float val = 0.0f;
+        if constexpr (kind == SNAP) {
+          const float* sw = swb + (f % NSLOT) * 16;
+          const int vmask = reinterpret_cast<const int*>(sw)[14];
+          float acc = 0.0f;
+#pragma unroll
+          for (int q = 0; q < 6; ++q) {
+            const float mq = mid[min(k + t_lo + q, last_mid) * BX + lane];
+            if (q < nk && ((vmask >> q) & 1)) acc = add(acc, mul(sw[8 + q], mq));
+          }
+          val = acc;
+        } else if constexpr (kind == LOW) {
+          float acc2 = 0.0f, v0s = 0.0f;
+#pragma unroll
+          for (int q = 0; q < HT; ++q) {  // at most 8 taps in [lo, hi]
+            const int s = max(min(vlo + q, vhi), 0);
+            const float mq = mid[min(k + s, last_mid) * BX + lane];
+            if (vlo + q <= vhi && vw[q] != 0.0f) {
+              acc2 = add(acc2, mul(vw[q], mq));
+              v0s = add(v0s, vw[q]);
+            }
+          }
+          val = mul(acc2, fabsf(v0s) > 1e-3f ? 1.0f / v0s : 0.0f);
+        } else if constexpr (kind == EXACT) {
+          val = exact_taps(v_local(P, k), r0 + k, span,
+                           [&](int s) { return mid[(k + s) * BX + lane]; });
+        }
+        ++count[m];  // a covered sample, in frame order
+        macc[m] = add(macc[m], val);
+        *o = val;
+      }
+    };
+    if (kind == SNAP)
+      run(Kind<SNAP>{});
+    else if (kind == LOW)
+      run(Kind<LOW>{});
+    else if (kind == EXACT)
+      run(Kind<EXACT>{});
+    else
+      run(Kind<OFF>{});
+  };
+
+  // the pipeline's prologue: frames 0 and 1's parameters, every range
+  // empty, frame 0 prepared
+  if (wp == 0) {
+    for (int g = 0; g < min(n, 2); ++g) param_store(g, param_load(g));
+    if (lane < 2 * NSLOT) rngb[lane] = lane & 1 ? -1 : NO_ROW;
+  }
+  __syncthreads();
+  prep(0);
+  __syncthreads();
+  for (int f = 0; f < n; ++f) {
+    // warp 0 loads frame f + 2's parameters now and stores them last;
+    // the range slot of frame f + 1 is emptied before it is prepared
+    const bool ahead = wp == 0 && f + 2 < n;
+    const int pv = ahead ? param_load(f + 2) : 0;
+    if (tid == 0 && f + 1 < n) {
+      int* rng = rngb + ((f + 1) % NSLOT) * 2;
+      rng[0] = NO_ROW;
+      rng[1] = -1;
+    }
+    horizontal(f);
+    __syncthreads();  // the mid rows are complete
+    vertical(f);
+    if (f + 1 < n) prep(f + 1);
+    if (ahead) param_store(f + 2, pv);
+    __syncthreads();  // the mid rows are read; frame f + 1 is prepared
+  }
+
+  if (n <= WIDE_COL_MAX) {
+    // each thread's own pixels, from the samples it wrote: in registers,
+    // or past WIDE_REG_MAX frames sorted in the thread's column of its
+    // warp's [n][BX] words of shared memory, once every warp is done
+    // with the mid rows
+    float* col = smem + (size_t)wp * n * BX + lane;
+    if (n > WIDE_REG_MAX) __syncthreads();
+    // a rolled loop (one copy of the combines); count and macc are read
+    // by a select, so they stay in registers
+#pragma unroll 1
     for (int m = 0; m < WIDE_PIX; ++m) {
       const int k = wp + m * WIDE_WARPS;
       if (!live(k)) continue;
-      float* o = vals + (size_t)f * nt + k * BX + lane;
-      if (!covered(k)) {
-        *o = BIG;
-        continue;
-      }
-      float val;
-      if (kind == SNAP) {
-        const int vmask = reinterpret_cast<const int*>(sw)[14];
-        float acc = 0.0f;
+      int cm = count[0];
+      float am = macc[0];
 #pragma unroll
-        for (int q = 0; q < 6; ++q) {
-          const float mq = mid[min(k + t_lo + q, last_mid) * BX + lane];
-          if (q < nk && ((vmask >> q) & 1)) acc = add(acc, mul(sw[8 + q], mq));
+      for (int q = 1; q < WIDE_PIX; ++q)
+        if (q == m) {
+          cm = count[q];
+          am = macc[q];
         }
-        val = acc;
-      } else if (kind == LOW) {
-        const int lo = vr[2 * lane], hi = vr[2 * lane + 1];
-        float acc2 = 0.0f, v0s = 0.0f;
-#pragma unroll
-        for (int q = 0; q < HT; ++q) {  // at most 8 taps in [lo, hi]
-          const int s = max(min(lo + q, hi), 0);
-          const float wvt = vw[q * BX + lane];
-          const float mq = mid[min(k + s, last_mid) * BX + lane];
-          if (lo + q <= hi && wvt != 0.0f) {
-            acc2 = add(acc2, mul(wvt, mq));
-            v0s = add(v0s, wvt);
-          }
-        }
-        val = mul(acc2, fabsf(v0s) > 1e-3f ? 1.0f / v0s : 0.0f);
+      const int off = (i * th + r0 + k) * w0 + x;
+      const float* own = vals + k * BX + lane;
+      if (cm == 0) {
+        out[off] = 0.0f;
+      } else if (combine == 3) {
+        out[off] = am / (float)cm;
+      } else if (n <= WIDE_REG_MAX) {
+        out[off] = combine_small(own, nt, n, cm, combine, sigma_lo, sigma_hi);
       } else {
-        const int rr = r0 + k;
-        const float v_loc = v_local(k), vrel = v_loc - (float)rr;
-        float acc2 = 0.0f, wsum2 = 0.0f;
-        for (int s = tap_lo(vrel, 0); s <= tap_hi(vrel, span - 1); ++s) {
-          const float wvt = l3(v_loc - (float)(rr + s));
-          if (wvt == 0.0f) continue;
-          acc2 = add(acc2, mul(wvt, mid[(k + s) * BX + lane]));
-          wsum2 = add(wsum2, wvt);
-        }
-        val = fabsf(wsum2) > 1e-3f ? acc2 / wsum2 : 0.0f;
+#pragma unroll 8
+        for (int f = 0; f < n; ++f) col[f * BX] = own[(size_t)f * nt];
+        sort_column(col, n, BX);  // uncovered +3.4e38 sort last
+        out[off] = combine_sorted(col, BX, n, cm, combine, sigma_lo, sigma_hi);
       }
-      ++count[m];  // a covered sample, in frame order
-      macc[m] = add(macc[m], val);
-      *o = val;
     }
+    return;
   }
-
   int* pc = reinterpret_cast<int*>(vals + (size_t)n * nt);
 #pragma unroll
   for (int m = 0; m < WIDE_PIX; ++m) {
@@ -1366,8 +1700,8 @@ __device__ __forceinline__ void wide_block(
 // blocks the card keeps resident (no more than a 1 GiB scratch holds),
 // each walking the output blocks with the grid's stride, its samples in
 // its own slot of `scratch` ((n + 2) x nt words, nt = BX x rows).
-template <typename T>
-__global__ void __launch_bounds__(BX * WIDE_WARPS, 2)
+template <typename T, int MINB>
+__global__ void __launch_bounds__(BX * WIDE_WARPS, MINB)
 warp_combine_wide_kernel(const T* __restrict__ frames,
                          const float* __restrict__ masters,
                          const float* __restrict__ ftab,
@@ -1381,10 +1715,10 @@ warp_combine_wide_kernel(const T* __restrict__ frames,
   float* slot = scratch + (size_t)blockIdx.x * (n + 2) * nt;
   for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
     if (b != (int)blockIdx.x) __syncthreads();
-    wide_block<T>(frames, masters, ftab, ttab, out, n, h0, w0, th, tw, n_tj,
-                  n_tiles, span, lowrank, combine, rows, sbx, sby, b % nbx,
-                  b / nbx, slot);
-    if (combine != 3) {
+    wide_block<T>(frames, masters, ftab, ttab, out, n, h0, w0, th, tw,
+                        n_tj, n_tiles, span, lowrank, combine, sigma_lo,
+                        sigma_hi, rows, sbx, sby, b % nbx, b / nbx, slot);
+    if (n > WIDE_COL_MAX && combine != 3) {
       __syncthreads();
       cols_combine(slot, out, n, WIDE_WARPS, nt, run, combine, sigma_lo,
                    sigma_hi);
@@ -1457,6 +1791,41 @@ int cols_blocks(int n, int span, int by, int run) {
   return sms * per_sm;
 }
 
+// The blocks an SM must keep of the 'wide' kernel: 3 where three blocks'
+// shared memory fits an SM's 228 KB (1 KB of each reserved; 85 registers
+// a thread, some spilled), else 2 (128 registers).  Three were 13-14 %
+// faster where they fit, 24 % slower where shared memory held the SM to
+// two anyway (tools/wide_variants.py).  kernels._warp_wide_min_blocks
+// mirrors it.
+__host__ __device__ inline int wide_min_blocks(int n, int L, int rows,
+                                               int span) {
+  return 3 * (4 * wide_words(n, L, rows, span) + 1024) <= 233472 ? 3 : 2;
+}
+
+template <typename T, int MINB>
+cudaError_t launch_wide_b(const void* frames, const float* masters,
+                          const float* ftab, const int* ttab, float* out,
+                          int n, int h0, int w0, int th, int tw, int n_ti,
+                          int n_tj, int span, int lowrank, int combine,
+                          float sigma_lo, float sigma_hi, int rows, int run,
+                          float* scratch, int grid_blocks,
+                          cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)wide_words(n, min(n, run), rows, span);
+  cudaError_t err = cudaFuncSetAttribute(
+      warp_combine_wide_kernel<T, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int sbx = (tw + BX - 1) / BX, sby = (th + rows - 1) / rows;
+  const int nbx = n_tj * sbx, nblocks = nbx * n_ti * sby;
+  dim3 block(BX, WIDE_WARPS);
+  warp_combine_wide_kernel<T, MINB>
+      <<<min(grid_blocks, nblocks), block, smem, stream>>>(
+          static_cast<const T*>(frames), masters, ftab, ttab, out, n, h0, w0,
+          th, tw, n_tj, n_ti * n_tj, span, lowrank, combine, sigma_lo,
+          sigma_hi, rows, sbx, sby, nbx, nblocks, run, scratch);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_wide(const void* frames, const float* masters,
                         const float* ftab, const int* ttab, float* out, int n,
@@ -1467,37 +1836,38 @@ cudaError_t launch_wide(const void* frames, const float* masters,
   if (rows < 1 || rows > WIDE_WARPS * WIDE_PIX || scratch == nullptr ||
       grid_blocks < 1 || run < 32)
     return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)wide_words(min(n, run), rows, span);
-  cudaError_t err = cudaFuncSetAttribute(
-      warp_combine_wide_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int sbx = (tw + BX - 1) / BX, sby = (th + rows - 1) / rows;
-  const int nbx = n_tj * sbx, nblocks = nbx * n_ti * sby;
-  dim3 block(BX, WIDE_WARPS);
-  warp_combine_wide_kernel<T>
-      <<<min(grid_blocks, nblocks), block, smem, stream>>>(
-          static_cast<const T*>(frames), masters, ftab, ttab, out, n, h0, w0,
-          th, tw, n_tj, n_ti * n_tj, span, lowrank, combine, sigma_lo,
-          sigma_hi, rows, sbx, sby, nbx, nblocks, run, scratch);
-  return cudaGetLastError();
+  auto go = [&](auto launch) {
+    return launch(frames, masters, ftab, ttab, out, n, h0, w0, th, tw, n_ti,
+                  n_tj, span, lowrank, combine, sigma_lo, sigma_hi, rows, run,
+                  scratch, grid_blocks, stream);
+  };
+  return wide_min_blocks(n, min(n, run), rows, span) == 3
+             ? go(launch_wide_b<T, 3>)
+             : go(launch_wide_b<T, 2>);
+}
+
+template <typename T, int MINB>
+int wide_blocks_b(int n, int span, int rows, int run) {
+  int dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = sizeof(float) * (size_t)wide_words(n, min(n, run), rows, span);
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(warp_combine_wide_kernel<T, MINB>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, warp_combine_wide_kernel<T, MINB>, BX * WIDE_WARPS,
+          smem) != cudaSuccess)
+    return -1;
+  return sms * per_sm;
 }
 
 template <typename T>
 int wide_blocks(int n, int span, int rows, int run) {
-  int dev = 0, sms = 0, per_sm = 0;
-  const size_t smem = sizeof(float) * (size_t)wide_words(min(n, run), rows, span);
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaFuncSetAttribute(warp_combine_wide_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, warp_combine_wide_kernel<T>, BX * WIDE_WARPS, smem) !=
-          cudaSuccess)
-    return -1;
-  return sms * per_sm;
+  return wide_min_blocks(n, min(n, run), rows, span) == 3
+             ? wide_blocks_b<T, 3>(n, span, rows, run)
+             : wide_blocks_b<T, 2>(n, span, rows, run);
 }
 
 }  // namespace

@@ -7,6 +7,8 @@ entry point takes its device from the tensors it is given.
 
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import Optional
 
 import numpy as np
@@ -50,6 +52,53 @@ def on_device(x, device: torch.device,
     if dtype is not None:
         t = t.to(dtype)
     return t.to(device)
+
+
+def _from_numpy(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, in the type ``jnp.asarray``
+    gives it (float64 becomes float32); uint16 crosses as an int16 view,
+    for the reason :func:`to_float32` gives."""
+    arr = native_contiguous(x)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    if arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16)).to(device) \
+            .view(torch.uint16)
+    return torch.from_numpy(arr).to(device)
+
+
+def numpy_inputs(*names: str):
+    """Decorator of an op whose arguments ``names`` may be numpy arrays,
+    as the JAX package's ops take them.  Each is converted once, at the
+    op's entry, to a tensor on the device the call's tensors are on (all
+    of them must agree); where the call gives no tensor, on the op's
+    ``device`` argument if it has one, else on ``resolve_device(None)``:
+    the card, and without one the ``RuntimeError`` that names it.  A
+    numpy input is never put on the CPU unless the caller's tensors or
+    ``device`` are there."""
+    def wrap(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def op(*args, **kwargs):
+            if not any(isinstance(v, np.ndarray)
+                       for v in (*args, *kwargs.values())):
+                return fn(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            given = bound.arguments
+            devices = {v.device for v in given.values()
+                       if isinstance(v, torch.Tensor)}
+            if len(devices) > 1:
+                raise ValueError(f"{fn.__name__}: tensors on "
+                                 f"{sorted(map(str, devices))}")
+            dev = devices.pop() if devices else resolve_device(
+                given.get("device"))
+            for k in names:
+                if isinstance(given.get(k), np.ndarray):
+                    given[k] = _from_numpy(given[k], dev)
+            return fn(*bound.args, **bound.kwargs)
+        return op
+    return wrap
 
 
 def to_uint16(x: torch.Tensor) -> torch.Tensor:

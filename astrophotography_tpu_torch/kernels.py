@@ -324,10 +324,19 @@ _WARP_SMEM_ROWS, _WARP_COLS_FRAMES = 8, 150
 #: K2's 'wide' route, for windows that leave no room for one row of a
 #: shared block (span past 192): blocks of 8 warps and up to 32 output
 #: rows of 32 columns (4 rows a thread), whose mid rows ((rows + span) x
-#: 32 floats) are what shared memory must hold; its scratch is capped at
-#: 1 GiB (218 blocks of 32 rows at 1200 frames)
+#: 32 floats) are what shared memory must
+#: hold; each thread combines its own pixels, in registers up to
+#: _WARP_WIDE_REG_FRAMES frames, in a column of its warp's [n][32] words
+#: of shared memory up to _WARP_WIDE_COL_FRAMES; past that the block
+#: combines through the 'cols' combine; its scratch is capped at 1 GiB
+#: (218 blocks of 32 rows at 1200 frames)
 _WARP_WIDE_WARPS, _WARP_WIDE_ROWS = 8, 32
+_WARP_WIDE_REG_FRAMES, _WARP_WIDE_COL_FRAMES = 32, 112
 _WARP_WIDE_SCRATCH_MAX = 1 << 30
+#: the widest window K2 takes, the 'wide' route's reach since it came in
+#: (one output row's mid rows and the 8 warps' window rows filled its
+#: first layout's 227 KB there); the present layout holds 8 rows at it
+_WARP_WIDE_MAX_SPAN = 1436
 
 
 #: (kernel, route, device index, *arguments) -> blocks of a persistent
@@ -381,11 +390,12 @@ def _warp_smem_rows(n: int, span: int) -> int:
 def _warp_wide_smem_bytes(rows: int, span: int) -> int:
     """Shared memory of one K2 'wide' block's warp phase of ``rows``
     output rows (mirrors ``wide_layout`` in csrc/warp_combine.cu): the mid
-    rows, a window row per warp, the lowrank column weights and taps, the
-    snap weights, the frame's parameters and the block's mid-row range."""
+    rows, a window row per warp, then for the two frames prepared at once
+    the snap weights and the range of mid rows read, and the ring of 4
+    frames' parameters."""
     bx = _WARP_BX
-    words = ((rows + span) * bx + _WARP_WIDE_WARPS * (bx + span) + 8 * bx
-             + 2 * bx + 16 + 20 + 2)
+    words = ((rows + span) * bx + _WARP_WIDE_WARPS * (bx + span) + 2 * 16
+             + 4 * 20 + 2 * 2)
     return 4 * words
 
 
@@ -394,16 +404,15 @@ def _warp_wide_rows(span: int) -> int:
     :data:`_WARP_WIDE_ROWS` (32), 16, 8, 4, 2, 1 whose warp phase fits
     shared memory; 0 past the route's reach
     (:data:`_WARP_WIDE_MAX_SPAN`)."""
+    if span > _WARP_WIDE_MAX_SPAN:
+        return 0
     rows = _WARP_WIDE_ROWS
     while rows and _warp_wide_smem_bytes(rows, span) > _SMEM_MAX:
         rows //= 2
     return rows
 
 
-#: the widest window K2 takes: one output row's mid rows, the 8 warps'
-#: window rows and the rest of a 'wide' block in 227 KB (1436)
-_WARP_WIDE_MAX_SPAN = max(s for s in range(1, 4096)
-                          if _warp_wide_rows(s) > 0)
+assert _warp_wide_rows(_WARP_WIDE_MAX_SPAN) > 0
 
 
 def _warp_route(n: int, span: int) -> str:
@@ -436,8 +445,8 @@ def _warp_block_rows(n: int, span: int, route: Optional[str] = None) -> int:
         rows = _warp_wide_rows(span)
         if rows == 0:
             raise ValueError(
-                f"warp_combine kernel: a window of span {span} needs more "
-                f"than {_SMEM_MAX} B of shared memory per block for one "
+                f"warp_combine kernel: a window of span {span} is past the "
+                f"reach of {_SMEM_MAX} B of shared memory per block for one "
                 f"output row's mid rows; the 'wide' route takes spans up "
                 f"to {_WARP_WIDE_MAX_SPAN}")
         return rows
@@ -481,10 +490,27 @@ def _warp_scratch_bytes(n: int, rows: int, blocks: int) -> int:
 
 def _warp_wide_smem_total(n: int, rows: int, span: int, run: int) -> int:
     """Shared memory of one K2 'wide' block (mirrors ``wide_words``): its
-    warp phase and the combine's tile of 8 columns of min(n, run) samples
-    over the same words."""
-    tile = _WARP_WIDE_WARPS * _cols_stride(min(n, run), _WARP_WIDE_WARPS)
-    return 4 * max(_warp_wide_smem_bytes(rows, span) // 4, tile)
+    warp phase and, over the same words, the combine's: nothing up to
+    :data:`_WARP_WIDE_REG_FRAMES` frames (registers), each warp's n x 32
+    columns up to :data:`_WARP_WIDE_COL_FRAMES`, else the 'cols' tile of
+    8 columns of min(n, run) samples."""
+    warp = _warp_wide_smem_bytes(rows, span)
+    if n <= _WARP_WIDE_REG_FRAMES:
+        tile = 0
+    elif n <= _WARP_WIDE_COL_FRAMES:
+        tile = _WARP_WIDE_WARPS * n * _WARP_BX
+    else:
+        tile = _WARP_WIDE_WARPS * _cols_stride(min(n, run), _WARP_WIDE_WARPS)
+    return 4 * max(warp // 4, tile)
+
+
+def _warp_wide_min_blocks(n: int, rows: int, span: int, run: int) -> int:
+    """The blocks an SM must keep of K2's 'wide' kernel (mirrors
+    ``wide_min_blocks``): 3 where three blocks' shared memory fits an SM's
+    233,472 bytes (1 KB of each reserved), 85 registers a thread; else 2,
+    128 registers."""
+    total = _warp_wide_smem_total(n, rows, span, run)
+    return 3 if 3 * (total + 1024) <= 233472 else 2
 
 
 def _warp_wide_grid(n: int, rows: int, blocks: int, resident: int) -> int:
@@ -547,7 +573,8 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
 #: frames); from _CLIP_COLS_FRAMES a block of 8, 4, 2 or 1 warps keeps
 #: its pixels' columns in shared memory and each warp sorts one ('cols');
 #: past the reach, where one pixel's two columns outgrow a block, each
-#: rank is bisected over the stack ('select') (csrc/clip_combine.cu)
+#: rank pair is a radix select over the stack ('select')
+#: (csrc/clip_combine.cu)
 _CLIP_REG_FRAMES = (8, 16, 24, 32)
 _CLIP_COLS_WARPS = (8, 4, 2, 1)
 _CLIP_SMEM_THREADS = 128
@@ -580,6 +607,35 @@ def _clip_cols_warps(n: int) -> int:
 #: warp keeps in a block's shared memory (29024)
 _CLIP_COLS_REACH = max(n for n in range(32, 32768, 32)
                        if _clip_cols_smem_bytes(n, 1) <= _SMEM_MAX)
+
+
+#: K3's 'select' route (``clip_select_kernel``): a block of 8 warps owns
+#: 32 neighbouring pixels of a row (a 128 B line of each frame row); per
+#: pixel a histogram of 256 digit counts; four 8-bit digits for the
+#: median's pair of ranks, four for the MAD's, one clip pass (9 passes
+#: over the stack whatever the data), the clip pass staging chunks of 64
+#: frame rows in two buffers over the histograms' words
+_CLIP_SELECT_PIXELS, _CLIP_SELECT_WARPS = 32, 8
+_CLIP_SELECT_BINS, _CLIP_SELECT_CHUNK = 256, 64
+_CLIP_SELECT_PASSES = 2 * 4 + 1
+
+
+def _clip_select_smem_bytes() -> int:
+    """Shared memory of one K3 'select' block (mirrors ``SelShared``): the
+    histograms [256][32] (the clip pass's two chunks of 64 x 32 floats
+    over the same words), the six words of a rank pair's state per pixel,
+    and the count, median and two clip bounds per pixel."""
+    p = _CLIP_SELECT_PIXELS
+    hist = _CLIP_SELECT_BINS * p
+    chunks = 2 * _CLIP_SELECT_CHUNK * p
+    return 4 * (max(hist, chunks) + 6 * p + 4 * p)
+
+
+def _clip_select_grid(h: int, w: int):
+    """The 'select' route's grid (mirrors ``clip_combine_launch``): a
+    block per 32 columns, a row of blocks per image row up to 65535 (the
+    blocks walk the rest)."""
+    return -(-w // _CLIP_SELECT_PIXELS), min(h, 65535)
 
 
 def _clip_route(n: int) -> str:

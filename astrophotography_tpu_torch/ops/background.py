@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .cosmic import _median_filter
 from .stats import masked_median, sigma_clip_mask, sigma_clipped_stats
 
@@ -79,6 +79,7 @@ def _window_any(mask: torch.Tensor, size: int) -> torch.Tensor:
     return x[0, 0] > 0.5
 
 
+@numpy_inputs("data")
 def source_mask(
     data: torch.Tensor,
     nsigma: float = 3.0,
@@ -109,6 +110,7 @@ def _boxes(x: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
         .reshape(ny, nx, by * bx)
 
 
+@numpy_inputs("data", "mask")
 def background2d(
     data: torch.Tensor,
     mask: Optional[torch.Tensor] = None,

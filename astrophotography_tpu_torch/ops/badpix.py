@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device, to_float32
+from ..device import numpy_inputs, resolve_device, to_float32
 from .stats import (masked_mean_std, masked_median, sigma_clip_mask,
                     sigma_clipped_stats)
 
@@ -42,6 +42,7 @@ def _neighbor_stack(img: torch.Tensor, deltapix: int) -> torch.Tensor:
                         for dx in range(2 * p + 1)], dim=0)
 
 
+@numpy_inputs("img", "badmask")
 def fix_bad_pixels(
     img: torch.Tensor,
     badmask: torch.Tensor,
@@ -65,6 +66,7 @@ def fix_bad_pixels(
     return fixed, bad & ~can_fix
 
 
+@numpy_inputs("data")
 def sigmaclip_badpix_mask(data: torch.Tensor, sigma: float = 4.0
                           ) -> torch.Tensor:
     """Bad-pixel mask from the sigma-clipped stats of a master dark or
@@ -89,6 +91,7 @@ def _sliding_windows_1d(vec: torch.Tensor, window: int
     return vec[idx.clamp(0, n - 1)], in_range
 
 
+@numpy_inputs("img")
 def auto_badcols(
     img: torch.Tensor,
     window: int = 11,

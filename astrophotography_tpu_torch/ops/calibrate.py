@@ -17,10 +17,11 @@ from typing import Optional
 
 import torch
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .badpix import fix_bad_pixels
 
 
+@numpy_inputs("img", "bias", "dark", "flat", "badpix_mask")
 def calibrate_frame(
     img: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
@@ -50,6 +51,7 @@ def calibrate_frame(
     return out
 
 
+@numpy_inputs("imgs", "bias", "dark", "flat", "exp_ratios", "badpix_mask")
 def calibrate_batch(
     imgs: torch.Tensor,
     bias: Optional[torch.Tensor] = None,

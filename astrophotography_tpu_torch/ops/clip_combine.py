@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..device import numpy_inputs
 from .stats import _MAD_TO_STD
 
 #: sentinel of an invalid sample in the sorts
@@ -48,6 +49,7 @@ def _validate(stack: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
                          f"{tuple(stack.shape)}, got {tuple(mask.shape)}")
 
 
+@numpy_inputs("stack", "mask")
 def clip_combine_plain(stack: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
                        sigma_lower: float = 5.0,
@@ -183,11 +185,11 @@ def float_of_keys(t: torch.Tensor) -> torch.Tensor:
 
 def rank_by_bisection(values: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """The value at rank ``k`` (...) of each column of ``values`` (N,
-    ...) without a sort, as K3's 'select' route and K2's runs past the
-    'cols' reach take it; a plain statement of the rule for the tests,
-    used by no path.  It is the smallest key t whose count of keys at or
-    below it exceeds k, bisected over the 32 key bits: the key of the
-    sorted column's element k, so the sort's value (a zero as +0)."""
+    ...) without a sort, as K2's runs past the 'cols' reach take it; a
+    plain statement of the rule for the tests, used by no path.  It is
+    the smallest key t whose count of keys at or below it exceeds k,
+    bisected over the 32 key bits: the key of the sorted column's
+    element k, so the sort's value (a zero as +0)."""
     keys = float_keys(values)
     lo = torch.zeros_like(k, dtype=torch.int64)
     hi = torch.full_like(lo, 0xFFFFFFFF)
@@ -198,6 +200,56 @@ def rank_by_bisection(values: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return float_of_keys(lo)
 
 
+def pair_by_radix(values: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor):
+    """The values at ranks ``lo`` and ``hi`` (...), hi = lo or lo + 1, of
+    each column of ``values`` (N, ...) without a sort, as K3's 'select'
+    route takes them; a plain statement of the rule for the tests, used by
+    no path.  An MSB-first radix select over the monotone keys
+    (:func:`float_keys`), one 8-bit digit a pass: count the digits of the
+    keys that match the digits found so far, walk the counts to the
+    bucket of lo's rank.  hi shares lo's walk while it shares lo's bucket;
+    where it leaves it, it is the first key of the next non-empty bucket,
+    so the next pass takes it as the least key with that prefix (a split
+    at the last digit is the key itself).  Returns the two values (a zero
+    as +0)."""
+    keys = float_keys(values)
+    n = keys.shape[0]
+    keys = keys.reshape(n, -1)
+    ra = lo.reshape(-1).to(torch.int64).clone()
+    off = (hi.reshape(-1) - lo.reshape(-1)).to(torch.int64)
+    pa = torch.zeros_like(ra)
+    pb = torch.zeros_like(ra)
+    mode = torch.zeros_like(ra)          # 0 shared, 1 takes a min, 2 done
+    for level in range(4):
+        up, dn = 32 - 8 * level, 24 - 8 * level
+        match = torch.ones_like(keys, dtype=torch.bool) if level == 0 \
+            else (keys >> up) == pa[None]
+        digit = (keys >> dn) & 0xFF
+        hist = torch.zeros((256, keys.shape[1]), dtype=torch.int64,
+                           device=keys.device)
+        hist.scatter_add_(0, digit, match.to(torch.int64))
+        if level > 0:
+            in_b = (keys >> up) == pb[None]
+            hmin = torch.where(in_b, keys, 0xFFFFFFFF).min(dim=0).values
+            pb = torch.where(mode == 1, hmin, pb)
+        cum = hist.cumsum(0)
+        shared = (mode == 0) & (off == 1)
+        da = (cum <= ra[None]).sum(0)
+        db = (cum <= torch.where(shared, ra + 1, ra)[None]).sum(0)
+        split = shared & (db != da)
+        pb = torch.where(split, (pa << 8) | db, pb)
+        mode = torch.where(mode == 1, 2, torch.where(
+            split, 1 if level < 3 else 2, mode))
+        ra = ra - (cum - hist).gather(0, da[None])[0]
+        pa = (pa << 8) | da
+    kb = torch.where(mode == 2, pb, pa)
+    shape = values.shape[1:]
+    return (float_of_keys(pa).reshape(shape),
+            float_of_keys(kb).reshape(shape))
+
+
+@numpy_inputs("stack", "mask")
 def clip_combine(stack: torch.Tensor, mask: Optional[torch.Tensor] = None,
                  sigma_lower: float = 5.0,
                  sigma_upper: float = 5.0) -> torch.Tensor:

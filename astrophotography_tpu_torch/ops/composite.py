@@ -10,7 +10,7 @@ import math
 import numpy as np
 import torch
 
-from ..device import resolve_device, to_float32
+from ..device import numpy_inputs, resolve_device, to_float32
 
 
 def _percentile(rows: torch.Tensor, pct: float) -> torch.Tensor:
@@ -35,6 +35,7 @@ def _percentile_sorted(srt: torch.Tensor, pct: float) -> torch.Tensor:
     return torch.where(torch.isnan(srt[:, -1]), torch.nan, out)
 
 
+@numpy_inputs("channels")
 def stretch_channels(
     channels: torch.Tensor,
     black_pct: float = 0.5,

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .stats import masked_median
 from .stencil import conv2d_static
 
@@ -104,6 +104,7 @@ def _dilate3(mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@numpy_inputs("img_adu")
 def lacosmic(
     img_adu: torch.Tensor,
     gain: float = 1.0,

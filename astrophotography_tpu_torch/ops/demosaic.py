@@ -48,7 +48,7 @@ from typing import Sequence, Union
 import torch
 import torch.nn.functional as F
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .composite import _percentile_sorted
 from .stencil import conv2d_static
 
@@ -85,6 +85,7 @@ _BILINEAR_KERNEL = (
 )
 
 
+@numpy_inputs("values", "color_map")
 def demosaic_bilinear(values: torch.Tensor,
                       color_map: torch.Tensor) -> torch.Tensor:
     """Mask-normalized bilinear demosaic: (H, W) sites -> (H, W, 3) RGB.
@@ -151,6 +152,7 @@ def _horizontal_neighbor_mask(site: torch.Tensor) -> torch.Tensor:
     return torch.roll(site, 1, dims=1) | torch.roll(site, -1, dims=1)
 
 
+@numpy_inputs("values", "color_map")
 def demosaic_mhc(values: torch.Tensor,
                  color_map: torch.Tensor) -> torch.Tensor:
     """Malvar-He-Cutler demosaic: (H, W) CFA sites -> (H, W, 3) RGB.
@@ -227,6 +229,7 @@ def _ahd_candidates(values: torch.Tensor, color_map: torch.Tensor):
     return cands
 
 
+@numpy_inputs("values", "color_map")
 def demosaic_ahd(values: torch.Tensor,
                  color_map: torch.Tensor) -> torch.Tensor:
     """Adaptive Homogeneity-Directed demosaic (Hirakawa & Parks 2005):
@@ -300,6 +303,7 @@ def _per_site(table: torch.Tensor, color_map: torch.Tensor) -> torch.Tensor:
     return table.to(torch.float32)[color_map.long()]
 
 
+@numpy_inputs("mosaic", "color_map", "black_levels")
 def safe_subtract_black(
     mosaic: torch.Tensor,
     color_map: torch.Tensor,
@@ -316,6 +320,7 @@ def safe_subtract_black(
     return (to_float32(mosaic) - bl).clamp(min=0.0)
 
 
+@numpy_inputs("mosaic", "color_map", "black_levels", "wb")
 def raw_to_rgb(
     mosaic: torch.Tensor,
     color_map: torch.Tensor,
@@ -352,6 +357,7 @@ def raw_to_rgb(
     return _DEMOSAIC_FUNCS[algorithm](f, color_map)
 
 
+@numpy_inputs("mosaic", "color_map", "black_levels", "wb")
 def raw_to_grey_linear(
     mosaic: torch.Tensor,
     color_map: torch.Tensor,
@@ -374,6 +380,7 @@ def raw_to_grey_linear(
         + CCIR601[2] * rgb[..., 2]
 
 
+@numpy_inputs("mosaic", "color_map", "black_levels", "wb")
 def raw_to_grey_direct(
     mosaic: torch.Tensor,
     color_map: torch.Tensor,
@@ -391,6 +398,7 @@ def raw_to_grey_direct(
     return f * _per_site(wb, color_map)
 
 
+@numpy_inputs("mosaic", "color_map", "black_levels")
 def split_channels(
     mosaic: torch.Tensor,
     color_map: torch.Tensor,
@@ -410,6 +418,7 @@ def split_channels(
                         for c in (R, G1, B, G2)])
 
 
+@numpy_inputs("mosaic_sub", "color_map", "region")
 def wb_from_region(
     mosaic_sub: torch.Tensor,
     color_map: torch.Tensor,
@@ -440,6 +449,7 @@ def wb_from_region(
     return avg.max() / avg.clamp(min=1e-12)
 
 
+@numpy_inputs("img")
 def percentile_renorm(
     img: torch.Tensor,
     lo_pct: float = 0.01,

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .stencil import conv2d_static
 
 FWHM_TO_SIGMA = 1.0 / 2.35482
@@ -90,6 +90,7 @@ def _conv_cols(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@numpy_inputs("data")
 def fast_density(data: torch.Tensor, fwhm: float,
                  row_sigma_scale: float = 1.0,
                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -180,6 +181,7 @@ def _take(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.gather(img.reshape(n, -1), 1, idx).reshape(y.shape)
 
 
+@numpy_inputs("data", "threshold", "mask")
 def find_stars(
     data: torch.Tensor,
     fwhm: float = 3.0,
@@ -348,6 +350,7 @@ def find_stars(
     return Stars(*(f[0] for f in stars)) if single else stars
 
 
+@numpy_inputs("data")
 def find_saturated(
     data: torch.Tensor,
     sat_thresh: float,
@@ -378,6 +381,7 @@ def find_saturated(
             torch.div(idx, w, rounding_mode="floor").to(torch.float32), valid)
 
 
+@numpy_inputs("xs", "ys", "valid")
 def mask_boxes(
     shape: Tuple[int, int],
     xs: torch.Tensor,

@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .detect import (FWHM_TO_SIGMA, _kernel_radius, _separable_taps,
                      fast_density)
 
@@ -119,6 +119,7 @@ def _kernel_params(fwhm: float):
     return tuple(params.tolist()), r
 
 
+@numpy_inputs("bias", "dark_used", "flat")
 def master_densities(bias: torch.Tensor, dark_used: torch.Tensor,
                      flat: Optional[torch.Tensor],
                      fwhm: float = 3.0) -> torch.Tensor:
@@ -166,6 +167,7 @@ def _paroff(a, b, c, coef):
     return (e * (c1 + e2 * (c3 + e2 * c5))).clamp(-0.5, 0.5)
 
 
+@numpy_inputs("frames", "thresholds", "mf_bc", "a_plane", "exp_ratios")
 def detect_tiles_plain(
     frames: torch.Tensor,
     thresholds: torch.Tensor,
@@ -231,6 +233,7 @@ def detect_tiles_plain(
     return tuple(torch.stack([o[k] for o in outs]) for k in range(4))
 
 
+@numpy_inputs("frames", "thresholds", "mf_bc", "a_plane", "exp_ratios")
 def detect_tiles(
     frames: torch.Tensor,
     thresholds: torch.Tensor,

@@ -8,11 +8,12 @@ from typing import Union
 
 import torch
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 
 ALLOWED_OPS = ("ADD", "SUB", "MUL", "DIV")
 
 
+@numpy_inputs("img", "value")
 def imarith(img: torch.Tensor, op: str,
             value: Union[float, torch.Tensor]) -> torch.Tensor:
     op = op.upper()

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .psf import extract_cutouts
 from .stats import masked_median, sigma_clip_mask
 
@@ -77,6 +77,7 @@ def _exact_cover(dx: torch.Tensor, dy: torch.Tensor, r) -> torch.Tensor:
             - f(dx + 0.5, dy - 0.5, r) + f(dx - 0.5, dy - 0.5, r))
 
 
+@numpy_inputs("data", "x", "y", "valid")
 def aperture_photometry(
     data: torch.Tensor,
     x: torch.Tensor,

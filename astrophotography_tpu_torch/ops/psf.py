@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .stats import mad_std, masked_median, sigma_clip_mask
 
 FWHM_PER_SIGMA = 2.35482
@@ -44,6 +44,7 @@ class PSFFits(NamedTuple):
     valid: torch.Tensor
 
 
+@numpy_inputs("data", "x", "y")
 def extract_cutouts(
     data: torch.Tensor,
     x: torch.Tensor,
@@ -124,6 +125,7 @@ def _residuals_jacobian(params, cut, w, xx, yy):
     return r, jac
 
 
+@numpy_inputs("cutouts", "valid", "x_origin", "y_origin")
 def fit_gaussian2d(
     cutouts: torch.Tensor,
     valid: torch.Tensor,
@@ -211,6 +213,7 @@ def fit_gaussian2d(
         axial_ratio=axial, circular=circ, valid=ok)
 
 
+@numpy_inputs("data", "x", "y", "valid")
 def measure_fwhm(
     data: torch.Tensor,
     x: torch.Tensor,
@@ -224,6 +227,7 @@ def measure_fwhm(
     return fit_gaussian2d(cuts, valid, ixs, iys, init_fwhm=init_fwhm, box=box)
 
 
+@numpy_inputs("x", "y", "valid")
 def nearest_neighbor_dist(x: torch.Tensor, y: torch.Tensor,
                           valid: torch.Tensor) -> torch.Tensor:
     """Distance to each star's nearest valid neighbour (brute force,
@@ -237,6 +241,7 @@ def nearest_neighbor_dist(x: torch.Tensor, y: torch.Tensor,
     return torch.sqrt(torch.where(pair, d2, torch.inf).amin(dim=1))
 
 
+@numpy_inputs("x", "y", "valid")
 def isolated_mask(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
                   min_sep: float) -> torch.Tensor:
     """True for stars whose nearest neighbour is at least ``min_sep``

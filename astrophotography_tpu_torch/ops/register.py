@@ -20,6 +20,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..device import numpy_inputs
+
 #: translation sentinel marking a REJECTED registration solve; callers
 #: detecting rejected frames compare against this
 REJECTED_TRANSLATION = 1e9
@@ -70,6 +72,7 @@ def _top_k_stars(x, y, flux, valid, k):
             torch.gather(valid, -1, idx))
 
 
+@numpy_inputs("src_xy", "dst_xy", "weights")
 def solve_similarity(src_xy: torch.Tensor, dst_xy: torch.Tensor,
                      weights: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -108,6 +111,7 @@ def _segments(x, y, v, min_seg):
     return length, ang, ok
 
 
+@numpy_inputs("ref_x", "ref_y", "ref_flux", "ref_valid", "tgt_x", "tgt_y", "tgt_flux", "tgt_valid")
 def estimate_similarity(
     ref_x: torch.Tensor, ref_y: torch.Tensor, ref_flux: torch.Tensor,
     ref_valid: torch.Tensor,

@@ -8,10 +8,12 @@ from typing import Optional
 
 import torch
 
+from ..device import numpy_inputs
 from .stats import (_MAD_TO_STD, masked_mean_std, masked_median,
                     sigma_clip_mask)
 
 
+@numpy_inputs("stack", "mask", "weights")
 def sigma_clip_combine(
     stack: torch.Tensor,
     mask: Optional[torch.Tensor] = None,

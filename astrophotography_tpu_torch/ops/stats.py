@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..device import numpy_inputs
+
 _MAD_TO_STD = 1.482602218505602  # 1/Phi^-1(3/4), astropy.stats.mad_std scale
 
 
@@ -23,6 +25,7 @@ def _move_axis_last(x: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
     return torch.movedim(x, axis, -1)
 
 
+@numpy_inputs("x", "mask")
 def masked_median(x: torch.Tensor, mask: torch.Tensor,
                   axis: Optional[int] = None) -> torch.Tensor:
     """Median of the elements where ``mask`` is True along ``axis``
@@ -40,6 +43,7 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor,
     return torch.where(n > 0, med, torch.nan)
 
 
+@numpy_inputs("x", "mask")
 def masked_mean_std(x: torch.Tensor, mask: torch.Tensor,
                     axis: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,6 +64,7 @@ def masked_mean_std(x: torch.Tensor, mask: torch.Tensor,
             torch.where(empty, torch.nan, std))
 
 
+@numpy_inputs("x", "mask")
 def mad_std(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
             axis: Optional[int] = None) -> torch.Tensor:
     """Robust sigma: 1.4826 * median(|x - median(x)|)."""
@@ -70,6 +75,7 @@ def mad_std(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
     return _MAD_TO_STD * masked_median(dev, mask, axis=axis)
 
 
+@numpy_inputs("x", "mask")
 def sigma_clip_mask(
     x: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
@@ -103,6 +109,7 @@ def sigma_clip_mask(
     return keep
 
 
+@numpy_inputs("x", "mask")
 def sigma_clipped_stats(
     x: torch.Tensor,
     mask: Optional[torch.Tensor] = None,

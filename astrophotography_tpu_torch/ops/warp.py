@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 
 LANCZOS_A = 3
 
@@ -124,6 +124,7 @@ def _gather_taps(imgs: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor):
     return vals.reshape(idx.shape), inb.to(torch.float32)
 
 
+@numpy_inputs("img", "matrix")
 def warp_affine_lanczos3(img: torch.Tensor, matrix: torch.Tensor,
                          out_shape: Tuple[int, int]):
     """Direct 6x6 Lanczos3 warp onto an (H_out, W_out) grid.  Returns
@@ -161,6 +162,7 @@ def warp_affine_lanczos3(img: torch.Tensor, matrix: torch.Tensor,
     return _chunked(run, imgs, mats, single, per)
 
 
+@numpy_inputs("img", "matrix")
 def warp_affine_bilinear(img: torch.Tensor, matrix: torch.Tensor,
                          out_shape: Tuple[int, int]):
     """Bilinear warp (swarp's quick-look analogue); returns (warped,
@@ -220,6 +222,7 @@ def _resample_terms(coord, idx_f, block_at, span: int) -> torch.Tensor:
                        acc / torch.where(safe, wsum, 1.0)[:, None], 0.0)
 
 
+@numpy_inputs("img", "matrix")
 def warp_affine_separable(
     img: torch.Tensor,
     matrix: torch.Tensor,
@@ -353,6 +356,7 @@ def _separable_chunk(imgs, mats, out_shape, band, span, analytic_coverage,
     return out, torch.clamp(cover, 0.0, 1.0)
 
 
+@numpy_inputs("matrices", "frame_weights")
 def coverage_weight_map(matrices: torch.Tensor, in_shape: Tuple[int, int],
                         out_shape: Tuple[int, int],
                         frame_weights: torch.Tensor) -> torch.Tensor:

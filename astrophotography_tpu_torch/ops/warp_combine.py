@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..device import to_float32
+from ..device import numpy_inputs, to_float32
 from .warp import lanczos3_poly
 
 _MAD_TO_STD = 1.482602218505602
@@ -130,6 +130,7 @@ def _vector(x, size: int, name: str, device) -> torch.Tensor:
     return t
 
 
+@numpy_inputs("matrices", "exp_ratios", "flux_scales", "v_bounds", "snap_geom")
 def plan_warp_combine(
     shape: Tuple[int, int, int],
     matrices: torch.Tensor,
@@ -538,6 +539,7 @@ def _run_plain(frames, masters, plan, combine, sigma_lower, sigma_upper,
     return out
 
 
+@numpy_inputs("frames", "matrices", "masters", "exp_ratios", "flux_scales", "v_bounds", "snap_geom")
 def warp_combine_plain(
     frames: torch.Tensor,
     matrices: torch.Tensor,
@@ -571,6 +573,7 @@ def warp_combine_plain(
                       sigma_upper, general_taps)
 
 
+@numpy_inputs("frames", "matrices", "masters", "exp_ratios", "flux_scales", "v_bounds", "snap_geom")
 def warp_combine(
     frames: torch.Tensor,
     matrices: torch.Tensor,
@@ -617,8 +620,9 @@ def warp_combine(
     block's 227 KB: a block of up to 32 x 32 pixels keeps only its
     (rows + span) x 32 mid rows (the horizontal pass) in shared memory,
     filled from one staged window row per warp, each mid row it reads
-    computed once, and combines through the 'cols' scratch.  Shared
-    memory bounds it: spans up to 1436 (``kernels._WARP_WIDE_MAX_SPAN``);
+    computed once; each thread combines its own pixels (in registers to
+    32 frames, in shared memory to 112, through the 'cols' combine past
+    that).  It takes spans up to 1436 (``kernels._WARP_WIDE_MAX_SPAN``);
     past that the wrapper raises."""
     _validate(frames, matrices, masters, combine)
     if frames.device.type not in ("cpu", "cuda"):

@@ -61,7 +61,9 @@ the stacks:
   made on the card: K2's global route), the unfused path on 1200 frames
   of 512^2 (K3's global route), K2 against its twin at 1200 x 512^2
   (snap and lowrank), K3 against its twin on a masked 1200 x 1024 x 2048
-  stack, K1 at radii 17, 24 and 48 (its separable route) on 16 x 4096^2;
+  stack and, on its 'select' route, on a masked 30000 x 480 x 640 one
+  (46.1 GB, a lucky-imaging run; the twin on 16 rows), K1 at radii 17,
+  24 and 48 (its separable route) on 16 x 4096^2;
 * an oversampled rig (``oversampled``): the lean path on 100 uint16
   frames of 4096^2 with the same masters and dithers and stars of 8 px
   FWHM, with ``fwhm=8.0`` (K1 on its ring route at radius 6), the
@@ -75,7 +77,9 @@ the stacks:
   and tiles of 320 x 1024 on 24 frames of 2048^2 turning 0-12 deg about
   the centre (an alt-az mount's field rotation over about an hour):
   registration and stack checked, K2 once on 'wide', its call replayed on
-  the twin, its time and bound;
+  the twin, its time and bound; then 'wide' alone, timed with its bound,
+  at 100 x 4096^2 (0-12 deg) and 360 x 2048^2 (0-15 deg, an alt-az hour)
+  made on the card;
 * the benchmark entry point (``bench``): ``python3 bench_torch.py`` as
   a subprocess (its three lines: lean snap, RAW->grey, lean rotated),
   then again with ``BENCH_FRAMES=24 BENCH_SIZE=4096 BENCH_IMPL=pallas``
@@ -3186,6 +3190,10 @@ DEEP_FRAMES, DEEP_SIZE, DEEP_SMALL = 1200, 2048, 512
 #: the frames, not the pixels)
 DEEP_LOWRANK_FRAMES = 909
 DEEP_K3_SHAPE, DEEP_K3_TWIN_ROWS = (1200, 1024, 2048), 64
+#: K3's 'select' route on a planetary lucky-imaging run: 30000 frames of a
+#: 640 x 480 region of interest (~4 minutes at ~130 fps), f32 with a
+#: mask (46.1 GB); its twin replays the first rows
+DEEP_SELECT_SHAPE, DEEP_SELECT_TWIN_ROWS = (30000, 480, 640), 16
 DEEP_K1_FRAMES, DEEP_K1_SIZE, DEEP_K1_FWHM = 16, 4096, (22.7, 32.0, 64.0)
 
 
@@ -3404,6 +3412,7 @@ def run_route_sweep(card: str, dev) -> dict:
                **_bound(_nbytes(st, mk) + 4 * h3 * w3,
                         st.numel() * (5 + math.log2(n))),
                "card": card}
+        rec["select_over_cols"] = rec["ms"]["select"] / rec["ms"]["cols"]
         if n in SWEEP_K3_TWIN:
             r = SWEEP_K3_TWIN[n]
             p, plain_ms = _timed(lambda: cc.clip_combine_plain(st, mk))
@@ -3437,8 +3446,11 @@ def run_route_sweep(card: str, dev) -> dict:
     out["K2 wide over cols"] = {
         w: {r["frames"]: r["wide_over_cols"] for r in rs}
         for w, rs in out["K2"].items()}
+    out["K3 select over cols"] = {r["frames"]: r["select_over_cols"]
+                                  for r in out["K3"]}
     _print({"sweep": "crossings", "crossings": out["crossings"],
             "K2_wide_over_cols": out["K2 wide over cols"],
+            "K3_select_over_cols": out["K3 select over cols"],
             "K2_smem_rows": kernels._WARP_SMEM_ROWS,
             "K3_cols_reach": kernels._CLIP_COLS_REACH,
             "wall_s": out["wall_s"], "card": card})
@@ -3496,6 +3508,9 @@ def run_deep(card: str, dev) -> dict:
       frames of 512^2 ('cols');
     * K3 against its twin bit for bit on a masked 1200 x 1024 x 2048
       stack (10 GB and 2.5 GB of mask), the twin on the first 64 rows;
+    * K3's 'select' route on a masked 30000 x 480 x 640 stack (46.1 GB, a
+      lucky-imaging run), timed with its bound, the twin on the first 16
+      rows bit for bit;
     * K1 at radii 17, 24 and 48 on 16 x 4096^2 against its twin by its
       rule (the separable route), then its column pass and planes kernel
       timed apart (:func:`k1_split`);
@@ -3668,6 +3683,43 @@ def run_deep(card: str, dev) -> dict:
     del stack, mask
     torch.cuda.empty_cache()
 
+    # K3's 'select' route (past the 'cols' reach) on a lucky-imaging run
+    n3, h3, w3 = DEEP_SELECT_SHAPE
+    label = f"deep K3 select {n3}x{h3}x{w3} masked"
+    _require(kernels._clip_route(n3) == "select", f"{label}: route")
+    stack, mask = _clip_inputs_chunked(n3, h3, w3, dev, seed=13)
+    kernels.reset_launch_counts()
+    k = cc.clip_combine(stack, mask)
+    torch.cuda.synchronize()
+    select_launches = kernels.launch_counts["clip_combine"]
+    _require(select_launches == 1, f"{label}: {select_launches} launches")
+    _require(tuple(k.shape) == (h3, w3), f"{label}: shape {tuple(k.shape)}")
+    rows = slice(0, DEEP_SELECT_TWIN_ROWS)
+    p, plain_ms = _timed(lambda: cc.clip_combine_plain(stack[:, rows],
+                                                       mask[:, rows]))
+    err = _k3_exact(k[rows], p,
+                    f"{label}, rows 0-{DEEP_SELECT_TWIN_ROWS - 1}")
+    nan_pixels = int(torch.isnan(k).sum())
+    _require(nan_pixels == (h3 + 96) // 97 * w3,
+             f"{label}: {nan_pixels} NaN pixels (every 97th row is masked)")
+    del k, p
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: cc.clip_combine(stack, mask), 3)
+    ops = stack.numel() * (5 + math.log2(n3))
+    out["K3 select"] = {
+        "phase": "K3 vs clip_combine_plain", "case": label,
+        "shape": [n3, h3, w3], "masked": True, "route": "select",
+        "passes": kernels._CLIP_SELECT_PASSES, "launches": select_launches,
+        "twin_rows": DEEP_SELECT_TWIN_ROWS, "max_abs_err": err,
+        "nan_pixels": nan_pixels, "ms": ms, "plain_ms": plain_ms,
+        "plain_ms_whole_stack_estimate": plain_ms * h3
+        / DEEP_SELECT_TWIN_ROWS,
+        **_bound(_nbytes(stack, mask) + 4 * h3 * w3, ops), "card": card}
+    out["K3 select"]["over_bound"] = ms / out["K3 select"]["bound_ms"]
+    _print(out["K3 select"])
+    del stack, mask
+    torch.cuda.empty_cache()
+
     # K1 past radius 16
     nk, sk = DEEP_K1_FRAMES, DEEP_K1_SIZE
     fr, bias, dark, flat, exp_ratio, _off, _mats = \
@@ -3827,6 +3879,13 @@ WIDE_SPANS = (193, 256, 1436)
 WIDE_TWIN_FRAMES, WIDE_TWIN_SIZE = 6, 512
 WIDE_FRAMES, WIDE_SIZE, WIDE_MAX_DEG = 24, 2048, 12.0
 WIDE_SPAN, WIDE_TILE, WIDE_BUDGET = 256, (320, 1024), 256
+#: K2 'wide' alone at the sizes its users run (tools/tail_routes.py's
+#: cases), uint16 with masters made on the card: the lean cells' 100 x
+#: 4096^2 under a 0-12 deg field rotation, and an alt-az hour, 360 subs
+#: of 10 s turning 0-15 deg (span 288: at 256 a tenth of the (frame,
+#: tile) pairs fail the gate); (label, frames, size, degrees, span)
+WIDE_ALONE = (("lean size", 100, 4096, 12.0, 256),
+              ("alt-az hour", 360, 2048, 15.0, 288))
 
 
 def make_field_rotation(n_frames: int, size: int, max_deg: float,
@@ -3873,6 +3932,82 @@ def make_field_rotation(n_frames: int, size: int, max_deg: float,
             max_off = max(max_off, float(np.hypot(px - x, py - y)))
         frames[i] = np.clip(f, 0, 65535).astype(np.uint16)
     return frames, bias, bias + dark_counts, flat, exp_ratio, max_off, mats
+
+
+def rotation_mats(n: int, size: int, max_deg: float, seed: int = 0):
+    """Frame i turned by max_deg * i / (n - 1) about the centre and
+    dithered by up to 4 px (frame 0 the identity), as
+    :func:`make_field_rotation` draws them, for frames made elsewhere."""
+    rng = np.random.default_rng(seed)
+    c0 = (size - 1) / 2.0
+    mats = np.zeros((n, 2, 3), np.float64)
+    for i in range(n):
+        th = np.deg2rad(max_deg * i / max(n - 1, 1))
+        dx, dy = rng.uniform(-4.0, 4.0, 2) if i else (0.0, 0.0)
+        c, s = np.cos(th), np.sin(th)
+        mats[i] = [[c, -s, c0 + dx - c * c0 + s * c0],
+                   [s, c, c0 + dy - s * c0 - c * c0]]
+    return mats
+
+
+def wide_alone(label, n, size, deg, span, card, dev) -> dict:
+    """K2 on its 'wide' route alone ('exact', combine 'average') on
+    ``n`` x ``size``^2 uint16 frames with masters made on the card
+    (:func:`make_workload_on_device`) under a 0-``deg`` field rotation at
+    ``span``: one launch on 'wide' counted from 0, a finite image of the
+    frame's shape, covered and at the sky in its interior; then its ms
+    (average) and warp phase alone (mean) in turns, and its bound."""
+    from astrophotography_tpu_torch import kernels
+    from astrophotography_tpu_torch.ops import warp_combine as wc
+
+    label = f"wide alone {label} {n}x{size}^2 0-{deg:g} deg"
+    t0 = time.perf_counter()
+    fr, bias, dark, flat, exp_ratio, _off, _m = make_workload_on_device(
+        n, size, dev, seed=6)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    masters = _masters(bias, dark, flat, dev)[0]
+    er = torch.full((n,), exp_ratio, dtype=torch.float32, device=dev)
+    mats = torch.from_numpy(rotation_mats(n, size, deg).astype(np.float32)) \
+        .to(dev)
+    plan = wc.plan_warp_combine(fr.shape, mats, er, span=span, tile=WIDE_TILE,
+                                dither_budget=WIDE_BUDGET)
+    _require(kernels._warp_route(n, plan.span) == "wide", f"{label}: route")
+
+    def call(combine):
+        return lambda: kernels.warp_combine_cuda(fr, masters, plan, combine,
+                                                 False, 5.0, 5.0)
+
+    kernels.reset_launch_counts()
+    img = call(0)()
+    torch.cuda.synchronize()
+    routes = dict(kernels.warp_route_counts)
+    _require(routes == {"smem": 0, "cols": 0, "wide": 1},
+             f"{label}: K2 routes {routes}")
+    _require(tuple(img.shape) == (size, size), f"{label}: shape")
+    covered = float((img != 0).float().mean())
+    _require(covered > 0.9, f"{label}: covered {covered}")
+    med = check_stack(label, img)
+    del img
+    times = {"average": [], "mean": []}
+    for c in ("average", "mean", "mean", "average"):
+        times[c].append(_time_ms(call(0 if c == "average" else 3), 3))
+    avg, mean = (sum(times[c]) / 2 for c in ("average", "mean"))
+    res = {"phase": label, "shape": [n, size, size], "span": plan.span,
+           "tile": list(WIDE_TILE), "dither_budget": WIDE_BUDGET,
+           "route": "wide",
+           "block_rows": kernels._warp_block_rows(n, plan.span, "wide"),
+           "launches": routes["wide"], "covered_fraction": covered,
+           "interior_median": med, "ms": avg, "average_ms": times["average"],
+           "mean_ms": times["mean"], "warp_phase_ms": mean,
+           "combine_ms": avg - mean,
+           **_k2_wide_bound(fr, masters, plan, "exact"),
+           "workload_gen_s": gen_s, "card": card}
+    res["over_bound"] = avg / res["bound_ms"]
+    _print(res)
+    del fr, masters, plan
+    torch.cuda.empty_cache()
+    return res
 
 
 def _wide_mats(n: int, body: str, size: int, seed: int) -> np.ndarray:
@@ -3946,7 +4081,8 @@ def run_wide(card: str, dev) -> dict:
     stack through the normal entry point: K2 launched once and on
     'wide', the registration rule, a finite stack at the sky, the
     kernel's call replayed on its twin bit for bit, the kernel alone
-    timed on that call's plan, its bound and the twin's time."""
+    timed on that call's plan, its bound and the twin's time; then K2
+    'wide' alone at WIDE_ALONE's sizes (:func:`wide_alone`)."""
     import contextlib
 
     from astrophotography_tpu_torch import kernels
@@ -4056,6 +4192,8 @@ def run_wide(card: str, dev) -> dict:
     _print(out["pipeline"])
     del fr, kw, k2, a, k
     torch.cuda.empty_cache()
+    out["alone"] = {case[0]: wide_alone(*case, card, dev)
+                    for case in WIDE_ALONE}
     out["max_abs_err"] = max([c["max_abs_err"] for c in out["checks"]]
                              + [check["max_abs_err"]])
     out["wall_s"] = time.perf_counter() - t_phase
@@ -4146,6 +4284,7 @@ def main(argv=None) -> int:
                   max_abs_err=max(unfused["clip_combine"]["max_abs_err"],
                                   reduce["K3 V"]["max_abs_err"],
                                   mc_err["K3"], deep["K3"]["max_abs_err"],
+                                  deep["K3 select"]["max_abs_err"],
                                   deep["unfused"]["max_abs_err"]))
         deep_lean = deep["lean"]["launches"]
         bench_lean = {f"bench lean {k}": bench["default"]["lines"][i]
@@ -4192,13 +4331,16 @@ def main(argv=None) -> int:
                                                      "clip_combine"),
                            "deep unfused": deep["unfused"]["launches"]
                            ["clip_combine"],
+                           "deep select": deep["K3 select"]["launches"],
                            "bench pallas": bench_k3},
                           k3),
             _kernel_entry("warp_combine",
                           "astrophotography_tpu/ops/pallas_warp_combine.py:658",
                           "wide pipeline",
                           {"wide pipeline": wide["pipeline"]["warp_routes"]
-                           ["wide"]},
+                           ["wide"],
+                           **{f"wide alone {k}": v["launches"]
+                              for k, v in wide["alone"].items()}},
                           dict(wide["pipeline"],
                                max_abs_err=wide["max_abs_err"]),
                           route="wide"),

@@ -17,7 +17,8 @@ from astrophotography_tpu.ops.stack import sigma_clip_combine as jax_combine
 from astrophotography_tpu_torch import kernels
 from astrophotography_tpu_torch.ops.clip_combine import (
     _BIG, clip_combine, clip_combine_plain, float_keys, float_of_keys,
-    mad_ranks_by_merging, mad_ranks_by_search, rank_by_bisection)
+    mad_ranks_by_merging, mad_ranks_by_search, pair_by_radix,
+    rank_by_bisection)
 from astrophotography_tpu_torch.ops.stack import sigma_clip_combine
 
 # one intra-op thread: the suite runs in parallel worker processes, whose
@@ -129,7 +130,8 @@ def test_clip_kernel_block_shapes():
     frames, 'smem' (a thread per pixel in blocks of 128) below the
     crossing of the route sweep (192 frames), then 'cols' with the most
     warps (8, 4, 2, 1) whose two columns per pixel fit, up to its reach
-    (29024 frames), then 'select' (no shared memory, no scratch)."""
+    (29024 frames), then 'select' (a radix select over the stack, no
+    scratch)."""
     reach = kernels._CLIP_COLS_REACH
     assert reach == 29024
     assert kernels._CLIP_COLS_FRAMES == 192
@@ -190,8 +192,8 @@ def _rank_columns(draw, n, kind):
 @settings(max_examples=60, deadline=None)
 @given(data=st_data())
 def test_rank_by_bisection_is_the_sort(data):
-    """K3's 'select' route and K2's runs past the 'cols' reach take a rank
-    as the smallest monotone key with more than k samples at or below it:
+    """K2's runs past the 'cols' reach take a rank as the smallest
+    monotone key with more than k samples at or below it:
     the sorted column's value at k, on random, tied, +-0, all-+3.4e38 and
     single-valid columns (a zero comes back +0, equal to either)."""
     from hypothesis import strategies as st
@@ -207,6 +209,58 @@ def test_rank_by_bisection_is_the_sort(data):
     ks = torch.arange(n)
     got = rank_by_bisection(col[:, None].expand(n, n), ks)
     assert torch.equal(got, torch.sort(col).values)
+
+
+@pytest.mark.parametrize("h,w,grid", [(480, 640, (20, 480)),
+                                      (256, 512, (16, 256)),
+                                      (8, 44, (2, 8)), (70000, 33, (2, 65535))])
+def test_kernel_select_route_arithmetic(h, w, grid):
+    """K3's 'select' route: a block of 8 warps owns 32 neighbouring pixels
+    of a row (one 128 B line of each frame row); its shared memory is the
+    digit histograms [256][32] (the clip pass's two chunks of 64 x 32
+    floats over the same words), six words of a rank pair's state and
+    four more per pixel: 34,048 B, room for 6 blocks an SM.  Nine passes over
+    the stack whatever the data: four 8-bit digits for the median's pair
+    of ranks, four for the MAD's, one clip pass.  The grid: a block per 32
+    columns, a row of blocks per image row up to 65535.  The route starts
+    past the 'cols' reach (29024 frames), unchanged."""
+    assert kernels._CLIP_SELECT_PIXELS == 32
+    assert kernels._CLIP_SELECT_WARPS == 8
+    assert kernels._clip_select_smem_bytes() == 4 * (256 * 32 + 10 * 32) \
+        == 34048
+    assert max(256 * 32, 2 * kernels._CLIP_SELECT_CHUNK * 32) == 256 * 32
+    assert 6 * (kernels._clip_select_smem_bytes() + 1024) <= 233472 < \
+        7 * (kernels._clip_select_smem_bytes() + 1024)
+    assert kernels._CLIP_SELECT_PASSES == 9 == 2 * 32 // 8 + 1
+    assert kernels._clip_select_grid(h, w) == grid
+    assert kernels._CLIP_COLS_REACH == 29024
+    assert kernels._clip_route(29024) == "cols"
+    assert kernels._clip_route(29025) == kernels._clip_route(10 ** 6) \
+        == "select"
+
+
+@settings(max_examples=80, deadline=None)
+@given(data=st_data())
+def test_pair_by_radix_is_the_sort(data):
+    """K3's 'select' route takes the median's two ranks (and the MAD's)
+    by an MSB-first radix select over the monotone keys, hi sharing lo's
+    walk until it leaves lo's bucket and then taken as the least key with
+    its prefix: the sorted column's values at lo and hi = lo or lo + 1,
+    on random, tied, +-0, all-+3.4e38 and single-valid columns, for every
+    count of valid samples (a zero comes back +0, equal to either)."""
+    from hypothesis import strategies as st
+
+    n = data.draw(st.integers(1, 40))
+    kind = data.draw(st.sampled_from(["random", "tied", "zeros", "big",
+                                      "single"]))
+    col = torch.from_numpy(_rank_columns(data.draw, n, kind))
+    srt = torch.sort(col).values
+    counts = torch.arange(n + 1)
+    lo = torch.clamp(torch.div(counts - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.clamp(torch.div(counts, 2, rounding_mode="floor"), min=0)
+    hi = torch.minimum(hi, torch.full_like(hi, n - 1))
+    a, b = pair_by_radix(col[:, None].expand(n, n + 1), lo, hi)
+    assert torch.equal(a, srt[lo]) and torch.equal(b, srt[hi])
 
 
 @settings(max_examples=60, deadline=None)

@@ -615,12 +615,55 @@ def test_warp_combine_kernel_wide_route_many_frames(cuda, body):
 @pytest.mark.parametrize("span", [1411, 1436])
 def test_warp_combine_kernel_wide_route_at_its_limit(cuda, span):
     """At 1411 a 'wide' block still keeps 32 rows, at 1436 (the route's
-    reach) one; both bit for bit on the 'exact' body."""
+    reach) 8; both bit for bit on the 'exact' body."""
     frames, mats, masters, kw = _wide_case(3, "exact", span, 7, h=None,
                                            w=256)
-    assert kernels._warp_block_rows(3, span) == (32 if span == 1411 else 1)
+    assert kernels._warp_block_rows(3, span) == (32 if span == 1411 else 8)
     frames, masters = _on(cuda, frames, masters)
     _warp_check(frames, mats, masters, **kw)
+
+
+#: the 'wide' route's frame counts and spans, with the combines each
+#: case checks (the twin's cost grows with the frames and the image):
+#: each thread's register combine (24, the wide pipeline's count; 32, its
+#: largest), its shared column (33, 112), the 'cols' combine past it
+#: (113; 160 and 600 below); spans 193, 256 and 1436 (the reach, 8 rows a
+#: block); 3 blocks an SM at 24 frames, 2 at 112
+_ALL = ("average", "median", "sum", "mean")
+WIDE_CASES = [(24, 193, _ALL), (24, 256, _ALL), (24, 1436, ("median", "mean")),
+              (32, 256, ("average", "median")), (33, 256, ("average", "sum")),
+              (112, 193, ("average",)), (113, 256, ("median",))]
+
+
+@pytest.mark.parametrize("n,span,combines", WIDE_CASES)
+@pytest.mark.parametrize("uint16", [True, False])
+@pytest.mark.parametrize("body", ["snap", "exact", "lowrank"])
+def test_warp_combine_kernel_wide_route_frames(cuda, body, uint16, n, span,
+                                               combines):
+    """The 'wide' route at every frame count its combine distinguishes,
+    on each tap body, uint16 with masters and float32 without: bit for
+    bit against the twin, one launch each on 'wide'."""
+    assert kernels._warp_route(n, span) == "wide"
+    frames, mats, masters, kw = _wide_case(
+        n, body, span, n + span, uint16,
+        w=256 if n <= 32 and span < 1000 else 128)
+    frames, masters = _on(cuda, frames, masters)
+    for combine in combines:
+        before = kernels.warp_route_counts["wide"]
+        _warp_check(frames, mats, masters, combine=combine, **kw)
+        assert kernels.warp_route_counts["wide"] == before + 1
+
+
+def test_warp_combine_kernel_wide_route_600_frames(cuda):
+    """600 frames (an alt-az night's deep stack) at span 193: the 'cols'
+    combine under 3 blocks an SM, bit for bit."""
+    n, span = 600, 193
+    frames, mats, masters, kw = _wide_case(n, "snap", span, 17, h=208, w=128)
+    assert kernels._warp_route(n, span) == "wide"
+    assert kernels._warp_wide_min_blocks(
+        n, 32, span, kernels._warp_cols_run(8, span)) == 3
+    frames, masters = _on(cuda, frames, masters)
+    _warp_check(frames, mats, masters, combine="average", **kw)
 
 
 @pytest.mark.parametrize("body", ["snap", "exact", "lowrank"])
@@ -888,6 +931,53 @@ def test_clip_combine_kernel_equals_plain(cuda, n, masked):
         fm = mk.to(torch.float32) * 0.75
         assert torch.equal(torch.nan_to_num(cc.clip_combine(st, fm, 3.0, 4.0)),
                            torch.nan_to_num(got))
+
+
+def _select_stack(n, h, w, seed):
+    """:func:`_clip_stack` with the columns the radix select must get
+    right: row 0 all equal (MAD 0), row 1 two-valued (ties at both
+    ranks), row 2 outliers at +-3.4e38 on a fifth of the frames, pixel
+    (2, 1) fully masked, pixel (2, 2) with one valid sample of -3.4e38."""
+    stack, mask = _clip_stack(n, h, w, seed)
+    rng = np.random.default_rng(seed + 1)
+    stack[:, 0, :] = 5.0
+    stack[:, 1, :] = np.where(rng.uniform(size=(n, w)) < 0.5, 3.0, 7.5)
+    big = rng.uniform(size=(n, w)) < 0.2
+    sign = np.where(rng.uniform(size=(n, w)) < 0.5, 1.0, -1.0)
+    stack[:, 2, :] = np.where(big, sign * 3.4e38, stack[:, 2, :])
+    mask[:, 2, 1] = False
+    mask[:, 2, 2] = False
+    mask[n // 3, 2, 2] = True
+    stack[n // 3, 2, 2] = -1.0e38
+    return stack, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [29025, 30000])
+def test_clip_combine_select_route(cuda, n, masked):
+    """Past the 'cols' reach the public op takes K3's 'select' route (a
+    radix select over the stack): bit for bit against the twin on
+    all-equal, two-valued and +-3.4e38 columns, fully masked pixels (NaN)
+    and one valid sample, with and without a mask, on a width (40) no
+    multiple of the block's 32 pixels."""
+    assert kernels._clip_route(n) == "select"
+    stack, mask = _select_stack(n, 8, 40, 5)
+    if not masked:           # valid non-finite samples are outside the contract
+        stack = np.where(np.isfinite(stack), stack, np.float32(800.0))
+    st = torch.from_numpy(stack).to(cuda)
+    mk = torch.from_numpy(mask).to(cuda) if masked else None
+    before = kernels.launch_counts["clip_combine"]
+    got = cc.clip_combine(st, mk, sigma_lower=3.0, sigma_upper=4.0)
+    assert kernels.launch_counts["clip_combine"] == before + 1
+    want = cc.clip_combine_plain(st, mk, sigma_lower=3.0, sigma_upper=4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+    assert torch.equal(got[0], torch.full((40,), 5.0, device=cuda))
+    if masked:
+        assert bool(torch.isnan(got[2, 1])) and bool(torch.isnan(got[3, 5]))
+        assert float(got[2, 2]) == float(np.float32(-1.0e38))
 
 
 def test_kernel_wrapper_rejects_bad_input(cuda):

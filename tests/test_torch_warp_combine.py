@@ -360,8 +360,9 @@ def test_kernel_rejects_span_beyond_shared_memory():
     """K2 takes every span up to the 'wide' route's reach: past 192 one
     row's window outgrows a shared block and 'wide' takes the span (its
     mid rows in shared memory); past 1436 one output row's mid rows and
-    the 8 warps' window rows outgrow a block too, and the kernel raises,
-    naming the limit.  The shared routes forced past 192 still refuse."""
+    the 8 warps' window rows outgrew the route's first layout, and the
+    kernel raises, naming the limit (its present layout keeps 8 rows
+    there).  The shared routes forced past 192 still refuse."""
     from astrophotography_tpu_torch import kernels
 
     assert kernels._WARP_WIDE_MAX_SPAN == 1436
@@ -369,7 +370,7 @@ def test_kernel_rejects_span_beyond_shared_memory():
     for n in (1, 908, 1200):
         assert kernels._warp_block_rows(n, 193) == 32
         assert kernels._warp_block_rows(n, 200) == 32
-        assert kernels._warp_block_rows(n, 1436) == 1
+        assert kernels._warp_block_rows(n, 1436) == 8
         with pytest.raises(ValueError, match=r"shared memory .*one output "
                                              r"row's mid rows; the 'wide' "
                                              r"route takes spans up to 1436"):
@@ -418,33 +419,43 @@ def test_kernel_routes_up_to_span_192_are_unchanged():
 
 
 @pytest.mark.parametrize("span,rows", [(193, 32), (256, 32), (1000, 32),
-                                       (1411, 32), (1412, 16), (1425, 8), (1432, 4),
-                                       (1436, 1)])
+                                       (1411, 32), (1417, 32), (1418, 16),
+                                       (1430, 16), (1431, 8), (1436, 8)])
 def test_kernel_wide_route_arithmetic(span, rows):
     """A 'wide' block keeps the most of 32, 16, ..., 1 output rows whose
     mid rows ((rows + span) x 32 floats), one window row per warp (8 x
-    (32 + span)), the lowrank and snap weights and the frame's parameters
-    fit 227 KB; over the same words the combine's tile of one column per
-    warp, so the reach is the 'cols' route's (7232 samples).  Its scratch
-    is the 'cols' route's per pixel, and the grid stops at 1 GiB of it:
-    218 blocks of 32 rows at 1200 frames."""
+    (32 + span)), two frames' snap weights and mid-row ranges and a ring
+    of 4 frames' parameters fit 227 KB.  Over the same words the combine
+    takes nothing up to 32 frames (registers), each warp's n x 32 columns
+    up to 112, else the 'cols' tile of one column per warp (its reach the
+    'cols' route's, 7232 samples).  An SM keeps 3 blocks where their
+    shared memory fits it, else 2.  Its scratch is the 'cols' route's per
+    pixel, and the grid stops at 1 GiB of it: 218 blocks of 32 rows at
+    1200 frames."""
     from astrophotography_tpu_torch import kernels
 
     assert kernels._warp_wide_rows(span) == rows
     smem = kernels._warp_wide_smem_bytes(rows, span)
-    assert smem == 4 * ((rows + span) * 32 + 8 * (32 + span) + 256 + 64
-                        + 16 + 20 + 2)
+    assert smem == 4 * ((rows + span) * 32 + 8 * (32 + span) + 2 * 16
+                        + 4 * 20 + 2 * 2)
     assert smem <= kernels._SMEM_MAX
     if rows < 32:
         assert kernels._warp_wide_smem_bytes(2 * rows, span) > \
             kernels._SMEM_MAX
     run = kernels._warp_cols_run(kernels._WARP_WIDE_WARPS, span)
     assert run == 7232
-    for n in (3, 160, 1200, 7232, 10 ** 5):
+    for n in (3, 24, 32, 33, 100, 112, 113, 160, 1200, 7232, 10 ** 5):
         total = kernels._warp_wide_smem_total(n, rows, span, run)
-        assert max(smem, 4 * 8 * kernels._cols_stride(min(n, run), 8)) \
-            == total <= kernels._SMEM_MAX
-    assert kernels._warp_wide_smem_total(24, 32, 256, run) == 47512
+        combine = (0 if n <= 32 else 4 * 8 * n * 32 if n <= 112
+                   else 4 * 8 * kernels._cols_stride(min(n, run), 8))
+        assert max(smem, combine) == total <= kernels._SMEM_MAX
+        blocks = kernels._warp_wide_min_blocks(n, rows, span, run)
+        assert blocks == (3 if 3 * (total + 1024) <= 233472 else 2)
+    assert kernels._warp_wide_smem_total(24, 32, 256, run) == 46544
+    assert [kernels._warp_wide_min_blocks(n, kernels._warp_wide_rows(s), s,
+                                          run)
+            for n, s in ((24, 256), (100, 256), (360, 288), (6, 1436))] == \
+        [3, 2, 3, 2]
     for n, grid in ((24, 264), (1200, 218), (5000, 52)):
         got = kernels._warp_wide_grid(n, 32, 10 ** 6, 264)
         assert got == grid
