@@ -73,7 +73,8 @@ def parse(argv: Optional[List[str]]) -> argparse.Namespace:
                    choices=["average", "median", "sum"])
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the reduction "
-                        "into DIR/trace.json (Chrome trace format)")
+                        "into DIR/trace.json (Chrome trace format), with "
+                        "the program's span records in DIR/spans.json")
     p.add_argument("--watch", type=float, default=None, metavar="SECONDS",
                    help="run continuously: rescan the data directory every "
                         "SECONDS and reduce new frames (noclean skips "

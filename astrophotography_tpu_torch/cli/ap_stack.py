@@ -25,7 +25,7 @@ from ..device import resolve_device, synchronize
 from ..io.fits import Header, write_image
 from ..ops.register import REJECTED_TRANSLATION
 from ..utils.logger import get_logger
-from ..utils.timing import StageTimer
+from ..utils.timing import StageTimer, span
 
 logger = get_logger("cli.ap_stack")
 
@@ -83,7 +83,7 @@ def _stack_union_canvas(stack, scales, cfg, timer: StageTimer, name: str):
 
     n, h, w = stack.shape
     dev = stack.device
-    with timer.stage(f"register {name}"):
+    with timer.stage("register", name):
         if scales is not None:
             stack.mul_(torch.from_numpy(scales).to(dev)[:, None, None])
         stars, sims, matrices, ref_idx = register_frames(stack, config=cfg)
@@ -127,7 +127,7 @@ def _stack_union_canvas(stack, scales, cfg, timer: StageTimer, name: str):
     mats_c = mats.copy()
     mats_c[:, :, 2] += shift
 
-    with timer.stage(f"combine union {name}", pixels=stack.numel()):
+    with timer.stage("combine", f"union {name}", pixels=stack.numel()):
         warped, covers = warp_affine_separable(
             stack, torch.from_numpy(mats_c).to(dev), (hc, wc),
             span=cfg.warp_span, analytic_coverage=True)
@@ -138,7 +138,7 @@ def _stack_union_canvas(stack, scales, cfg, timer: StageTimer, name: str):
         del warped, covers
         stacked = torch.where(torch.isnan(out), 0.0, out)
         synchronize(dev)
-    with timer.stage(f"download {name}"):
+    with timer.stage("download", name):
         stacked = stacked.cpu().numpy()
         diag = {"n_inliers": inl, "rms": sims.rms.cpu().numpy(),
                 "ref_frame": ref_idx, "canvas_origin": (y0, x0),
@@ -168,6 +168,7 @@ def _coverage_weight_map(mats, in_shape, out_shape, scales, device,
         torch.from_numpy(fw).to(device)).cpu().numpy()
 
 
+@span("apt.ap_stack")
 def run(ns: argparse.Namespace) -> None:
     from ..core.reduce import load_stack, register_and_stack
     from ..models.pipeline import PipelineConfig
@@ -242,7 +243,7 @@ def run(ns: argparse.Namespace) -> None:
     out_hdr.add_history(
         f"ap_stack: {n_frames} frames, combine={ns.combine}, "
         f"sigma={ns.sigma}, engine={ns.engine}, ref={ref_idx}")
-    with timer.stage(f"write {name}"):
+    with timer.stage("write", name):
         write_image(ns.output, stacked, out_hdr)
     if ns.weight_out:
         # frames with < 4 inliers (except the reference) registered
@@ -251,7 +252,7 @@ def run(ns: argparse.Namespace) -> None:
         # the union-canvas path's rejection behavior
         usable = inl >= 4
         usable[ref_idx] = True
-        with timer.stage(f"weight map {name}"):
+        with timer.stage("weight map", name):
             wmap = _coverage_weight_map(diag["matrices"], in_shape,
                                         stacked.shape, scales, dev,
                                         usable=usable)

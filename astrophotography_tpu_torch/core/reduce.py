@@ -48,7 +48,7 @@ import torch
 from ..device import native_contiguous, resolve_device, synchronize
 from ..io.fits import Header, read_image, write_image
 from ..utils.logger import get_logger
-from ..utils.timing import StageTimer
+from ..utils.timing import StageTimer, count, host_read, span
 from .calibrator import Calibrator, find_exptime
 from .metadata import parse_itelescope_filename
 
@@ -357,6 +357,7 @@ def _navigate_group(cal_entries, outdir: str, config: ReduceConfig,
     return wcs_by_cal
 
 
+@span("apt.reduce")
 def reduce_all(
     datadir: str,
     caldir: str,
@@ -402,7 +403,7 @@ def reduce_all(
             else:
                 try:
                     # calibrate() ends in the download it writes
-                    with timer.stage(f"calibrate {base}"):
+                    with timer.stage("calibrate", base):
                         cal.calibrate(lf.path, out_path,
                                       fix_cosmic=config.fixcosmic)
                         if config.skybg:
@@ -420,7 +421,7 @@ def reduce_all(
                 if not (config.noclean and os.path.exists(qual_path)):
                     try:
                         # the finder's tables come down before it writes
-                        with timer.stage(f"quality {base}"):
+                        with timer.stage("quality", base):
                             finder = StarFinder(
                                 out_path, search_fwhm=config.search_fwhm,
                                 search_nsigma=config.search_nsigma,
@@ -437,7 +438,7 @@ def reduce_all(
         # per-image astrometric WCS (the navigate_all.sh stage)
         nav_wcs: Dict[str, object] = {}
         if config.astrometry and cal_paths:
-            with timer.stage(f"navigate {target}:{telescope}:{filt}"):
+            with timer.stage("navigate", f"{target}:{telescope}:{filt}"):
                 nav_wcs = _navigate_group(cal_paths, outdir, config,
                                           produced, dev)
 
@@ -514,6 +515,8 @@ def load_stack(paths: List[str], device, timer: StageTimer, name: str):
                 f"{path!r} shape {data.shape} differs from first frame "
                 f"{tuple(stack.shape[1:])}")
         stack[i].copy_(torch.from_numpy(native_contiguous(data)))
+        if stack.device.type != "cpu":
+            count("h2d_bytes", stack[i].numel() * stack[i].element_size())
         synchronize(device)
         read_s += t1 - t0
         upload_s += time.perf_counter() - t1
@@ -535,21 +538,27 @@ def register_and_stack(stack: torch.Tensor, scales, config, timer: StageTimer,
                                    stack_registered)
 
     dev = stack.device
-    with timer.stage(f"register {name}"):
+    with timer.stage("register", name):
         if scales is not None:
             stack.mul_(torch.from_numpy(np.asarray(scales, np.float32))
                        .to(dev)[:, None, None])
         stars, sims, matrices, ref_idx = register_frames(stack, config)
         diag = diagnostics(stars, sims, matrices, ref_idx)
         synchronize(dev)
-    with timer.stage(f"combine {config.combine_impl} {name}",
+    with timer.stage("combine", f"{config.combine_impl} {name}",
                      pixels=stack.numel()):
         stacked = stack_registered(stack, matrices, config)
         synchronize(dev)
-    with timer.stage(f"download {name}"):
-        stacked = stacked.cpu().numpy()
-        diag = {k: v if isinstance(v, int) else v.cpu().numpy()
-                for k, v in diag.items()}
+    with timer.stage("download", name):
+        arrays = [stacked] + [v for v in diag.values()
+                              if not isinstance(v, int)]
+        if dev.type != "cpu":
+            count("d2h_bytes",
+                  sum(a.numel() * a.element_size() for a in arrays))
+        with host_read(stacked, reads=len(arrays)):
+            stacked = stacked.cpu().numpy()
+            diag = {k: v if isinstance(v, int) else v.cpu().numpy()
+                    for k, v in diag.items()}
     return stacked, diag
 
 
@@ -614,7 +623,7 @@ def _stack_group(stack, hdrs, exps, cal_paths, nav_wcs, stack_path: str,
         # coadd weight = sum of frame coverage x 1/fscale^2.
         # Named weight-<group>.fits so stack-*.fits globs
         # never ingest weight maps as stacks.
-        with timer.stage(f"weight map {stack_name}"):
+        with timer.stage("weight map", stack_name):
             fw = 1.0 / np.square(scales)
             # frames that failed registration (< 4 inliers)
             # contribute ~nothing to the combine; zero their
@@ -626,7 +635,7 @@ def _stack_group(stack, hdrs, exps, cal_paths, nav_wcs, stack_path: str,
                 torch.from_numpy(diag["matrices"]).to(dev),
                 tuple(stack.shape[1:]), stacked.shape,
                 torch.from_numpy(fw).to(dev)).cpu().numpy()
-    with timer.stage(f"write {stack_name}"):
+    with timer.stage("write", stack_name):
         write_image(stack_path, stacked, out_hdr)
         if wmap is not None:
             whdr = out_hdr.copy()

@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .utils.timing import count, host_read
+
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     """The device to put new tensors on: ``device`` if given, else CUDA.
@@ -51,7 +53,12 @@ def on_device(x, device: torch.device,
     t = torch.from_numpy(native_contiguous(x))
     if dtype is not None:
         t = t.to(dtype)
-    return t.to(device)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t
+    count("h2d_bytes", t.numel() * t.element_size())
+    with host_read(device):            # a copy from pageable host memory
+        return t.to(device)
 
 
 def _from_numpy(x: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -12,6 +12,8 @@ Each kernel has a launch counter: a plain integer in
 :data:`launch_counts`, raised by one where the wrapper launches the
 kernel and nowhere else, so a run can show that its main path went
 through the kernels; :data:`warp_route_counts` splits K2's by route.
+:func:`_launched` raises both, and the span counters ``launch.<kernel>``
+and ``launch.warp_combine.<route>`` (``utils.timing``) with them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from .utils import timing
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -57,6 +61,16 @@ def reset_launch_counts() -> None:
     for counts in (launch_counts, warp_route_counts):
         for k in counts:
             counts[k] = 0
+
+
+def _launched(kernel: str, route: Optional[str] = None) -> None:
+    """Count one launch of ``kernel`` (by ``route`` for K2): the process
+    totals and the innermost span's counters."""
+    launch_counts[kernel] += 1
+    timing.count(f"launch.{kernel}")
+    if route is not None:
+        warp_route_counts[route] += 1
+        timing.count(f"launch.{kernel}.{route}")
 
 
 def _nvcc() -> str:
@@ -302,7 +316,7 @@ def detect_tiles_cuda(frames, thresholds, mf_bc, a_plane, exp_ratios,
         _ptr(out_yoff), _ptr(out_xoff), n, h, w, r, lay["tile_cols"],
         lay["strip_tiles"], _ptr(scratch), chunk, ctypes.c_void_p(stream))
     _raise_on(err, "detect_tiles")
-    launch_counts["detect_tiles"] += 1
+    _launched("detect_tiles")
     return out_max, out_idx, out_yoff, out_xoff
 
 
@@ -562,8 +576,7 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
         plan.span, int(lowrank), combine, sigma_lower, sigma_upper, rows,
         _ptr(scratch), grid, run, ctypes.c_void_p(stream))
     _raise_on(err, "warp_combine")
-    launch_counts["warp_combine"] += 1
-    warp_route_counts[route] += 1
+    _launched("warp_combine", route)
     return out
 
 
@@ -696,5 +709,5 @@ def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float,
         sigma_upper, _CLIP_ROUTE_CODES[route], param,
         ctypes.c_void_p(stream))
     _raise_on(err, "clip_combine")
-    launch_counts["clip_combine"] += 1
+    _launched("clip_combine")
     return out

@@ -35,6 +35,7 @@ from ..ops.stats import masked_median
 from ..ops.warp import (warp_affine_bilinear, warp_affine_lanczos3,
                         warp_affine_separable)
 from ..ops.warp_combine import warp_combine
+from ..utils.timing import count, host_read, span
 from .config import PipelineConfig
 
 
@@ -160,60 +161,68 @@ def _detect_stars_fused(frames, bias, dark, flat, exp_ratios,
     (centroid='com')."""
     n, h, w = frames.shape
     dev = frames.device
-    a_full, b_plane, c_plane, bias_t, dark_use, has_masters = \
-        _calibration_planes(bias, dark, flat, config.dark_still_biased, h, w,
-                            dev)
+    with span("apt.detect.planes"):
+        a_full, b_plane, c_plane, bias_t, dark_use, has_masters = \
+            _calibration_planes(bias, dark, flat, config.dark_still_biased,
+                                h, w, dev)
 
     # per-frame noise stats on calibrated SUBSAMPLED rows only
-    st = _noise_row_stride(h)
-    cal_sub = to_float32(_sample_rows(frames, st))
-    if a_full is not None:
-        cal_sub = cal_sub * _sample_rows(a_full, st)
-    if b_plane is not None:
-        cal_sub = cal_sub - _sample_rows(b_plane, st)
-    if c_plane is not None:
-        cal_sub = cal_sub - exp_ratios[:, None, None] \
-            * _sample_rows(c_plane, st)
-    ce, std = _noise_stats_from_sub(cal_sub.reshape(n, -1),
-                                    config.noise_center)
+    with span("apt.detect.noise"):
+        st = _noise_row_stride(h)
+        cal_sub = to_float32(_sample_rows(frames, st))
+        if a_full is not None:
+            cal_sub = cal_sub * _sample_rows(a_full, st)
+        if b_plane is not None:
+            cal_sub = cal_sub - _sample_rows(b_plane, st)
+        if c_plane is not None:
+            cal_sub = cal_sub - exp_ratios[:, None, None] \
+                * _sample_rows(c_plane, st)
+        ce, std = _noise_stats_from_sub(cal_sub.reshape(n, -1),
+                                        config.noise_center)
 
-    mf = master_densities(bias_t, dark_use, flat, fwhm=config.fwhm) \
-        if has_masters else None
-    maxv, idxv, yoffv, xoffv = detect_tiles(
-        frames, config.detect_nsigma * std, mf_bc=mf, a_plane=a_full,
-        exp_ratios=exp_ratios, fwhm=config.fwhm)
+    with span("apt.detect.planes"):
+        mf = master_densities(bias_t, dark_use, flat, fwhm=config.fwhm) \
+            if has_masters else None
+    with span("apt.detect.k1"):
+        maxv, idxv, yoffv, xoffv = detect_tiles(
+            frames, config.detect_nsigma * std, mf_bc=mf, a_plane=a_full,
+            exp_ratios=exp_ratios, fwhm=config.fwhm)
+    with span("apt.detect.select"):
+        tx_n = maxv.shape[2]
+        n_tiles = maxv.shape[1] * maxv.shape[2]
+        k = min(config.max_stars, n_tiles)
+        order = torch.sort(maxv.reshape(n, -1), dim=1, descending=True,
+                           stable=True)
+        top_vals, top_t = order.values[:, :k], order.indices[:, :k]
+        if k < config.max_stars:
+            # small frames have fewer tiles than the star capacity; pad
+            pad = config.max_stars - k
+            top_vals = torch.nn.functional.pad(top_vals, (0, pad),
+                                               value=-3.0e38)
+            top_t = torch.nn.functional.pad(top_t, (0, pad))
+        valid = top_vals > -1.0e37
+        loc = torch.gather(idxv.reshape(n, -1), 1, top_t).long()
+        rb = (top_t // tx_n) * _TTY + loc // _TTX      # binned peak row
+        py = rb * _BIN
+        px = (top_t % tx_n) * _TTX + loc % _TTX
+        zero = torch.zeros((n, config.max_stars), dtype=torch.float32,
+                           device=dev)
 
-    tx_n = maxv.shape[2]
-    n_tiles = maxv.shape[1] * maxv.shape[2]
-    k = min(config.max_stars, n_tiles)
-    order = torch.sort(maxv.reshape(n, -1), dim=1, descending=True,
-                       stable=True)
-    top_vals, top_t = order.values[:, :k], order.indices[:, :k]
-    if k < config.max_stars:
-        # small frames have fewer tiles than the star capacity; pad
-        pad = config.max_stars - k
-        top_vals = torch.nn.functional.pad(top_vals, (0, pad), value=-3.0e38)
-        top_t = torch.nn.functional.pad(top_t, (0, pad))
-    valid = top_vals > -1.0e37
-    loc = torch.gather(idxv.reshape(n, -1), 1, top_t).long()
-    rb = (top_t // tx_n) * _TTY + loc // _TTX      # binned peak row
-    py = rb * _BIN
-    px = (top_t % tx_n) * _TTX + loc % _TTX
-    zero = torch.zeros((n, config.max_stars), dtype=torch.float32, device=dev)
-
-    if config.centroid == "kernel":
-        # the detector's calibrated parabola offsets (binned rows /
-        # full-res columns); binned row b covers rows 2b..2b+1
-        yo = torch.gather(yoffv.reshape(n, -1), 1, top_t)
-        xo = torch.gather(xoffv.reshape(n, -1), 1, top_t)
-        cx = px.to(torch.float32) + xo
-        cy = (rb.to(torch.float32) + yo) * _BIN + 0.5
-    else:
-        cx, cy = _com_centroids(frames, py, px, ce, exp_ratios, a_full,
-                                b_plane, c_plane, _kernel_radius(config.fwhm))
-    return Stars(x=torch.where(valid, cx, zero), y=torch.where(valid, cy, zero),
-                 flux=torch.where(valid, top_vals, zero), peak=zero,
-                 sharpness=zero, roundness=zero, valid=valid)
+        if config.centroid == "kernel":
+            # the detector's calibrated parabola offsets (binned rows /
+            # full-res columns); binned row b covers rows 2b..2b+1
+            yo = torch.gather(yoffv.reshape(n, -1), 1, top_t)
+            xo = torch.gather(xoffv.reshape(n, -1), 1, top_t)
+            cx = px.to(torch.float32) + xo
+            cy = (rb.to(torch.float32) + yo) * _BIN + 0.5
+        else:
+            cx, cy = _com_centroids(frames, py, px, ce, exp_ratios, a_full,
+                                    b_plane, c_plane,
+                                    _kernel_radius(config.fwhm))
+        return Stars(x=torch.where(valid, cx, zero),
+                     y=torch.where(valid, cy, zero),
+                     flux=torch.where(valid, top_vals, zero), peak=zero,
+                     sharpness=zero, roundness=zero, valid=valid)
 
 
 def _com_centroids(frames, py, px, ce, exp_ratios, a_full, b_plane, c_plane,
@@ -262,7 +271,8 @@ def _ref_index(stars: Stars, config: PipelineConfig) -> int:
     """Registration reference frame: a fixed index, or 'auto' = the frame
     with the most detected stars (first on ties)."""
     if config.ref_frame == "auto":
-        return int(torch.argmax(stars.valid.sum(dim=1)))
+        with host_read(stars.valid):
+            return int(torch.argmax(stars.valid.sum(dim=1)))
     n = stars.valid.shape[0]
     idx = int(config.ref_frame)
     if not -n <= idx < n:
@@ -281,10 +291,12 @@ def _solve_frame_similarities(stars: Stars, n: int, config: PipelineConfig):
         k=config.match_k)
     ident = (1.0, 0.0, 0.0, 0.0, config.max_stars, 0.0)
     fields = []
-    for v, idv in zip(sims, ident):
-        v = v.clone()
-        v[idx_ref] = idv
-        fields.append(v)
+    # each scalar store copies a host value into the stream: a sync
+    with host_read(stars.x, reads=len(ident)):
+        for v, idv in zip(sims, ident):
+            v = v.clone()
+            v[idx_ref] = idv
+            fields.append(v)
     sims = Similarity(*fields)
     return sims, sims.matrix(), idx_ref
 
@@ -312,16 +324,20 @@ def detect_calibrated(cal: torch.Tensor, config: PipelineConfig) -> Stars:
     noise stats of the whole stack, then detection of all frames at once
     ('vmap') or ``detect_chunk`` frames at a time ('chunked')."""
     n = cal.shape[0]
-    center, std = frame_noise_stats(cal, center=config.noise_center)
+    with span("apt.detect.noise"):
+        center, std = frame_noise_stats(cal, center=config.noise_center)
+    c = n
     if config.detect_mode == "chunked" and n > config.detect_chunk:
         c = config.detect_chunk
         if n % c:
             raise ValueError(f"frame count {n} not divisible by "
                              f"detect_chunk {c}")
-        return _concat_stars([
-            _find_stars(cal[k:k + c], center[k:k + c], std[k:k + c], config)
-            for k in range(0, n, c)])
-    return _find_stars(cal, center, std, config)
+    parts = []
+    for k in range(0, n, c):
+        with span("apt.detect.find"):
+            parts.append(_find_stars(cal[k:k + c], center[k:k + c],
+                                     std[k:k + c], config))
+    return parts[0] if len(parts) == 1 else _concat_stars(parts)
 
 
 def register_frames(cal: torch.Tensor,
@@ -331,10 +347,27 @@ def register_frames(cal: torch.Tensor,
     :func:`calibrate_register_stack`.
 
     Returns (stars, sims, matrices (N, 2, 3), ref_idx)."""
-    stars = detect_calibrated(cal, config)
-    sims, matrices, ref_idx = _solve_frame_similarities(stars, cal.shape[0],
-                                                        config)
-    return stars, sims, matrices, ref_idx
+    with span("apt.detect"):
+        stars = detect_calibrated(cal, config)
+        count("detect.stars", _fewest_stars(stars))
+    return (stars, *_register(stars, cal.shape[0], config))
+
+
+def _fewest_stars(stars: Stars):
+    """``detect.stars``: the valid stars of the frame with the fewest,
+    read with the span records."""
+    return lambda: int(stars.valid.sum(dim=1).min())
+
+
+def _register(stars: Stars, n: int, config: PipelineConfig):
+    """:func:`_solve_frame_similarities` as the span ``apt.register``,
+    with ``register.inliers``: the distinct matched stars of the frame
+    with the fewest, read with the span records."""
+    with span("apt.register"):
+        sims, matrices, ref_idx = _solve_frame_similarities(stars, n, config)
+        inliers = sims.n_inliers
+        count("register.inliers", lambda: int(inliers.min()))
+    return sims, matrices, ref_idx
 
 
 def band_matrices(matrices: torch.Tensor, y0: float) -> torch.Tensor:
@@ -382,6 +415,7 @@ def combine_band(warped: torch.Tensor, weights: torch.Tensor,
     return torch.where(torch.isnan(out), 0.0, out)
 
 
+@span("apt.stack", entry="unfused")
 def calibrate_register_stack(
     frames: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
@@ -414,16 +448,17 @@ def calibrate_register_stack(
         raise TypeError("frames must be a torch.Tensor; its device is "
                         "where the pipeline runs")
     dev = frames.device
-    bias, dark, flat = (on_device(m, dev, torch.float32)
-                        for m in (bias, dark, flat))
-    exp_ratios = on_device(exp_ratios, dev, torch.float32)
-    flux_scales = on_device(flux_scales, dev, torch.float32)
-    badpix_mask = on_device(badpix_mask, dev)
-    cal = calibrate_batch(frames, bias, dark, flat, exp_ratios,
-                          dark_still_biased=config.dark_still_biased,
-                          badpix_mask=badpix_mask)
-    if flux_scales is not None:
-        cal = cal * flux_scales[:, None, None]
+    with span("apt.calibrate"):
+        bias, dark, flat = (on_device(m, dev, torch.float32)
+                            for m in (bias, dark, flat))
+        exp_ratios = on_device(exp_ratios, dev, torch.float32)
+        flux_scales = on_device(flux_scales, dev, torch.float32)
+        badpix_mask = on_device(badpix_mask, dev)
+        cal = calibrate_batch(frames, bias, dark, flat, exp_ratios,
+                              dark_still_biased=config.dark_still_biased,
+                              badpix_mask=badpix_mask)
+        if flux_scales is not None:
+            cal = cal * flux_scales[:, None, None]
 
     stars, sims, matrices, ref_idx = register_frames(cal, config)
     return (stack_registered(cal, matrices, config),
@@ -464,9 +499,12 @@ def stack_registered(cal: torch.Tensor, matrices: torch.Tensor,
     band_h = h // n_bands
     bands = []
     for b in range(n_bands):
-        warped, weights = warp_band(
-            cal, band_matrices(matrices, float(b * band_h)), band_h, config)
-        bands.append(combine_band(warped, weights, config))
+        with span("apt.warp", band=b):
+            warped, weights = warp_band(
+                cal, band_matrices(matrices, float(b * band_h)), band_h,
+                config)
+        with span("apt.combine", band=b):
+            bands.append(combine_band(warped, weights, config))
         del warped, weights
     return torch.cat(bands, dim=0)
 
@@ -504,12 +542,13 @@ def detect_lean(frames: torch.Tensor, bias, dark, flat,
                                    config)
     parts = []
     for k in range(0, n, c):
-        calc = calibrate_batch(frames[k:k + c], bias, dark, flat,
-                               exp_ratios[k:k + c],
-                               dark_still_biased=config.dark_still_biased)
-        ce, s = frame_noise_stats(calc, center=config.noise_center)
-        parts.append(_find_stars(calc, ce, s, config))
-        del calc
+        with span("apt.detect.find"):
+            calc = calibrate_batch(frames[k:k + c], bias, dark, flat,
+                                   exp_ratios[k:k + c],
+                                   dark_still_biased=config.dark_still_biased)
+            ce, s = frame_noise_stats(calc, center=config.noise_center)
+            parts.append(_find_stars(calc, ce, s, config))
+            del calc
     return _concat_stars(parts)
 
 
@@ -539,6 +578,7 @@ def lean_kernel_kwargs(config: PipelineConfig, h: int, w: int) -> dict:
                 general_taps=config.general_taps)
 
 
+@span("apt.stack", entry="lean")
 def calibrate_register_stack_lean(
     frames: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
@@ -572,11 +612,14 @@ def calibrate_register_stack_lean(
         if exp_ratios is None else on_device(exp_ratios, dev, torch.float32)
     flux_scales = on_device(flux_scales, dev, torch.float32)
 
-    stars = detect_lean(frames, bias, dark, flat, exp_ratios, config)
-    sims, matrices, ref_idx = _solve_frame_similarities(stars, n, config)
+    with span("apt.detect"):
+        stars = detect_lean(frames, bias, dark, flat, exp_ratios, config)
+        count("detect.stars", _fewest_stars(stars))
+    sims, matrices, ref_idx = _register(stars, n, config)
+    with span("apt.masters"):
+        masters = lean_masters(bias, dark, flat, config, h, w, dev)
     stacked = warp_combine(
-        frames, matrices,
-        masters=lean_masters(bias, dark, flat, config, h, w, dev),
+        frames, matrices, masters=masters,
         exp_ratios=exp_ratios, flux_scales=flux_scales,
         **lean_kernel_kwargs(config, h, w))
     diagnostics = {

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import numpy_inputs, to_float32
+from ..utils.timing import host_read
 from .stencil import conv2d_static
 
 FWHM_TO_SIGMA = 1.0 / 2.35482
@@ -104,7 +105,8 @@ def fast_density(data: torch.Tensor, fwhm: float,
     x = data.to(dtype)
 
     def const(v):
-        return torch.as_tensor(v, dtype=dtype, device=x.device)
+        with host_read(x):             # a copy from pageable host memory
+            return torch.as_tensor(v, dtype=dtype, device=x.device)
 
     gct = const(gc)
     ones = torch.ones_like(gct)
@@ -160,7 +162,8 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     need = k - above.sum(dim=-1, keepdim=True)
     take = above | (tie & (torch.cumsum(tie.to(torch.int32), dim=-1,
                                         dtype=torch.int32) <= need))
-    idx = torch.nonzero(take)[:, 1].reshape(-1, k)    # ascending per row
+    with host_read(take):              # nonzero reads its count
+        idx = torch.nonzero(take)[:, 1].reshape(-1, k)  # ascending per row
     vals = torch.gather(flat, 1, idx)
     order = torch.sort(vals, dim=1, descending=True, stable=True).indices
     vals = torch.gather(vals, 1, order).to(x.dtype)

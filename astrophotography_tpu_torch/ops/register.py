@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..device import numpy_inputs
+from ..utils.timing import span
 
 #: translation sentinel marking a REJECTED registration solve; callers
 #: detecting rejected frames compare against this
@@ -139,75 +140,80 @@ def estimate_similarity(
             inlier_tol=inlier_tol, min_seg=min_seg,
             refine_iters=refine_iters)))
     tables = [t.expand(batch, -1) if t.dim() == 1 else t for t in tables]
-    rx, ry, rv = _top_k_stars(*tables[0:4], k)
-    tx_, ty_, tv = _top_k_stars(*tables[4:8], k)
-    b = rx.shape[0]
-    rlen, rang, rok = (a.reshape(b, -1) for a in _segments(rx, ry, rv, min_seg))
-    tlen, tang, tok = (a.reshape(b, -1) for a in _segments(tx_, ty_, tv,
-                                                           min_seg))
-    # candidate (ref pair p, tgt pair q) -> flattened p * k^2 + q
-    ri = torch.arange(k, device=rx.device).repeat_interleave(k)
-    scale_c = tlen[:, None, :] / torch.clamp(rlen[:, :, None], min=1e-9)
-    theta_c = tang[:, None, :] - rang[:, :, None]
-    cand_ok = (rok[:, :, None] & tok[:, None, :]
-               & ((scale_c - 1.0).abs() < scale_tol))
-    c_c = scale_c * torch.cos(theta_c)
-    s_c = scale_c * torch.sin(theta_c)
-    rx_i = rx[:, ri][:, :, None]
-    ry_i = ry[:, ri][:, :, None]
-    tx_i = tx_[:, ri][:, None, :]
-    ty_i = ty_[:, ri][:, None, :]
-    flat_c = c_c.reshape(b, -1)
-    flat_s = s_c.reshape(b, -1)
-    flat_tx = (tx_i - (c_c * rx_i - s_c * ry_i)).reshape(b, -1)
-    flat_ty = (ty_i - (s_c * rx_i + c_c * ry_i)).reshape(b, -1)
+    with span("apt.register.match"):
+        rx, ry, rv = _top_k_stars(*tables[0:4], k)
+        tx_, ty_, tv = _top_k_stars(*tables[4:8], k)
+        b = rx.shape[0]
+        rlen, rang, rok = (a.reshape(b, -1)
+                           for a in _segments(rx, ry, rv, min_seg))
+        tlen, tang, tok = (a.reshape(b, -1)
+                           for a in _segments(tx_, ty_, tv, min_seg))
+        # candidate (ref pair p, tgt pair q) -> flattened p * k^2 + q
+        ri = torch.arange(k, device=rx.device).repeat_interleave(k)
+        scale_c = tlen[:, None, :] / torch.clamp(rlen[:, :, None], min=1e-9)
+        theta_c = tang[:, None, :] - rang[:, :, None]
+        cand_ok = (rok[:, :, None] & tok[:, None, :]
+                   & ((scale_c - 1.0).abs() < scale_tol))
+        c_c = scale_c * torch.cos(theta_c)
+        s_c = scale_c * torch.sin(theta_c)
+        rx_i = rx[:, ri][:, :, None]
+        ry_i = ry[:, ri][:, :, None]
+        tx_i = tx_[:, ri][:, None, :]
+        ty_i = ty_[:, ri][:, None, :]
+        flat_c = c_c.reshape(b, -1)
+        flat_s = s_c.reshape(b, -1)
+        flat_tx = (tx_i - (c_c * rx_i - s_c * ry_i)).reshape(b, -1)
+        flat_ty = (ty_i - (s_c * rx_i + c_c * ry_i)).reshape(b, -1)
 
-    # score: reference stars within inlier_tol of some target star
-    pair_ok = (rv[:, :, None] & tv[:, None, :])[..., None]
-    tol2 = inlier_tol ** 2
-    n_cand = flat_c.shape[1]
-    chunk = max(1, _SCORE_ELEMS // max(b * k * k, 1))
-    scores = []
-    for o in range(0, n_cand, chunk):
-        cc, sc = flat_c[:, None, o:o + chunk], flat_s[:, None, o:o + chunk]
-        mx = cc * rx[:, :, None] - sc * ry[:, :, None] \
-            + flat_tx[:, None, o:o + chunk]                    # (B, k, C)
-        my = sc * rx[:, :, None] + cc * ry[:, :, None] \
-            + flat_ty[:, None, o:o + chunk]
-        d2 = ((mx[:, :, None, :] - tx_[:, None, :, None]) ** 2
-              + (my[:, :, None, :] - ty_[:, None, :, None]) ** 2)
-        d2 = torch.where(pair_ok, d2, torch.inf)
-        scores.append((d2.amin(dim=2) < tol2).sum(dim=1))
-    scores = torch.where(cand_ok.reshape(b, -1), torch.cat(scores, dim=1), -1)
-    best = torch.argmax(scores, dim=1, keepdim=True)
-    c = torch.gather(flat_c, 1, best)[:, 0]
-    s = torch.gather(flat_s, 1, best)[:, 0]
-    t_x = torch.gather(flat_tx, 1, best)[:, 0]
-    t_y = torch.gather(flat_ty, 1, best)[:, 0]
+        # score: reference stars within inlier_tol of some target star
+        pair_ok = (rv[:, :, None] & tv[:, None, :])[..., None]
+        tol2 = inlier_tol ** 2
+        n_cand = flat_c.shape[1]
+        chunk = max(1, _SCORE_ELEMS // max(b * k * k, 1))
+        scores = []
+        for o in range(0, n_cand, chunk):
+            cc = flat_c[:, None, o:o + chunk]
+            sc = flat_s[:, None, o:o + chunk]
+            mx = cc * rx[:, :, None] - sc * ry[:, :, None] \
+                + flat_tx[:, None, o:o + chunk]                    # (B, k, C)
+            my = sc * rx[:, :, None] + cc * ry[:, :, None] \
+                + flat_ty[:, None, o:o + chunk]
+            d2 = ((mx[:, :, None, :] - tx_[:, None, :, None]) ** 2
+                  + (my[:, :, None, :] - ty_[:, None, :, None]) ** 2)
+            d2 = torch.where(pair_ok, d2, torch.inf)
+            scores.append((d2.amin(dim=2) < tol2).sum(dim=1))
+        scores = torch.where(cand_ok.reshape(b, -1),
+                             torch.cat(scores, dim=1), -1)
+        best = torch.argmax(scores, dim=1, keepdim=True)
+        c = torch.gather(flat_c, 1, best)[:, 0]
+        s = torch.gather(flat_s, 1, best)[:, 0]
+        t_x = torch.gather(flat_tx, 1, best)[:, 0]
+        t_y = torch.gather(flat_ty, 1, best)[:, 0]
 
-    # refinement: nearest-neighbour matching + weighted closed-form refit
-    both = rv[:, :, None] & tv[:, None, :]
-    src = torch.stack([rx, ry], dim=-1)
-    for _ in range(refine_iters):
-        mx = c[:, None] * rx - s[:, None] * ry + t_x[:, None]
-        my = s[:, None] * rx + c[:, None] * ry + t_y[:, None]
-        d2 = ((mx[:, :, None] - tx_[:, None, :]) ** 2
-              + (my[:, :, None] - ty_[:, None, :]) ** 2)
-        d2 = torch.where(both, d2, torch.inf)
-        nn_d2 = d2.amin(dim=2)
-        nn = torch.argmin(d2, dim=2)      # first on ties, as jnp.argmin
-        wgt = (nn_d2 < tol2).to(torch.float32)
-        dst = torch.stack([torch.gather(tx_, 1, nn),
-                           torch.gather(ty_, 1, nn)], dim=-1)
-        scale, theta, t_x, t_y = solve_similarity(src, dst, wgt)
-        c, s = scale * torch.cos(theta), scale * torch.sin(theta)
-    # count DISTINCT matched target stars: a degenerate transform can drag
-    # many reference stars onto one target
-    n_in = torch.zeros((b, k), dtype=torch.float32, device=rx.device) \
-        .scatter_reduce(1, nn, wgt, reduce="amax", include_self=True) \
-        .sum(dim=1)
-    rms = torch.sqrt(torch.where(wgt > 0, nn_d2, 0.0).sum(dim=1)
-                     / torch.clamp(n_in, min=1.0))
+    with span("apt.register.refine"):
+        # refinement: nearest-neighbour matching + weighted closed-form refit
+        both = rv[:, :, None] & tv[:, None, :]
+        src = torch.stack([rx, ry], dim=-1)
+        for _ in range(refine_iters):
+            mx = c[:, None] * rx - s[:, None] * ry + t_x[:, None]
+            my = s[:, None] * rx + c[:, None] * ry + t_y[:, None]
+            d2 = ((mx[:, :, None] - tx_[:, None, :]) ** 2
+                  + (my[:, :, None] - ty_[:, None, :]) ** 2)
+            d2 = torch.where(both, d2, torch.inf)
+            nn_d2 = d2.amin(dim=2)
+            nn = torch.argmin(d2, dim=2)      # first on ties, as jnp.argmin
+            wgt = (nn_d2 < tol2).to(torch.float32)
+            dst = torch.stack([torch.gather(tx_, 1, nn),
+                               torch.gather(ty_, 1, nn)], dim=-1)
+            scale, theta, t_x, t_y = solve_similarity(src, dst, wgt)
+            c, s = scale * torch.cos(theta), scale * torch.sin(theta)
+        # count DISTINCT matched target stars: a degenerate transform can
+        # drag many reference stars onto one target
+        n_in = torch.zeros((b, k), dtype=torch.float32, device=rx.device) \
+            .scatter_reduce(1, nn, wgt, reduce="amax", include_self=True) \
+            .sum(dim=1)
+        rms = torch.sqrt(torch.where(wgt > 0, nn_d2, 0.0).sum(dim=1)
+                         / torch.clamp(n_in, min=1.0))
     scale_f = torch.sqrt(c * c + s * s)
     theta_f = torch.atan2(s, c)
     ok = (n_in >= 2) & ((scale_f - 1.0).abs() < 3.0 * scale_tol)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import numpy_inputs, to_float32
+from ..utils.timing import host_read
 
 LANCZOS_A = 3
 
@@ -298,8 +299,9 @@ def _separable_chunk(imgs, mats, out_shape, band, span, analytic_coverage,
     hp2 = pad_t + h_in + band + span + 4
     base2 = _clipped_base(v, -pad_t, h_in + 3)        # (c, nb2)
     start2 = _slice_start(base2, pad_t, hp2, band + span)
-    row_lo = max(int(start2.min()), 0)
-    row_hi = min(int(start2.max()) + band + span, h_in)
+    with host_read(start2, reads=2):
+        row_lo = max(int(start2.min()), 0)
+        row_hi = min(int(start2.max()) + band + span, h_in)
 
     # horizontal pass over the bands holding those rows
     b_lo = row_lo // band

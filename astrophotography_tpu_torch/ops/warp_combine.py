@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..device import numpy_inputs, to_float32
+from ..utils.timing import count, span as _span
 from .warp import lanczos3_poly
 
 _MAD_TO_STD = 1.482602218505602
@@ -573,6 +574,16 @@ def warp_combine_plain(
                       sigma_upper, general_taps)
 
 
+def frame_tiles_used(plan: WarpPlan) -> torch.Tensor:
+    """The (frame, tile) pairs the kernel combines, by its own rule
+    (``kind_of`` in csrc/warp_combine.cu): the tile's window holds the
+    frame's taps (``base_ok``) and the frame is a snapped translation or
+    passes its tap-body gate.  A 0-dim tensor on the plan's device."""
+    body = (plan.table[:, 8] > 0.5) | (plan.table[:, 14] > 0.5)
+    return ((plan.tiles[..., 2] != 0) & body[:, None]).sum()
+
+
+@_span("apt.warp_combine")
 @numpy_inputs("frames", "matrices", "masters", "exp_ratios", "flux_scales", "v_bounds", "snap_geom")
 def warp_combine(
     frames: torch.Tensor,
@@ -623,22 +634,34 @@ def warp_combine(
     computed once; each thread combines its own pixels (in registers to
     32 frames, in shared memory to 112, through the 'cols' combine past
     that).  It takes spans up to 1436 (``kernels._WARP_WIDE_MAX_SPAN``);
-    past that the wrapper raises."""
+    past that the wrapper raises.
+
+    Spans: ``apt.warp_combine`` around the call, ``apt.warp_combine.plan``
+    and ``apt.warp_combine.k2`` (the kernel, or its twin on the CPU);
+    counters ``warp_combine.frame_tiles`` (frames x tiles) and
+    ``warp_combine.frame_tiles_used`` (:func:`frame_tiles_used`, read with
+    the span records)."""
     _validate(frames, matrices, masters, combine)
     if frames.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no warp+combine kernel for device {frames.device}")
-    plan = plan_warp_combine(frames.shape, matrices, exp_ratios, flux_scales,
-                             tile=tile, span=span, apron=apron,
-                             dither_budget=dither_budget, snap_tol=snap_tol,
-                             general_taps=general_taps, v_bounds=v_bounds,
-                             snap_geom=snap_geom)
-    masters = None if masters is None else masters.to(torch.float32)
-    if frames.device.type == "cpu":
-        return _run_plain(frames, masters, plan, combine, sigma_lower,
-                          sigma_upper, general_taps)
-    from .. import kernels
+    with _span("apt.warp_combine.plan"):
+        plan = plan_warp_combine(frames.shape, matrices, exp_ratios,
+                                 flux_scales, tile=tile, span=span,
+                                 apron=apron, dither_budget=dither_budget,
+                                 snap_tol=snap_tol, general_taps=general_taps,
+                                 v_bounds=v_bounds, snap_geom=snap_geom)
+        masters = None if masters is None else masters.to(torch.float32)
+    count("warp_combine.frame_tiles",
+          frames.shape[0] * plan.n_ti * plan.n_tj)
+    count("warp_combine.frame_tiles_used",
+          lambda: int(frame_tiles_used(plan)))
+    with _span("apt.warp_combine.k2"):
+        if frames.device.type == "cpu":
+            return _run_plain(frames, masters, plan, combine, sigma_lower,
+                              sigma_upper, general_taps)
+        from .. import kernels
 
-    return kernels.warp_combine_cuda(
-        frames, masters, plan, combine=_COMBINES.index(combine),
-        lowrank=general_taps == "lowrank", sigma_lower=float(sigma_lower),
-        sigma_upper=float(sigma_upper))
+        return kernels.warp_combine_cuda(
+            frames, masters, plan, combine=_COMBINES.index(combine),
+            lowrank=general_taps == "lowrank",
+            sigma_lower=float(sigma_lower), sigma_upper=float(sigma_upper))

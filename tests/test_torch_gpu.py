@@ -1198,3 +1198,78 @@ def test_bench_attempt_lean_on_the_card(cuda):
     assert line["peak_mem_bytes"] > 0
     assert line["device"]["name"] == torch.cuda.get_device_name(0)
     assert line["device"]["power_limit_w"] > 0
+
+
+@pytest.mark.parametrize("path", ["lean", "unfused"])
+def test_spans_and_syncs_on_the_card(cuda, path):
+    """Each entry at 8 x 1024^2 on the card under the profiler: every
+    record holds its profiler range (started within 1 ms of the record),
+    no program range reaches the card's timeline, the launches are
+    counted in the spans, and the host reads the program counts in a
+    call are the synchronizations the card's sync debug mode reports."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from astrophotography_tpu_torch.models import pipeline as pl
+    from astrophotography_tpu_torch.utils import timing
+    from stackbench.registry import Registry
+    from stackbench.run import pipeline_config
+
+    reg = Registry.load()
+    name = {"lean": "lean-rot-16mpix-n100.rotate",
+            "unfused": "unfused-16mpix-n24.dither"}[path]
+    cell = reg.cell(name)
+    config = dict(reg.config(cell["config"]), frames=8, height=1024,
+                  width=1024)
+    mix = reg.traffic(cell["traffic"])
+    obs = reg.generator(mix["generator"]).inputs(config, mix, 2**31 + 3,
+                                                 cuda)
+    cfg = pipeline_config(config)
+    entry = getattr(pl, config["entry"])
+
+    def call():
+        return entry(obs.frames, bias=obs.bias, dark=obs.dark, flat=obs.flat,
+                     exp_ratios=obs.exp_ratios, config=cfg)
+
+    call()
+    torch.cuda.synchronize()
+    timing.clear_records()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    recs = timing.records()
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("apt."):
+            assert e.device_type() == torch.autograd.DeviceType.CPU
+            events.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    assert {r["name"] for r in recs} == set(events)
+    for span in events:
+        mine = sorted((r["t0"], r["t1"]) for r in recs if r["name"] == span)
+        assert len(mine) == len(events[span])
+        for (t0, t1), (s, e) in zip(mine, sorted(events[span])):
+            assert t0 <= s <= e <= t1 and s - t0 < 1_000_000, span
+    counted = {}
+    for r in recs:
+        for k, v in r["counters"].items():
+            counted[k] = counted.get(k, 0) + v
+    if path == "lean":
+        assert counted["launch.detect_tiles"] == 1
+        assert counted["launch.warp_combine"] == 1
+        assert counted["launch.warp_combine.smem"] == 1
+    else:
+        assert not any(k.startswith("launch.") for k in counted)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    assert syncs == counted.get("host_reads", 0) > 0
