@@ -11,9 +11,11 @@ point launches on PyTorch's current stream and returns
 Each kernel has a launch counter: a plain integer in
 :data:`launch_counts`, raised by one where the wrapper launches the
 kernel and nowhere else, so a run can show that its main path went
-through the kernels; :data:`warp_route_counts` splits K2's by route.
-:func:`_launched` raises both, and the span counters ``launch.<kernel>``
-and ``launch.warp_combine.<route>`` (``utils.timing``) with them.
+through the kernels; :data:`route_counts` splits those of the kernels
+that have routes by route (K2's and the separable warp's, seen also as
+:data:`warp_route_counts` and :data:`warp_separable_route_counts`).
+:func:`_launched` raises them, and the span counters ``launch.<kernel>``
+and ``launch.<kernel>.<route>`` (``utils.timing``) with them.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ _SRC = _PKG / "csrc"
 #: kernel name -> its source under csrc/ (one library each)
 _SOURCES = {"detect_tiles": "detect_tiles.cu",
             "warp_combine": "warp_combine.cu",
-            "clip_combine": "clip_combine.cu"}
+            "clip_combine": "clip_combine.cu",
+            "warp_separable": "warp_separable.cu"}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 #: ``-Xptxas -v`` reports each kernel's registers, shared memory, stack
 #: frame and spills on stderr, kept in ``build_info["ptxas"]``
@@ -48,8 +51,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {name: 0 for name in _SOURCES}
-#: K2's launches by route since the last :func:`reset_launch_counts`
-warp_route_counts = {"smem": 0, "cols": 0, "wide": 0}
+#: launches by kernel and route since the last :func:`reset_launch_counts`,
+#: for the kernels that have routes (the separable warp's 'scratch' counts
+#: its two kernels)
+route_counts = {"warp_combine": {"smem": 0, "cols": 0, "wide": 0},
+                "warp_separable": {"smem": 0, "scratch": 0}}
+#: K2's launches by route (a view of :data:`route_counts`)
+warp_route_counts = route_counts["warp_combine"]
+#: the separable warp's launches by route (a view of :data:`route_counts`)
+warp_separable_route_counts = route_counts["warp_separable"]
 
 _lock = threading.Lock()
 _libs: Optional[dict] = None
@@ -58,18 +68,19 @@ build_info: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, warp_route_counts):
+    for counts in (launch_counts, *route_counts.values()):
         for k in counts:
             counts[k] = 0
 
 
 def _launched(kernel: str, route: Optional[str] = None) -> None:
-    """Count one launch of ``kernel`` (by ``route`` for K2): the process
-    totals and the innermost span's counters."""
+    """Count one launch of ``kernel`` (by ``route`` for the kernels of
+    :data:`route_counts`): the process totals and the innermost span's
+    counters."""
     launch_counts[kernel] += 1
     timing.count(f"launch.{kernel}")
     if route is not None:
-        warp_route_counts[route] += 1
+        route_counts[kernel][route] += 1
         timing.count(f"launch.{kernel}.{route}")
 
 
@@ -157,6 +168,10 @@ def _load() -> dict:
                 fn.restype = i
             fn = libs["clip_combine"].clip_combine_launch
             fn.argtypes = [p, p, p, i, i, i, f, f, i, i, p]
+            fn.restype = i
+            fn = libs["warp_separable"].warp_separable_launch
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
+                           i, p]
             fn.restype = i
             _libs = libs
         return _libs
@@ -711,3 +726,122 @@ def clip_combine_cuda(stack, mask, sigma_lower: float, sigma_upper: float,
     _raise_on(err, "clip_combine")
     _launched("clip_combine")
     return out
+
+
+#: the separable warp's 'smem' tile widths, widest first
+#: (csrc/warp_separable.cu): a block takes the widest whose shared memory
+#: leaves room for _SEP_BLOCKS_PER_SM blocks an SM (233,472 bytes, 1 KB of
+#: each reserved), else the widest that fits a block at all
+_SEP_TILE_COLS = (128, 64, 32, 16)
+_SEP_BLOCKS_PER_SM = 4
+#: past this span the separable warp takes 'scratch' even where a tile
+#: fits: a 'smem' block recomputes its band's band + span mid rows, which
+#: every band shares with its neighbours, and past it that costs more than
+#: the round trip of each mid row through device memory once.
+#: tools/warp_separable.py's sweep (24 x 512 x 4096 of 24 x 1024 x 4096,
+#: H100): 'smem' wins at spans 12 and 24 (1.71 against 1.96 ms, 2.87
+#: against 3.06), ties at 48 (5.41 / 5.37), 'scratch' wins from 64 (7.49
+#: / 6.96; 12.59 / 10.21 at 96, 54.55 / 28.72 at 256)
+_SEP_SMEM_MAX_SPAN = 48
+#: the most bytes the 'scratch' route's mid image holds at once (frames
+#: go in chunks)
+_SEP_SCRATCH_MAX = 1 << 30
+#: the route codes of ``warp_separable_launch``
+_SEP_ROUTE_CODES = {"smem": 0, "scratch": 1}
+
+
+def _warp_separable_smem_bytes(band: int, span: int, channels: int,
+                               tw: int) -> int:
+    """Shared memory of one 'smem' block of the separable warp (mirrors
+    ``smem_words`` in csrc/warp_separable.cu): the band + span mid rows
+    of ``tw`` columns in each channel, and each mid row's window start
+    and base."""
+    rows = band + span
+    return 4 * (channels * rows * tw + 2 * rows)
+
+
+def _warp_separable_tile(band: int, span: int, channels: int) -> int:
+    """The columns of a separable warp 'smem' block: the widest of
+    :data:`_SEP_TILE_COLS` whose shared memory leaves room for
+    :data:`_SEP_BLOCKS_PER_SM` blocks an SM, else the widest that fits a
+    block's :data:`_SMEM_MAX`; 0 where not even 16 columns fit."""
+    fits = [tw for tw in _SEP_TILE_COLS
+            if _warp_separable_smem_bytes(band, span, channels, tw)
+            <= _SMEM_MAX]
+    roomy = [tw for tw in fits
+             if _warp_separable_smem_bytes(band, span, channels, tw) + 1024
+             <= 233472 // _SEP_BLOCKS_PER_SM]
+    return (roomy or fits or [0])[0]
+
+
+def _warp_separable_route(band: int, span: int, channels: int) -> str:
+    """Which route the separable warp takes for a window of ``span`` past
+    bands of ``band`` rows with ``channels`` (1 with analytic coverage, 2
+    with the warped ones): 'smem' up to :data:`_SEP_SMEM_MAX_SPAN` where a
+    16-column tile fits, else 'scratch'."""
+    if span > _SEP_SMEM_MAX_SPAN or _warp_separable_tile(band, span,
+                                                         channels) == 0:
+        return "scratch"
+    return "smem"
+
+
+def _warp_separable_chunk(n: int, channels: int, h_in: int,
+                          w_out: int) -> int:
+    """Frames per launch pair of the 'scratch' route: as many as keep its
+    mid image (``channels`` x ``h_in`` x ``w_out`` floats a frame) within
+    :data:`_SEP_SCRATCH_MAX`, at least one."""
+    return max(1, min(n, _SEP_SCRATCH_MAX // (4 * channels * h_in * w_out)))
+
+
+def warp_separable_cuda(imgs, mats, out_shape, band: int, span: int,
+                        analytic_coverage: bool, translation_budget,
+                        pad: int, pad_t: int, route: Optional[str] = None):
+    """Launch the separable warp (``csrc/warp_separable.cu``) on an (N,
+    H, W) float32 stack and its (N, 2, 3) matrices, with the geometry
+    ``ops.warp.warp_affine_separable`` resolved (``band``, ``pad``,
+    ``pad_t``); returns (warped, coverage), each (N, H_out, W_out).
+    ``route`` ('smem' or 'scratch') overrides :func:`_warp_separable_route`,
+    for the route sweep."""
+    dev = imgs.device
+    if imgs.dim() != 3 or imgs.dtype != torch.float32:
+        raise ValueError(f"warp_separable kernel takes an (N, H, W) float32 "
+                         f"stack, got {tuple(imgs.shape)} {imgs.dtype}")
+    n, h_in, w_in = imgs.shape
+    if n < 1:
+        raise ValueError("warp_separable kernel needs at least 1 frame")
+    h_out, w_out = (int(v) for v in out_shape)
+    chans = 1 if analytic_coverage else 2
+    route = route or _warp_separable_route(band, span, chans)
+    if route not in warp_separable_route_counts:
+        raise ValueError(f"warp_separable kernel has no route {route!r}")
+    tw = 0
+    if route == "smem":
+        tw = _warp_separable_tile(band, span, chans)
+        if tw == 0:
+            raise ValueError(f"warp_separable 'smem' route: a window of "
+                             f"span {span} past bands of {band} rows does "
+                             f"not fit a block of 16 columns in "
+                             f"{_SMEM_MAX} B of shared memory")
+    imgs = imgs.contiguous()
+    mats = _check(mats, "matrices", dev, (n, 2, 3))
+    out = torch.empty((n, h_out, w_out), dtype=torch.float32, device=dev)
+    cov = torch.empty_like(out)
+    chunk, scratch = n, None
+    if route == "scratch":
+        chunk = _warp_separable_chunk(n, chans, h_in, w_out)
+        scratch = torch.empty((chunk * chans * h_in * w_out,),
+                              dtype=torch.float32, device=dev)
+    budget = -1 if translation_budget is None else int(translation_budget)
+    lib = _load()["warp_separable"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k in range(0, n, chunk):
+        m = min(chunk, n - k)
+        err = lib.warp_separable_launch(
+            _ptr(imgs[k:k + m]), _ptr(mats[k:k + m]), _ptr(out[k:k + m]),
+            _ptr(cov[k:k + m]), _ptr(scratch), m, h_in, w_in, h_out, w_out,
+            band, span, pad, pad_t, budget, int(analytic_coverage),
+            _SEP_ROUTE_CODES[route], tw, ctypes.c_void_p(stream))
+        _raise_on(err, "warp_separable")
+        for _ in range(1 if route == "smem" else 2):
+            _launched("warp_separable", route)
+    return out, cov

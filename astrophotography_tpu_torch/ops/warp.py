@@ -6,7 +6,9 @@ coordinates, as ``Similarity.matrix()`` gives them.  Every warp takes one
 (H, W) image with a (2, 3) matrix, or an (N, H, W) batch with (N, 2, 3)
 matrices, and returns (warped, coverage) of the output shape (with the
 batch axis when one was given).  Batches run in chunks of frames so that
-no temporary holds more than about ``_CHUNK_ELEMS`` values.
+no temporary holds more than about ``_CHUNK_ELEMS`` values; on a CUDA
+tensor the separable warp is one hand-written kernel instead
+(``csrc/warp_separable.cu``).
 
 :func:`lanczos3_poly` evaluates every separable-warp and warp+combine tap
 weight with the degree-10 polynomial in t², never with ``sinc``, so the
@@ -223,6 +225,23 @@ def _resample_terms(coord, idx_f, block_at, span: int) -> torch.Tensor:
                        acc / torch.where(safe, wsum, 1.0)[:, None], 0.0)
 
 
+def _separable_geometry(h_in: int, out_shape, band: int, span: int,
+                        translation_budget):
+    """(band, pad, pad_t) of a separable warp: the band cut to the
+    source and output heights, and the low-side pads of the reference's
+    padded source along columns and rows (the window starts' clamps)."""
+    h_out, w_out = out_shape
+    band = min(band, h_in, h_out)
+    if translation_budget is not None:
+        if translation_budget < span + 5:
+            raise ValueError("translation_budget must exceed span + 4")
+        pad = translation_budget + span + 4
+    else:
+        pad = w_out + span + 4
+    pad_t = pad if translation_budget is not None else h_out + span + 4
+    return band, pad, pad_t
+
+
 @numpy_inputs("img", "matrix")
 def warp_affine_separable(
     img: torch.Tensor,
@@ -248,21 +267,50 @@ def warp_affine_separable(
     channel is the coverage).  ``translation_budget`` bounds |shift|:
     frames beyond budget - span - 4 are excluded from analytic coverage.
 
+    CUDA tensors run the hand-written kernel (``csrc/warp_separable.cu``,
+    one launch a call on its 'smem' route), bit for bit
+    :func:`warp_affine_separable_plain`, which CPU tensors run."""
+    if img.device.type == "cpu":
+        return warp_affine_separable_plain(img, matrix, out_shape, band,
+                                           span, analytic_coverage,
+                                           translation_budget)
+    if img.device.type != "cuda":
+        raise ValueError(f"no warp_separable kernel for device "
+                         f"{img.device}")
+    from .. import kernels
+
+    imgs, mats, single = _batched(img, matrix)
+    band, pad, pad_t = _separable_geometry(imgs.shape[1], out_shape, band,
+                                           span, translation_budget)
+    out, cov = kernels.warp_separable_cuda(imgs, mats, out_shape, band, span,
+                                           analytic_coverage,
+                                           translation_budget, pad, pad_t)
+    return (out[0], cov[0]) if single else (out, cov)
+
+
+@numpy_inputs("img", "matrix")
+def warp_affine_separable_plain(
+    img: torch.Tensor,
+    matrix: torch.Tensor,
+    out_shape: Tuple[int, int],
+    band: int = 64,
+    span: int = 24,
+    analytic_coverage: bool = False,
+    translation_budget: "int | None" = None,
+):
+    """Plain PyTorch twin of the separable warp kernel, on any device,
+    in the kernel's operation order.  Same arguments and result as
+    :func:`warp_affine_separable`.
+
     The JAX version zero-pads the source by w_out + span + 4 per side;
     here taps outside the image read 0 through clamped indices, and the
     horizontal pass only runs on the source rows the vertical pass
     reads, so its values are the same without those copies."""
     imgs, mats, single = _batched(img, matrix)
-    h_in, w_in = imgs.shape[1:]
+    h_in = imgs.shape[1]
+    band, pad, pad_t = _separable_geometry(h_in, out_shape, band, span,
+                                           translation_budget)
     h_out, w_out = out_shape
-    band = min(band, h_in, h_out)
-    if translation_budget is not None:
-        if translation_budget < span + 5:
-            raise ValueError("translation_budget must exceed span + 4")
-        pad = translation_budget + span + 4
-    else:
-        pad = w_out + span + 4
-    pad_t = pad if translation_budget is not None else h_out + span + 4
 
     def run(im, mt):
         return _separable_chunk(im, mt, out_shape, band, span,
@@ -274,19 +322,26 @@ def warp_affine_separable(
     return _chunked(run, imgs, mats, single, per)
 
 
+def _separable_coeffs(mats: torch.Tensor):
+    """(m00, m01, m02, m10, m11, m12, gx, gy, g0), each (c, 1, 1, 1), of
+    (c, 2, 3) matrices: the exact decomposition out[y, x] = mid[sy(x, y),
+    x] with mid[y', x] = in[y', g(x, y')] and g(x, sy(x, y)) == sx(x, y),
+    g(x, y') = gx * x + gy * y' + g0."""
+    m = mats.reshape(mats.shape[0], 6)[:, :, None, None, None]
+    m00, m01, m02, m10, m11, m12 = m.unbind(1)
+    inv_m11 = 1.0 / m11
+    gx = m00 - m01 * m10 * inv_m11
+    gy = m01 * inv_m11
+    g0 = m02 - m01 * m12 * inv_m11
+    return m00, m01, m02, m10, m11, m12, gx, gy, g0
+
+
 def _separable_chunk(imgs, mats, out_shape, band, span, analytic_coverage,
                      translation_budget, pad, pad_t):
     c, h_in, w_in = imgs.shape
     h_out, w_out = out_shape
     dev = imgs.device
-    m = mats.reshape(c, 6)[:, :, None, None, None]     # (c, 6, 1, 1, 1)
-    m00, m01, m02, m10, m11, m12 = m.unbind(1)
-    # exact decomposition out[y, x] = mid[sy(x, y), x] with
-    # mid[y', x] = in[y', g(x, y')] and g(x, sy(x, y)) == sx(x, y)
-    inv_m11 = 1.0 / m11
-    gx = m00 - m01 * m10 * inv_m11
-    gy = m01 * inv_m11
-    g0 = m02 - m01 * m12 * inv_m11
+    m00, m01, m02, m10, m11, m12, gx, gy, g0 = _separable_coeffs(mats)
     xs = torch.arange(w_out, dtype=torch.float32, device=dev)
     src = imgs[:, None] if analytic_coverage else \
         torch.stack([imgs, torch.ones_like(imgs)], dim=1)     # (c, C, H, W)

@@ -177,7 +177,8 @@ def required_launches(impl: str, cfg, h: int, w: int) -> dict:
     """The kernels a run of ``impl`` must launch on the card, {name: exact
     count, or None for any positive count}: K1 where the lean path takes
     its fused detection (``models.pipeline.lean_detect_fused``) and K2 on
-    the lean path; K3 once per band on 'pallas'; K2 on 'fused'."""
+    the lean path; K3 once per band on 'pallas'; K2 on 'fused'; the
+    separable warp on 'pallas' and 'xla'."""
     from astrophotography_tpu_torch.models import pipeline as pl
 
     if impl == "lean":
@@ -185,8 +186,9 @@ def required_launches(impl: str, cfg, h: int, w: int) -> dict:
         if pl.lean_detect_fused(cfg, h, w):
             req["detect_tiles"] = None
         return req
-    return {"pallas": {"clip_combine": cfg.n_bands},
-            "fused": {"warp_combine": None}}.get(impl, {})
+    return {"pallas": {"clip_combine": cfg.n_bands, "warp_separable": None},
+            "fused": {"warp_combine": None},
+            "xla": {"warp_separable": None}}.get(impl, {})
 
 
 def check_launches(label, launches, required) -> None:

@@ -256,6 +256,25 @@ def _k3_exact(k, p, label) -> float:
     return err
 
 
+def _sep_exact(k, p, label) -> float:
+    """The separable warp's (warped, coverage) ``k`` equal to its twin's
+    ``p`` bit for bit, signed zeros included; a NaN only has to be a NaN
+    (the kernel rounds every value operation as its twin does)."""
+    err = 0.0
+    for what, kk, pp in zip(("warped", "coverage"), k, p):
+        nan_k, nan_p = torch.isnan(kk), torch.isnan(pp)
+        _require(bool(torch.equal(nan_k, nan_p)),
+                 f"{label}: {what} NaN pixels differ")
+        diff = (torch.where(nan_k, 0.0, kk).view(torch.int32)
+                != torch.where(nan_p, 0.0, pp).view(torch.int32))
+        if bool((~nan_p).any()):
+            err = max(err, float((kk - pp).abs()[~nan_p].max()))
+        _require(not bool(diff.any()),
+                 f"{label}: {what}: {int(diff.sum())} of {diff.numel()} "
+                 f"values differ from the twin (max |diff| {err})")
+    return err
+
+
 def check_detect(frames, thr, mf, a_plane, er, label, card, reps=3,
                  fwhm=3.0):
     """K1 against detect_tiles_plain by :func:`_k1_agrees`' rule, and
@@ -748,7 +767,8 @@ _PIPELINE = "astrophotography_tpu_torch.models.pipeline"
 #: name there)
 _PIPELINE_CALLS = {"K1": (_PIPELINE, "detect_tiles"),
                    "K2": (_PIPELINE, "warp_combine"),
-                   "K3": (_PIPELINE, "clip_combine")}
+                   "K3": (_PIPELINE, "clip_combine"),
+                   "warp_separable": (_PIPELINE, "warp_affine_separable")}
 #: each kernel as the sharded code calls it
 _MC_CALLS = dict(_PIPELINE_CALLS,
                  K2=("astrophotography_tpu_torch.parallel.fused",
@@ -759,13 +779,15 @@ _PLAINS = {"K1": ("astrophotography_tpu_torch.ops.detect_tiles",
            "K2": ("astrophotography_tpu_torch.ops.warp_combine",
                   "warp_combine_plain"),
            "K3": ("astrophotography_tpu_torch.ops.clip_combine",
-                  "clip_combine_plain")}
+                  "clip_combine_plain"),
+           "warp_separable": ("astrophotography_tpu_torch.ops.warp",
+                              "warp_affine_separable_plain")}
 
 
 def _plain_check(kind: str, call, label: str) -> dict:
     """The plain twin on the exact arguments a kernel got in a path's
     run, held against the kernel's result by the kernel's rule: K1 by
-    :func:`_k1_agrees`, K2 and K3 bit for bit."""
+    :func:`_k1_agrees`, K2, K3 and the separable warp bit for bit."""
     import importlib
 
     _require(call is not None, f"{label}: {kind} was not called")
@@ -776,6 +798,8 @@ def _plain_check(kind: str, call, label: str) -> dict:
     label = f"{label} {kind}"
     if kind == "K1":
         agree = _k1_agrees(out, p, label)
+    elif kind == "warp_separable":
+        agree = {"max_abs_err": _sep_exact(out, p, label)}
     else:
         agree = {"max_abs_err": (_k2_exact if kind == "K2" else _k3_exact)(
             out, p, label)}
@@ -1130,7 +1154,7 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
                                          ref["whole"])}, card)
 
     key = "unfused"
-    add(key, {"clip_combine": cfg_u.n_bands})
+    add(key, {"clip_combine": cfg_u.n_bands, "warp_separable": None})
     n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
     mats = _same_on_every_rank(key, ranks, key, "matrices")
     one = refs[f"unfused {cfg_u.n_bands} bands"]
@@ -1183,7 +1207,7 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
         card)
 
     key = "unfused extras"
-    add(key, {"clip_combine": cfg_u.n_bands})
+    add(key, {"clip_combine": cfg_u.n_bands, "warp_separable": None})
     n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
     mats = _same_on_every_rank(key, ranks, key, "matrices")
     want = refs[key]
@@ -2660,10 +2684,11 @@ def run_reduce(card: str, dev) -> dict:
         res["ap_stack"] = {}
         outs = {}
         for key, extra, want in (
-                ("xla", ["--engine", "xla"], {}),
-                ("pallas", ["--engine", "pallas"], {"clip_combine": 1}),
+                ("xla", ["--engine", "xla"], {"warp_separable": None}),
+                ("pallas", ["--engine", "pallas"],
+                 {"clip_combine": 1, "warp_separable": None}),
                 ("fused", ["--engine", "fused"], {"warp_combine": 1}),
-                ("union", ["--canvas", "union"], {})):
+                ("union", ["--canvas", "union"], {"warp_separable": None})):
             path = os.path.join(tmp, f"ap_stack_{key}.fits")
             kernels.reset_launch_counts()
             with _Recorder(ap_stack) as rec:
@@ -2840,7 +2865,8 @@ def _unfused_split(fr, kw, cfg) -> dict:
 def run_unfused_path(card: str, dev, phases) -> dict:
     """K3 against its twin at the unfused path's band shape, then the
     unfused path (``calibrate_register_stack``) at 24x4096^2, as far as
-    ``phases`` asks."""
+    ``phases`` asks; the warm-up's separable warps (one a band) are
+    replayed on their twin bit for bit."""
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.models import calibrate_register_stack
 
@@ -2873,8 +2899,19 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     def run():
         return calibrate_register_stack(fr, config=cfg, **kw)
 
-    run()                                   # warm-up
+    kernels.reset_launch_counts()
+    with _FirstCall(*_PIPELINE_CALLS["warp_separable"],
+                    keep=cfg.n_bands) as ws:
+        run()                               # warm-up, its warps kept
     torch.cuda.synchronize()
+    sep_routes = dict(kernels.warp_separable_route_counts)
+    _require(len(ws.calls) == cfg.n_bands, f"{label}: warp_separable calls")
+    _require(sep_routes == {"smem": cfg.n_bands, "scratch": 0},
+             f"{label}: warp_separable routes {sep_routes}")
+    sep_checks = [_plain_check("warp_separable", c, f"{label} band {i}")
+                  for i, c in enumerate(ws.calls)]
+    del ws
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2883,7 +2920,8 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     single_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    check_launches(label, launches, {"clip_combine": cfg.n_bands})
+    check_launches(label, launches, {"clip_combine": cfg.n_bands,
+                                     "warp_separable": cfg.n_bands})
     _require("jax" not in sys.modules, "jax was imported")
     k = 3
     t0 = time.perf_counter()
@@ -2909,7 +2947,8 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     badpix_ms = (time.perf_counter() - t0) * 1e3
     blaunches = dict(kernels.launch_counts)
     check_launches(label + " badpix", blaunches,
-                   {"clip_combine": cfg.n_bands})
+                   {"clip_combine": cfg.n_bands,
+                    "warp_separable": cfg.n_bands})
     b_in, b_rms, b_terr = _check_registration(label + " badpix", bdiag, mats,
                                               UNFUSED_T_ERR_PX)
     b_med = check_stack(label + " badpix", stacked)
@@ -2927,6 +2966,10 @@ def run_unfused_path(card: str, dev, phases) -> dict:
            "sustained_gpix_s": n * SIZE * SIZE / sustained_s / 1e9,
            "sustained_ms": sustained_s * 1e3,
            "max_memory_allocated_bytes": peak, "launches": launches,
+           "warp_separable_routes": sep_routes,
+           "warp_separable_plain_checks": sep_checks,
+           "warp_separable_max_abs_err": max(c["max_abs_err"]
+                                             for c in sep_checks),
            "device_ms_split": split, "with_badpix_mask": badpix,
            "min_inliers": min_in, "max_rms_px": max_rms,
            "max_translation_err_px": t_err, "interior_median": med,
@@ -3015,7 +3058,8 @@ BENCH_RUNS = (
                 "BENCH_IMPL": "pallas", "BENCH_SKIP_RAWGREY": "1",
                 "BENCH_SKIP_ROTATION": "1"},
      (("24x4096^2 pallas, sub-px dithers",
-       {"detect_tiles": 0, "warp_combine": 0, "clip_combine": 2}),)),
+       {"detect_tiles": 0, "warp_combine": 0, "clip_combine": 2,
+        "warp_separable": 2}),)),
 )
 #: what each bench line is held beside: the smoke phase that ran the
 #: same configuration in this call
@@ -3597,8 +3641,15 @@ def run_deep(card: str, dev) -> dict:
                dark=torch.from_numpy(dark).to(dev),
                flat=torch.from_numpy(flat).to(dev), exp_ratios=er)
     _require(kernels._clip_route(n) == "cols", f"{ulabel}: K3 route")
-    calibrate_register_stack(fr, config=ucfg, **ukw)      # warm-up
+    with _FirstCall(*_PIPELINE_CALLS["warp_separable"],
+                    keep=ucfg.n_bands) as ws:
+        calibrate_register_stack(fr, config=ucfg, **ukw)  # warm-up
     torch.cuda.synchronize()
+    _require(len(ws.calls) == ucfg.n_bands, f"{ulabel}: warp_separable calls")
+    sep_checks = [_plain_check("warp_separable", c, f"{ulabel} band {i}")
+                  for i, c in enumerate(ws.calls)]
+    del ws
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3611,7 +3662,8 @@ def run_deep(card: str, dev) -> dict:
     u_ms = (time.perf_counter() - t0) * 1e3
     ulaunches = dict(kernels.launch_counts)
     u_peak = torch.cuda.max_memory_allocated()
-    check_launches(ulabel, ulaunches, {"clip_combine": ucfg.n_bands})
+    check_launches(ulabel, ulaunches, {"clip_combine": ucfg.n_bands,
+                                       "warp_separable": None})
     u_in, u_rms, u_err = _check_registration(ulabel, diag, mats,
                                              UNFUSED_T_ERR_PX)
     u_med = check_stack(ulabel, stacked)
@@ -3636,6 +3688,9 @@ def run_deep(card: str, dev) -> dict:
         "max_translation_err_px": u_err, "interior_median": u_med,
         "plain_checks": u_checks,
         "max_abs_err": max(c["max_abs_err"] for c in u_checks),
+        "warp_separable_plain_checks": sep_checks,
+        "warp_separable_max_abs_err": max(c["max_abs_err"]
+                                          for c in sep_checks),
         "card": card}
     _print(out["unfused"])
     del fr, ukw, k3

@@ -1191,7 +1191,7 @@ def test_bench_attempt_lean_on_the_card(cuda):
 
     line = bench_torch.attempt(8, 1024, 1, "lean", device=cuda)
     assert line["launches"] == {"detect_tiles": 1, "warp_combine": 1,
-                                "clip_combine": 0}
+                                "clip_combine": 0, "warp_separable": 0}
     assert abs(line["interior_median"] - bench_torch.SKY) \
         < 0.05 * bench_torch.SKY
     assert line["vs_baseline"] is None and line["value"] > 0
@@ -1261,7 +1261,11 @@ def test_spans_and_syncs_on_the_card(cuda, path):
         assert counted["launch.warp_combine"] == 1
         assert counted["launch.warp_combine.smem"] == 1
     else:
-        assert not any(k.startswith("launch.") for k in counted)
+        # the plain warp: one launch of the separable kernel a band
+        assert {k: v for k, v in counted.items()
+                if k.startswith("launch.")} == {
+                    "launch.warp_separable": cfg.n_bands,
+                    "launch.warp_separable.smem": cfg.n_bands}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1273,3 +1277,235 @@ def test_spans_and_syncs_on_the_card(cuda, path):
     syncs = sum("called a synchronizing CUDA operation" in str(w.message)
                 for w in caught)
     assert syncs == counted.get("host_reads", 0) > 0
+
+
+# -- the separable warp (csrc/warp_separable.cu) against its twin --------
+
+
+def _sep_mats(n, seed, max_deg=0.01, shift=4.0, scale=1e-5):
+    """``n`` similarity matrices on the CPU: turns to +-max_deg, scales
+    within ``scale``, translations to +-shift px (frame 0 the
+    identity)."""
+    rng = np.random.default_rng(seed)
+    th = np.deg2rad(rng.uniform(-max_deg, max_deg, n))
+    sc = 1.0 + rng.uniform(-scale, scale, n)
+    t = rng.uniform(-shift, shift, (n, 2))
+    th[0], sc[0], t[0] = 0.0, 1.0, 0.0
+    c, s = sc * np.cos(th), sc * np.sin(th)
+    mats = np.stack([np.stack([c, -s, t[:, 0]], 1),
+                     np.stack([s, c, t[:, 1]], 1)], 1)
+    return torch.from_numpy(mats.astype(np.float32))
+
+
+def _sep_field(n, h, w, seed, dev):
+    """A sky of 800 with a gradient, noise and negative pixels, made on
+    the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    img = 800.0 + 0.01 * xx - 0.02 * yy + 8.0 * torch.randn(
+        (n, h, w), generator=gen, device=dev)
+    img[:, ::9, ::7] *= -1.0
+    return img.contiguous()
+
+
+def _same_bits(got, want, what):
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    assert torch.equal(gn, wn), what
+    diff = (torch.where(gn, 0.0, got).view(torch.int32)
+            != torch.where(wn, 0.0, want).view(torch.int32))
+    assert not bool(diff.any()), \
+        f"{what}: {int(diff.sum())} of {diff.numel()} values differ"
+
+
+def _sep_check(imgs, mats, out_shape, route=None, **kw):
+    """The separable warp on the card against its twin on the same
+    tensors, bit for bit (a NaN only has to be a NaN), with the launches
+    on the route the rule names counted from 0.  Returns the kernel's
+    (warped, coverage)."""
+    from astrophotography_tpu_torch.ops import warp as wp
+
+    span = kw.get("span", 24)
+    chans = 1 if kw.get("analytic_coverage") else 2
+    band, pad, pad_t = wp._separable_geometry(
+        imgs.shape[-2], out_shape, kw.get("band", 64), span,
+        kw.get("translation_budget"))
+    want_route = route or kernels._warp_separable_route(band, span, chans)
+    kernels.reset_launch_counts()
+    if route is None:
+        got = wp.warp_affine_separable(imgs, mats, out_shape, **kw)
+    else:
+        got = kernels.warp_separable_cuda(
+            imgs, mats.to(imgs.device), out_shape, band, span,
+            bool(kw.get("analytic_coverage")), kw.get("translation_budget"),
+            pad, pad_t, route=route)
+    launches = dict(kernels.launch_counts)
+    routes = dict(kernels.warp_separable_route_counts)
+    want = wp.warp_affine_separable_plain(imgs, mats.to(imgs.device),
+                                          out_shape, **kw)
+    torch.cuda.synchronize()
+    n = imgs.shape[0] if imgs.dim() == 3 else 1
+    per = 1 if want_route == "smem" else 2 * -(-n // kernels.
+                                              _warp_separable_chunk(
+                                                  n, chans, imgs.shape[-2],
+                                                  out_shape[1]))
+    assert launches == {"detect_tiles": 0, "warp_combine": 0,
+                        "clip_combine": 0, "warp_separable": per}
+    assert routes == {"smem": 0, "scratch": 0, want_route: per}
+    _same_bits(got[0], want[0], "warped")
+    _same_bits(got[1], want[1], "coverage")
+    return got
+
+
+def test_warp_separable_the_cells_bands(cuda):
+    """The unfused cell's warp at 24 x 512 x 4096: both output bands
+    (``band_matrices``), span 12, analytic coverage, one 'smem' launch a
+    band."""
+    from astrophotography_tpu_torch.models.pipeline import band_matrices
+
+    imgs = _sep_field(24, 512, 4096, 1, cuda)
+    mats = _sep_mats(24, 2).to(cuda)
+    assert kernels._warp_separable_route(64, 12, 1) == "smem"
+    for b in range(2):
+        _sep_check(imgs, band_matrices(mats, float(b * 256)), (256, 4096),
+                   span=12, analytic_coverage=True)
+
+
+#: (frames, source shape, output shape, keyword arguments)
+SEP_CASES = [
+    (6, (256, 384), (256, 384), dict(span=12)),
+    (6, (256, 384), (256, 384), dict(span=24, analytic_coverage=True,
+                                     translation_budget=48)),
+    (6, (256, 384), (256, 384), dict(span=12, translation_budget=40)),
+    (5, (200, 300), (232, 336), dict(span=24, analytic_coverage=True)),
+    (5, (200, 300), (232, 336), dict(span=24)),
+    (4, (250, 236), (250, 236), dict(span=24, analytic_coverage=True)),
+    (4, (501, 333), (501, 333), dict(span=12)),
+    (3, (501, 333), (501, 333), dict(span=12, band=17,
+                                     analytic_coverage=True)),
+    (3, (40, 333), (40, 333), dict(span=24)),        # band cut to 40
+]
+
+
+@pytest.mark.parametrize("n,in_shape,out_shape,kw", SEP_CASES)
+def test_warp_separable_equals_plain(cuda, n, in_shape, out_shape, kw):
+    imgs = _sep_field(n, *in_shape, seed=n + in_shape[0], dev=cuda)
+    mats = _sep_mats(n, seed=in_shape[1], max_deg=0.5).to(cuda)
+    _sep_check(imgs, mats, out_shape, **kw)
+
+
+@pytest.mark.parametrize("deg", [0.1, 2.0, 15.0])
+@pytest.mark.parametrize("span,analytic", [(24, True), (24, False),
+                                           (256, True), (256, False),
+                                           (1700, False), (3300, True)])
+def test_warp_separable_rotations(cuda, deg, span, analytic):
+    """Turns of 0.1-15 deg at span 24 ('smem'), 256 and past the reach of
+    a 16-column 'smem' tile (1700 with the ones channel, 3300 without),
+    each on the route its rule names and on every route it can take."""
+    imgs = _sep_field(3, 144, 160, seed=span, dev=cuda)
+    mats = _sep_mats(3, seed=int(deg * 10), max_deg=deg, shift=6.0)
+    mats[1, :, :2] = torch.tensor([[np.cos(np.deg2rad(deg)),
+                                    -np.sin(np.deg2rad(deg))],
+                                   [np.sin(np.deg2rad(deg)),
+                                    np.cos(np.deg2rad(deg))]])
+    mats = mats.to(cuda)
+    kw = dict(span=span, analytic_coverage=analytic)
+    got = _sep_check(imgs, mats, (144, 160), **kw)
+    chans = 1 if analytic else 2
+    if kernels._warp_separable_tile(64, span, chans):
+        for route in ("smem", "scratch"):
+            other = _sep_check(imgs, mats, (144, 160), route=route, **kw)
+            for g, o in zip(got, other):
+                _same_bits(o, g, route)
+    else:
+        assert span > 1600
+
+
+@pytest.mark.parametrize("analytic", [True, False])
+def test_warp_separable_scratch_in_chunks(cuda, monkeypatch, analytic):
+    """'scratch' with its mid image capped at two frames: five frames in
+    three launch pairs, each chunk's pointers offset by its first frame."""
+    chans = 1 if analytic else 2
+    monkeypatch.setattr(kernels, "_SEP_SCRATCH_MAX", 2 * 4 * chans * 96 * 128)
+    assert kernels._warp_separable_chunk(5, chans, 96, 128) == 2
+    imgs = _sep_field(5, 96, 128, seed=13, dev=cuda)
+    mats = _sep_mats(5, seed=14, max_deg=4.0).to(cuda)
+    _sep_check(imgs, mats, (96, 128), span=64, analytic_coverage=analytic)
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_warp_separable_every_tile_width(cuda, tile, monkeypatch):
+    """Each tile width the kernel takes, the rule held to that one."""
+    monkeypatch.setattr(kernels, "_SEP_TILE_COLS", (tile,))
+    assert kernels._warp_separable_tile(64, 24, 2) == tile
+    imgs = _sep_field(3, 200, 300, seed=tile, dev=cuda)
+    mats = _sep_mats(3, seed=tile, max_deg=3.0).to(cuda)
+    _sep_check(imgs, mats, (200, 300), route="smem", span=24)
+
+
+@pytest.mark.parametrize("analytic", [True, False])
+def test_warp_separable_far_frames(cuda, analytic):
+    """A rejected frame at +1e9, one at -1e9 and frames thousands of
+    pixels off: the twin's floor / clamp cases (coverage and values 0)."""
+    imgs = _sep_field(6, 128, 192, seed=5, dev=cuda)
+    mats = _sep_mats(6, seed=6, max_deg=1.0)
+    mats[1, :, 2] = 1e9
+    mats[2, :, 2] = -1e9
+    mats[3, :, 2] = torch.tensor([-5000.0, 130.5])
+    mats[4, :, 2] = torch.tensor([250.25, -9000.0])
+    mats[5, :, 2] = torch.tensor([-150.0, -100.0])
+    got = _sep_check(imgs, mats.to(cuda), (128, 192), span=12,
+                     analytic_coverage=analytic)
+    assert not bool(got[1][1:5].any())
+
+
+@pytest.mark.parametrize("analytic", [True, False])
+def test_warp_separable_non_finite_source(cuda, analytic):
+    """A NaN and infinities planted in the source give the twin's
+    non-finite pixels, at the same places."""
+    imgs = _sep_field(4, 128, 192, seed=7, dev=cuda)
+    imgs[1, 40, 50] = float("nan")
+    imgs[2, 70, 100] = float("inf")
+    imgs[3, 20, 150] = float("-inf")
+    mats = _sep_mats(4, seed=8, max_deg=1.0).to(cuda)
+    got = _sep_check(imgs, mats, (128, 192), span=12,
+                     analytic_coverage=analytic)
+    assert bool(torch.isnan(got[0][1]).any())
+    assert not bool(torch.isfinite(got[0][2]).all())
+
+
+def test_warp_separable_single_frame_and_uint16(cuda):
+    """One (H, W) frame and a uint16 stack take the kernel too."""
+    from astrophotography_tpu_torch.device import to_uint16
+
+    imgs = _sep_field(3, 128, 160, seed=9, dev=cuda).abs()
+    mats = _sep_mats(3, seed=10, max_deg=0.5).to(cuda)
+    _sep_check(imgs[1], mats[1], (128, 160), span=12)
+    _sep_check(to_uint16(imgs), mats, (128, 160), span=12,
+               analytic_coverage=True)
+
+
+def test_warp_separable_makes_no_host_read(cuda):
+    """The kernel path waits for the card nowhere: under the sync debug
+    mode's 'error' a call raises on any synchronization."""
+    from astrophotography_tpu_torch.models.pipeline import band_matrices
+    from astrophotography_tpu_torch.ops import warp as wp
+
+    imgs = _sep_field(6, 256, 512, seed=11, dev=cuda)
+    mats = _sep_mats(6, seed=12).to(cuda)
+    for route in ("smem", "scratch"):
+        kernels.warp_separable_cuda(imgs, mats, (128, 512), 64, 12, True,
+                                    None, 528, 144, route=route)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in range(2):
+            out = wp.warp_affine_separable(
+                imgs, band_matrices(mats, float(128 * b)), (128, 512),
+                span=12, analytic_coverage=True)
+        kernels.warp_separable_cuda(imgs, mats, (128, 512), 64, 12, False,
+                                    None, 528, 144, route="scratch")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out[0].shape == (6, 128, 512)

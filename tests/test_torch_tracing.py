@@ -245,30 +245,42 @@ def test_launches_counted_once_through_one_path(monkeypatch):
     span's counters together."""
     src = inspect.getsource(kernels)
     assert src.count("launch_counts[") == 1      # in _launched
-    assert src.count("warp_route_counts[") == 1
+    assert src.count("route_counts[kernel]") == 1
+    assert "warp_route_counts[" not in src
+    assert "warp_separable_route_counts[" not in src
     for name in ("detect_tiles_cuda", "warp_combine_cuda",
-                 "clip_combine_cuda"):
+                 "clip_combine_cuda", "warp_separable_cuda"):
         assert inspect.getsource(getattr(kernels, name)).count(
             "_launched(") == 1, name
     monkeypatch.setattr(kernels, "launch_counts", dict(kernels.launch_counts))
-    monkeypatch.setattr(kernels, "warp_route_counts",
-                        dict(kernels.warp_route_counts))
-    before = dict(kernels.launch_counts), dict(kernels.warp_route_counts)
+    monkeypatch.setattr(kernels, "route_counts",
+                        {k: dict(v) for k, v in kernels.route_counts.items()})
+    routes = kernels.route_counts
+    before = dict(kernels.launch_counts), dict(routes["warp_combine"]), \
+        dict(routes["warp_separable"])
 
     def launches():
         with timing.span("apt.test"):
             kernels._launched("warp_combine", "cols")
             kernels._launched("clip_combine")
+            kernels._launched("warp_separable", "smem")
 
     _out, recs, _prof = _traced(launches)
     assert recs[0]["counters"] == {"launch.warp_combine": 1,
                                    "launch.warp_combine.cols": 1,
-                                   "launch.clip_combine": 1}
+                                   "launch.clip_combine": 1,
+                                   "launch.warp_separable": 1,
+                                   "launch.warp_separable.smem": 1}
     assert kernels.launch_counts["warp_combine"] == \
         before[0]["warp_combine"] + 1
     assert kernels.launch_counts["clip_combine"] == \
         before[0]["clip_combine"] + 1
-    assert kernels.warp_route_counts["cols"] == before[1]["cols"] + 1
+    assert routes["warp_combine"] == dict(before[1],
+                                          cols=before[1]["cols"] + 1)
+    assert routes["warp_separable"] == dict(
+        before[2], smem=before[2]["smem"] + 1)
+    with pytest.raises(KeyError):
+        kernels._launched("clip_combine", "cols")
 
 
 def test_stage_spans(nights):
