@@ -592,6 +592,8 @@ def warp_combine_cuda(frames, masters, plan, combine: int, lowrank: bool,
         _ptr(scratch), grid, run, ctypes.c_void_p(stream))
     _raise_on(err, "warp_combine")
     _launched("warp_combine", route)
+    timing.annotate(route=route, span=plan.span,
+                    taps="lowrank" if lowrank else "exact")
     return out
 
 

@@ -29,7 +29,8 @@ from ..ops.clip_combine import clip_combine
 from ..ops.detect import Stars, _kernel_radius, find_stars
 from ..ops.detect_tiles import (_BIN, _TTX, _TTY, detect_tiles,
                                 master_densities)
-from ..ops.register import Similarity, estimate_similarity
+from ..ops.register import (Similarity, estimate_similarity,
+                            solve_turned, turned_past)
 from ..ops.stack import sigma_clip_combine
 from ..ops.stats import masked_median
 from ..ops.warp import (warp_affine_bilinear, warp_affine_lanczos3,
@@ -281,23 +282,26 @@ def _ref_index(stars: Stars, config: PipelineConfig) -> int:
 
 
 def _solve_frame_similarities(stars: Stars, n: int, config: PipelineConfig):
-    """Reference choice, every frame's similarity solve, and the exact
-    identity for the reference.  Returns (sims, matrices (N, 2, 3),
-    ref index)."""
+    """Reference choice, every frame's similarity solve (solved again by
+    ``solve_turned`` where the vote turns some frame past 2 deg), and the
+    exact identity for the reference.  Returns (sims, matrices (N, 2,
+    3), ref index)."""
     idx_ref = _ref_index(stars, config)
-    sims = estimate_similarity(
-        stars.x[idx_ref], stars.y[idx_ref], stars.flux[idx_ref],
-        stars.valid[idx_ref], stars.x, stars.y, stars.flux, stars.valid,
-        k=config.match_k)
+    tables = (stars.x[idx_ref], stars.y[idx_ref], stars.flux[idx_ref],
+              stars.valid[idx_ref], stars.x, stars.y, stars.flux,
+              stars.valid)
+    sims = estimate_similarity(*tables, k=config.match_k)
+    # the one wait for the device in the solve
+    with host_read(stars.x):
+        turned = bool(turned_past(sims))
+    if turned:
+        sims = solve_turned(*tables, k=config.match_k)
+    # the reference's exact identity, selected on the device (a store of
+    # a host value would copy it into the stream: a wait each)
+    is_ref = torch.arange(n, device=sims.tx.device) == idx_ref
     ident = (1.0, 0.0, 0.0, 0.0, config.max_stars, 0.0)
-    fields = []
-    # each scalar store copies a host value into the stream: a sync
-    with host_read(stars.x, reads=len(ident)):
-        for v, idv in zip(sims, ident):
-            v = v.clone()
-            v[idx_ref] = idv
-            fields.append(v)
-    sims = Similarity(*fields)
+    sims = Similarity(*(torch.where(is_ref, idv, v)
+                        for v, idv in zip(sims, ident)))
     return sims, sims.matrix(), idx_ref
 
 
@@ -568,12 +572,16 @@ def lean_masters(bias, dark, flat, config: PipelineConfig, h: int, w: int,
 
 def lean_kernel_kwargs(config: PipelineConfig, h: int, w: int) -> dict:
     """The fused warp+combine kernel's arguments under ``config`` for an
-    (H, W) image.  Apron-free needs >= 3 tile blocks per axis; small
-    frames have no memory pressure, so they keep the apron."""
+    (H, W) image.  Apron-free needs >= 3 tile blocks per axis: small
+    frames have no memory pressure, so they keep the apron, and so does
+    a frame that a given ``fused_tile`` cuts into fewer blocks on either
+    axis (2048^2 in tiles of 320 x 1024)."""
+    narrow = config.fused_tile is not None and (
+        -(-h // config.fused_tile[0]) < 3 or -(-w // config.fused_tile[1]) < 3)
     return dict(span=config.warp_span, tile=config.fused_tile,
                 sigma_lower=config.sigma_lower,
                 sigma_upper=config.sigma_upper,
-                apron=config.fused_apron or h < 96 or w < 768,
+                apron=config.fused_apron or h < 96 or w < 768 or narrow,
                 combine=config.combine, dither_budget=config.dither_budget,
                 general_taps=config.general_taps)
 

@@ -8,6 +8,11 @@ first endpoints), gated to plausible scale; each candidate is scored by
 the number of reference stars landing within ``inlier_tol`` of a target
 star; the best (first on ties, as ``jnp.argmax``) is refined twice by
 nearest-neighbour matching and a weighted closed-form (Umeyama) refit.
+A batch the vote turns past 2 deg anywhere (an alt-az session's) is
+solved again by :func:`solve_turned`, which the reference has not: a
+wider vote, whose best candidates are each refitted to every star of the
+tables (:func:`refit_similarity`, the pairs a blend of stars throws off
+clipped) and the best fit kept.
 
 Convention: the transform maps REFERENCE coordinates to TARGET
 coordinates, x_tgt = s*R @ x_ref + t, which is the inverse map the warp
@@ -16,6 +21,7 @@ needs to bring the target onto the reference grid.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -29,6 +35,7 @@ REJECTED_TRANSLATION = 1e9
 
 #: bound on the (frames, k, k, candidates) scoring temporary
 _SCORE_ELEMS = 1 << 25
+
 
 
 class Similarity(NamedTuple):
@@ -112,6 +119,34 @@ def _segments(x, y, v, min_seg):
     return length, ang, ok
 
 
+def _mapped(fit, rx, ry):
+    """Reference stars (B, S) under x' = [[c, -s], [s, c]] x + t, with
+    ``fit`` = (c, s, tx, ty), each (B,): (x, y), each (B, S)."""
+    c, s, t_x, t_y = fit
+    return (c[:, None] * rx - s[:, None] * ry + t_x[:, None],
+            s[:, None] * rx + c[:, None] * ry + t_y[:, None])
+
+
+def _nearest(fit, rx, ry, tx_, ty_, both):
+    """Squared distances (B, S, T) from each reference star mapped by
+    ``fit`` (:func:`_mapped`) to each target star, inf where ``both`` is
+    False; each reference star's nearest target star (first on ties, as
+    ``jnp.argmin``) and its squared distance, each (B, S)."""
+    mx, my = _mapped(fit, rx, ry)
+    d2 = ((mx[:, :, None] - tx_[:, None, :]) ** 2
+          + (my[:, :, None] - ty_[:, None, :]) ** 2)
+    d2 = torch.where(both, d2, torch.inf)
+    return d2, torch.argmin(d2, dim=2), d2.amin(dim=2)
+
+
+def _fit_to(src, tx_, ty_, nn, wgt):
+    """The target stars ``nn`` (B, S) picks, (B, S, 2), and the weighted
+    similarity fit ``src`` -> them (:func:`solve_similarity`)."""
+    dst = torch.stack([torch.gather(tx_, 1, nn),
+                       torch.gather(ty_, 1, nn)], dim=-1)
+    return dst, solve_similarity(src, dst, wgt)
+
+
 @numpy_inputs("ref_x", "ref_y", "ref_flux", "ref_valid", "tgt_x", "tgt_y", "tgt_flux", "tgt_valid")
 def estimate_similarity(
     ref_x: torch.Tensor, ref_y: torch.Tensor, ref_flux: torch.Tensor,
@@ -123,13 +158,23 @@ def estimate_similarity(
     inlier_tol: float = 2.0,
     min_seg: float = 10.0,
     refine_iters: int = 2,
+    candidates: int = 1,
+    pair_k: int = None,
+    tgt_k: int = None,
 ) -> Similarity:
     """Similarities mapping reference coords to target coords for a batch
     of frames: star tables (B, S) (a (S,) reference broadcasts).
     Returns a :class:`Similarity` of (B,) tensors; a solve with fewer
     than 2 distinct matched target stars or a scale off by more than
     3*scale_tol is rejected (unit scale, translation
-    ``REJECTED_TRANSLATION``)."""
+    ``REJECTED_TRANSLATION``).  With ``candidates`` M > 1, each field is
+    (B, M): the vote's best candidate first, then the next M - 1 by
+    score, each refined alike (for :func:`refit_similarity` to choose
+    among).  ``pair_k`` and ``tgt_k`` (each ``k`` by default, the
+    reference's vote) widen the vote: candidates come from the pairs of
+    the reference's ``pair_k`` brightest stars against the pairs of the
+    target's ``tgt_k`` brightest, and each is scored by the reference's
+    ``k`` brightest landing on the target's ``tgt_k``."""
     tables = [torch.as_tensor(t) for t in (ref_x, ref_y, ref_flux, ref_valid,
                                            tgt_x, tgt_y, tgt_flux, tgt_valid)]
     batch = max(t.shape[0] for t in tables if t.dim() == 2) \
@@ -138,18 +183,33 @@ def estimate_similarity(
         return Similarity(*(f[0] for f in estimate_similarity(
             *(t[None] for t in tables), k=k, scale_tol=scale_tol,
             inlier_tol=inlier_tol, min_seg=min_seg,
-            refine_iters=refine_iters)))
+            refine_iters=refine_iters, candidates=candidates,
+            pair_k=pair_k, tgt_k=tgt_k)))
     tables = [t.expand(batch, -1) if t.dim() == 1 else t for t in tables]
     with span("apt.register.match"):
         rx, ry, rv = _top_k_stars(*tables[0:4], k)
-        tx_, ty_, tv = _top_k_stars(*tables[4:8], k)
+        tx_, ty_, tv = _top_k_stars(*tables[4:8], tgt_k or k)
         b = rx.shape[0]
-        rlen, rang, rok = (a.reshape(b, -1)
-                           for a in _segments(rx, ry, rv, min_seg))
+        pk, tk = pair_k or k, tx_.shape[1]
+        rlen, rang, rok = (a.reshape(b, -1) for a in _segments(
+            rx[:, :pk], ry[:, :pk], rv[:, :pk], min_seg))
         tlen, tang, tok = (a.reshape(b, -1)
                            for a in _segments(tx_, ty_, tv, min_seg))
-        # candidate (ref pair p, tgt pair q) -> flattened p * k^2 + q
-        ri = torch.arange(k, device=rx.device).repeat_interleave(k)
+        # candidate (ref pair p, tgt pair q) -> flattened p * tk^2 + q
+        ri = torch.arange(pk, device=rx.device).repeat_interleave(pk)
+        ti = torch.arange(tk, device=rx.device).repeat_interleave(tk)
+        if pair_k is not None or tgt_k is not None:
+            # the widened vote: each reference pair once against each
+            # target pair both ways, the same transforms as every ordered
+            # pair against every ordered pair, in a quarter of the work
+            rp = torch.triu_indices(pk, pk, 1, device=rx.device)
+            tp = torch.triu_indices(tk, tk, 1, device=rx.device)
+            tp = torch.cat([tp, tp.flip(0)], dim=1)
+            rlen, rang, rok = (a[:, rp[0] * pk + rp[1]]
+                               for a in (rlen, rang, rok))
+            tlen, tang, tok = (a[:, tp[0] * tk + tp[1]]
+                               for a in (tlen, tang, tok))
+            ri, ti = rp[0], tp[0]
         scale_c = tlen[:, None, :] / torch.clamp(rlen[:, :, None], min=1e-9)
         theta_c = tang[:, None, :] - rang[:, :, None]
         cand_ok = (rok[:, :, None] & tok[:, None, :]
@@ -158,8 +218,8 @@ def estimate_similarity(
         s_c = scale_c * torch.sin(theta_c)
         rx_i = rx[:, ri][:, :, None]
         ry_i = ry[:, ri][:, :, None]
-        tx_i = tx_[:, ri][:, None, :]
-        ty_i = ty_[:, ri][:, None, :]
+        tx_i = tx_[:, ti][:, None, :]
+        ty_i = ty_[:, ti][:, None, :]
         flat_c = c_c.reshape(b, -1)
         flat_s = s_c.reshape(b, -1)
         flat_tx = (tx_i - (c_c * rx_i - s_c * ry_i)).reshape(b, -1)
@@ -169,7 +229,7 @@ def estimate_similarity(
         pair_ok = (rv[:, :, None] & tv[:, None, :])[..., None]
         tol2 = inlier_tol ** 2
         n_cand = flat_c.shape[1]
-        chunk = max(1, _SCORE_ELEMS // max(b * k * k, 1))
+        chunk = max(1, _SCORE_ELEMS // max(b * k * tk, 1))
         scores = []
         for o in range(0, n_cand, chunk):
             cc = flat_c[:, None, o:o + chunk]
@@ -185,31 +245,31 @@ def estimate_similarity(
         scores = torch.where(cand_ok.reshape(b, -1),
                              torch.cat(scores, dim=1), -1)
         best = torch.argmax(scores, dim=1, keepdim=True)
-        c = torch.gather(flat_c, 1, best)[:, 0]
-        s = torch.gather(flat_s, 1, best)[:, 0]
-        t_x = torch.gather(flat_tx, 1, best)[:, 0]
-        t_y = torch.gather(flat_ty, 1, best)[:, 0]
+        if candidates > 1:
+            best = torch.cat([best, torch.topk(
+                scores, candidates - 1, dim=1).indices], dim=1)
+            # each candidate a row of its own: (B * M,) from here
+            rx, ry, rv, tx_, ty_, tv = (t.repeat_interleave(candidates, 0)
+                                        for t in (rx, ry, rv, tx_, ty_, tv))
+        c = torch.gather(flat_c, 1, best).reshape(-1)
+        s = torch.gather(flat_s, 1, best).reshape(-1)
+        t_x = torch.gather(flat_tx, 1, best).reshape(-1)
+        t_y = torch.gather(flat_ty, 1, best).reshape(-1)
 
     with span("apt.register.refine"):
         # refinement: nearest-neighbour matching + weighted closed-form refit
         both = rv[:, :, None] & tv[:, None, :]
         src = torch.stack([rx, ry], dim=-1)
         for _ in range(refine_iters):
-            mx = c[:, None] * rx - s[:, None] * ry + t_x[:, None]
-            my = s[:, None] * rx + c[:, None] * ry + t_y[:, None]
-            d2 = ((mx[:, :, None] - tx_[:, None, :]) ** 2
-                  + (my[:, :, None] - ty_[:, None, :]) ** 2)
-            d2 = torch.where(both, d2, torch.inf)
-            nn_d2 = d2.amin(dim=2)
-            nn = torch.argmin(d2, dim=2)      # first on ties, as jnp.argmin
+            _d2, nn, nn_d2 = _nearest((c, s, t_x, t_y), rx, ry, tx_, ty_,
+                                      both)
             wgt = (nn_d2 < tol2).to(torch.float32)
-            dst = torch.stack([torch.gather(tx_, 1, nn),
-                               torch.gather(ty_, 1, nn)], dim=-1)
-            scale, theta, t_x, t_y = solve_similarity(src, dst, wgt)
+            dst, (scale, theta, t_x, t_y) = _fit_to(src, tx_, ty_, nn, wgt)
             c, s = scale * torch.cos(theta), scale * torch.sin(theta)
         # count DISTINCT matched target stars: a degenerate transform can
         # drag many reference stars onto one target
-        n_in = torch.zeros((b, k), dtype=torch.float32, device=rx.device) \
+        n_in = torch.zeros((rx.shape[0], tk), dtype=torch.float32,
+                           device=rx.device) \
             .scatter_reduce(1, nn, wgt, reduce="amax", include_self=True) \
             .sum(dim=1)
         rms = torch.sqrt(torch.where(wgt > 0, nn_d2, 0.0).sum(dim=1)
@@ -217,9 +277,152 @@ def estimate_similarity(
     scale_f = torch.sqrt(c * c + s * s)
     theta_f = torch.atan2(s, c)
     ok = (n_in >= 2) & ((scale_f - 1.0).abs() < 3.0 * scale_tol)
-    return Similarity(
+    out = Similarity(
         scale=torch.where(ok, scale_f, 1.0),
         theta=torch.where(ok, theta_f, 0.0),
         tx=torch.where(ok, t_x, REJECTED_TRANSLATION),
         ty=torch.where(ok, t_y, REJECTED_TRANSLATION),
         n_inliers=n_in.to(torch.int32), rms=rms)
+    if candidates > 1:
+        out = Similarity(*(f.view(b, candidates) for f in out))
+    return out
+
+
+#: a refit drops a pair whose residual exceeds this many times the
+#: median residual of its frame's pairs (a 2-D residual's median lies at
+#: 1.18 sigma, so 3 medians is 3.5 sigma: 0.2 % of sound pairs) ...
+_REFIT_CLIP_MEDIANS = 3.0
+#: ... and never one within this many px (a pair this close moves no
+#: frame corner by a hundredth of a pixel among a refit's 20-40 pairs)
+_REFIT_CLIP_FLOOR_PX = 0.05
+#: a refit that keeps fewer pairs leaves the vote's solve as it was
+_REFIT_MIN_STARS = 3
+#: a batch in which the vote turns no frame past this against the
+#: reference (an equatorial mount's stack) keeps the vote's solves: the
+#: reference's solve, which the parity tests hold the port to within
+#: 0.05 px on frames turned up to 1.15 deg.  A batch with a frame turned
+#: further (a field that rotates, an alt-az mount) is solved again by
+#: :func:`solve_turned`
+_TURN_RAD = math.radians(2.0)
+#: :func:`solve_turned`'s vote: candidates from the pairs of the
+#: reference's 6 brightest stars against those of the target's 24
+#: brightest, scored by the reference's ``k`` brightest landing on the
+#: target's 24, and its 16 best candidates refitted.  Star fluxes that
+#: differ by ~10 % shuffle the ranks of a turned frame's brightest
+#: stars against the reference's, and the reference's vote (the 10
+#: brightest on each side) then finds as few as 2 stars in common
+_TURNED_PAIR_K, _TURNED_TGT_K, _TURNED_CANDIDATES = 6, 24, 16
+
+
+def _cs(scale, theta, t_x, t_y):
+    """(scale, theta, tx, ty) as :func:`_mapped`'s (c, s, tx, ty)."""
+    return scale * torch.cos(theta), scale * torch.sin(theta), t_x, t_y
+
+
+def _pairs(fit, rx, ry, rv, tx_, ty_, tv, tol2):
+    """Each reference star's mutual nearest target star under ``fit``
+    (:func:`_mapped`), within sqrt(tol2): (index (B, S), kept (B, S))."""
+    d2, nn, nn_d2 = _nearest(fit, rx, ry, tx_, ty_,
+                             rv[:, :, None] & tv[:, None, :])
+    back = torch.gather(d2.argmin(dim=1), 1, nn)
+    mine = torch.arange(rx.shape[1], device=rx.device)[None, :]
+    return nn, (nn_d2 < tol2) & (back == mine)
+
+
+def _residuals(fit, src, dst):
+    """(B, S) distances from each reference star ``src`` (B, S, 2) mapped
+    by ``fit`` = (scale, theta, tx, ty) to its target star ``dst``."""
+    mx, my = _mapped(_cs(*fit), src[..., 0], src[..., 1])
+    return torch.hypot(mx - dst[..., 0], my - dst[..., 1])
+
+
+@numpy_inputs("ref_x", "ref_y", "ref_valid", "tgt_x", "tgt_y", "tgt_valid")
+def refit_similarity(
+    sims: Similarity,
+    ref_x: torch.Tensor, ref_y: torch.Tensor, ref_valid: torch.Tensor,
+    tgt_x: torch.Tensor, tgt_y: torch.Tensor, tgt_valid: torch.Tensor,
+    inlier_tol: float = 2.0,
+) -> Similarity:
+    """Refit accepted solves to every star of the tables (B, S) (a (S,)
+    reference broadcasts), not only to the k brightest that
+    :func:`estimate_similarity`'s vote and refinement use.  ``sims`` is
+    (B,), or (B, M) candidates (``estimate_similarity(candidates=M)``),
+    the vote's best first: each is refitted, and the one with the most
+    pairs kept (the first on ties), so that a chance match the vote
+    scored as high as the true one gives way to it.
+
+    Each reference star is paired with its mutual nearest target star
+    within ``inlier_tol`` under the solve, and the pairs are fitted as
+    the refinement fits (:func:`_fit_to`, unit weights).  Pairs whose
+    residual under that fit exceeds 3 times the frame's median residual
+    (and 0.05 px) are dropped, and the rest fitted again: a blended pair
+    of stars, whose centroid sits ~0.5 px off in one frame and elsewhere
+    in a frame turned against it, would otherwise move every frame
+    solved against it.  A frame whose kept candidate is rejected or
+    left with fewer than 3 pairs keeps the vote's best solve as it came.
+    ``n_inliers`` and ``rms`` are the last fit's pairs and their
+    residual rms."""
+    m = sims.tx.shape[1] if sims.tx.dim() == 2 else 1
+    vote = Similarity(*(f[:, 0] for f in sims)) if m > 1 else sims
+    ref = [torch.as_tensor(t) for t in (ref_x, ref_y, ref_valid)]
+    tgt = [torch.as_tensor(t) for t in (tgt_x, tgt_y, tgt_valid)]
+    if m > 1:
+        tgt = [t.repeat_interleave(m, 0) for t in tgt]
+    rows = tgt[0].shape[0]
+    rx, ry, rv = (t.expand(rows, -1) if t.dim() == 1 else t for t in ref)
+    tx_, ty_, tv = tgt
+    flat = Similarity(*(f.reshape(-1) for f in sims))
+    with span("apt.register.refit"):
+        nn, keep = _pairs(_cs(*flat[:4]), rx, ry, rv, tx_, ty_, tv,
+                          inlier_tol ** 2)
+        src = torch.stack([rx, ry], dim=-1)
+        dst, fit = _fit_to(src, tx_, ty_, nn, keep.to(torch.float32))
+        res = _residuals(fit, src, dst)
+        med = torch.nanmedian(torch.where(keep, res, torch.nan), dim=1).values
+        bound = torch.clamp(_REFIT_CLIP_MEDIANS * med,
+                            min=_REFIT_CLIP_FLOOR_PX)
+        keep = keep & (res <= bound[:, None])
+        fit = solve_similarity(src, dst, keep.to(torch.float32))
+        res = _residuals(fit, src, dst)
+        n_in = keep.sum(dim=1)
+        rms = torch.sqrt(torch.where(keep, res * res, 0.0).sum(dim=1)
+                         / torch.clamp(n_in, min=1).to(res.dtype))
+        accepted = flat.tx != REJECTED_TRANSLATION
+        new = (*fit, n_in.to(sims.n_inliers.dtype), rms)
+        if m > 1:
+            score = torch.where(accepted, n_in, -1).view(-1, m)
+            best = torch.argmax(score, dim=1, keepdim=True)
+
+            def kept(f):
+                return torch.gather(f.view(-1, m), 1, best)[:, 0]
+
+            new = [kept(f) for f in new]
+            accepted, n_in = kept(accepted), kept(n_in)
+        ok = accepted & (n_in >= _REFIT_MIN_STARS)
+        return Similarity(*(torch.where(ok, a, b) for a, b in zip(new, vote)))
+
+
+def turned_past(sims: Similarity) -> torch.Tensor:
+    """Whether ``sims`` turn any accepted frame past 2 deg against the
+    reference: a 0-d bool tensor on their device."""
+    return ((sims.tx != REJECTED_TRANSLATION)
+            & (sims.theta.abs() > _TURN_RAD)).any()
+
+
+@numpy_inputs("ref_x", "ref_y", "ref_flux", "ref_valid", "tgt_x", "tgt_y", "tgt_flux", "tgt_valid")
+def solve_turned(
+    ref_x: torch.Tensor, ref_y: torch.Tensor, ref_flux: torch.Tensor,
+    ref_valid: torch.Tensor,
+    tgt_x: torch.Tensor, tgt_y: torch.Tensor, tgt_flux: torch.Tensor,
+    tgt_valid: torch.Tensor, k: int = 10,
+) -> Similarity:
+    """The solves (B,) of a batch whose field turns, star tables as
+    :func:`estimate_similarity` takes them: its vote widened
+    (``_TURNED_PAIR_K``, ``_TURNED_TGT_K``), its best candidates each
+    refitted to every star (:func:`refit_similarity`)."""
+    cands = estimate_similarity(
+        ref_x, ref_y, ref_flux, ref_valid, tgt_x, tgt_y, tgt_flux,
+        tgt_valid, k=k, candidates=_TURNED_CANDIDATES,
+        pair_k=_TURNED_PAIR_K, tgt_k=_TURNED_TGT_K)
+    return refit_similarity(cands, ref_x, ref_y, ref_valid, tgt_x, tgt_y,
+                            tgt_valid)

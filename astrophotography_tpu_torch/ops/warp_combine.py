@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..device import numpy_inputs, to_float32
-from ..utils.timing import count, span as _span
+from ..utils.timing import annotate, count, span as _span
 from .warp import lanczos3_poly
 
 _MAD_TO_STD = 1.482602218505602
@@ -637,10 +637,13 @@ def warp_combine(
     past that the wrapper raises.
 
     Spans: ``apt.warp_combine`` around the call, ``apt.warp_combine.plan``
-    and ``apt.warp_combine.k2`` (the kernel, or its twin on the CPU);
-    counters ``warp_combine.frame_tiles`` (frames x tiles) and
-    ``warp_combine.frame_tiles_used`` (:func:`frame_tiles_used`, read with
-    the span records)."""
+    and ``apt.warp_combine.k2`` (the kernel, or its twin on the CPU),
+    whose attributes say what ran: ``route`` (``kernels._warp_route``'s,
+    or 'plain' for the twin), ``span`` and ``taps`` (the tap body of
+    frames that do not snap to a translation); counters
+    ``warp_combine.frame_tiles`` (frames x tiles) and
+    ``warp_combine.frame_tiles_used`` (:func:`frame_tiles_used`, read
+    with the span records)."""
     _validate(frames, matrices, masters, combine)
     if frames.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no warp+combine kernel for device {frames.device}")
@@ -657,6 +660,7 @@ def warp_combine(
           lambda: int(frame_tiles_used(plan)))
     with _span("apt.warp_combine.k2"):
         if frames.device.type == "cpu":
+            annotate(route="plain", span=plan.span, taps=general_taps)
             return _run_plain(frames, masters, plan, combine, sigma_lower,
                               sigma_upper, general_taps)
         from .. import kernels

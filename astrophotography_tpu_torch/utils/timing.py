@@ -18,7 +18,8 @@ a record (:func:`records`):
   opened, or None) and ``request`` (the id of its root span, shared by
   every span of one call);
 * ``name`` (a small fixed set, ``apt.*``) and ``attrs`` (what varies:
-  a file, a group);
+  a file, a group; :func:`annotate` adds what the call decides inside
+  the span, such as K2's route);
 * ``t0`` / ``t1``: host nanoseconds on the clock the profiler stamps host
   events with (the wall clock, ``time.time_ns``), so a record lines up
   with its range on the trace;
@@ -142,6 +143,11 @@ class Tracer:
         else:
             counters[name] = counters.get(name, 0) + value
 
+    def annotate(self, attrs: dict) -> None:
+        stack = self._stack()
+        if stack:
+            stack[-1].attrs = {**stack[-1].attrs, **attrs}
+
     def records(self) -> List[dict]:
         """The closed spans' records, oldest first, each counter a
         number (deferred values are read now, once)."""
@@ -199,6 +205,14 @@ def count(name: str, value=1) -> None:
     number, or a function of no arguments read with the records."""
     if _profiling():
         _TRACER.count(name, value)
+
+
+def annotate(**attrs) -> None:
+    """Add ``attrs`` to the record of the innermost open span: what a
+    call decides inside it (a kernel's route).  Nothing while no
+    profiler records."""
+    if _profiling():
+        _TRACER.annotate(attrs)
 
 
 class _HostRead:

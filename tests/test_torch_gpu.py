@@ -1279,6 +1279,84 @@ def test_spans_and_syncs_on_the_card(cuda, path):
     assert syncs == counted.get("host_reads", 0) > 0
 
 
+def test_altaz_cell_on_the_card(cuda):
+    """The alt-az cell's configuration (``lean-wide-4mpix-n360``) at 24
+    frames of 1024^2 on the card, under the profiler: K1 and one K2
+    launch, on the 'wide' route, its span saying so; every (frame, tile)
+    pair combined; the refit inside the solve; the kernel's image the
+    twin's bit for bit on the call's own matrices; and every host read
+    counted (the card's sync debug mode reports as many)."""
+    import math
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from astrophotography_tpu_torch.models import pipeline as pl
+    from astrophotography_tpu_torch.ops.register import Similarity
+    from astrophotography_tpu_torch.utils import timing
+    from stackbench.registry import Registry
+    from stackbench.run import pipeline_config
+
+    reg = Registry.load()
+    cell = reg.cell("lean-wide-4mpix-n360.altaz")
+    n, size = 24, 1024
+    config = dict(reg.config(cell["config"]), frames=n, height=size,
+                  width=size)
+    mix = dict(reg.traffic(cell["traffic"]))
+    # the mix's edge rule at this size: a star turned 15 deg stays inside
+    c = (size - 1) / 2
+    t = math.radians(mix["rotation_deg"][1])
+    mix["star_edge_px"] = math.ceil(c - (c - 17) / (math.cos(t) + math.sin(t)))
+    obs = reg.generator(mix["generator"]).inputs(config, mix, 2**31 + 29,
+                                                 cuda)
+    cfg = pipeline_config(config)
+
+    def call():
+        return pl.calibrate_register_stack_lean(
+            obs.frames, bias=obs.bias, dark=obs.dark, flat=obs.flat,
+            exp_ratios=obs.exp_ratios, config=cfg)
+
+    call()
+    torch.cuda.synchronize()
+    timing.clear_records()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        image, diag = call()
+        torch.cuda.synchronize()
+    recs = timing.records()
+    counted = {}
+    for r in recs:
+        for k, v in r["counters"].items():
+            counted[k] = counted.get(k, 0) + v
+    assert {k: v for k, v in counted.items() if k.startswith("launch.")} \
+        == {"launch.detect_tiles": 1, "launch.warp_combine": 1,
+            "launch.warp_combine.wide": 1}
+    assert counted["warp_combine.frame_tiles_used"] \
+        == counted["warp_combine.frame_tiles"] == n * 4
+    (k2,) = [r for r in recs if r["name"] == "apt.warp_combine.k2"]
+    assert k2["attrs"] == {"route": "wide", "span": 288, "taps": "exact"}
+    assert any(r["name"] == "apt.register.refit" for r in recs)
+    assert int(diag["n_inliers"].min()) >= 3
+    mats = Similarity(diag["scale"], diag["theta"], diag["tx"], diag["ty"],
+                      diag["n_inliers"], diag["rms"]).matrix()
+    masters = pl.lean_masters(obs.bias, obs.dark, obs.flat, cfg, size, size,
+                              cuda)
+    twin = wc.warp_combine_plain(obs.frames, mats, masters=masters,
+                                 exp_ratios=obs.exp_ratios,
+                                 **pl.lean_kernel_kwargs(cfg, size, size))
+    assert torch.equal(image, twin)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    assert syncs == counted.get("host_reads", 0) > 0
+
+
 # -- the separable warp (csrc/warp_separable.cu) against its twin --------
 
 

@@ -9,8 +9,9 @@ benchmark's request range.  The trace goes through
 (``apt.*``, from ``utils.timing.records``).  Prints, per request:
 
 * each program span's calls, device time (the operations launched inside
-  it, its children's included) and host self time (its host time less
-  its children's);
+  it, its children's included), host self time (its host time less
+  its children's) and the distinct attributes it carried (K2's
+  ``route``, ``span`` and ``taps``);
 * the card's idle time, by the innermost program span open on the host
   when each gap began;
 * the traced request latency (median, ms; the image downloaded into a
@@ -60,6 +61,16 @@ def _self_ms(recs) -> dict:
     out = defaultdict(float)
     for r in recs:
         out[r["name"]] += (r["t1"] - r["t0"] - child[r["id"]]) / 1e6
+    return dict(out)
+
+
+def _attrs(recs) -> dict:
+    """The distinct attributes each span name carried (K2's route, span
+    and taps; the entry), leaving out spans that carry none."""
+    out = defaultdict(list)
+    for r in recs:
+        if r["attrs"] and r["attrs"] not in out[r["name"]]:
+            out[r["name"]].append(r["attrs"])
     return dict(out)
 
 
@@ -137,10 +148,12 @@ def main() -> None:
                tr.idle_by_host.items(), key=lambda kv: -kv[1])}}
     if recs:
         self_ms = _self_ms(recs)
+        attrs = _attrs(recs)
         out["spans"] = {name: {
             "calls": tr.span_calls.get(name, 0) / n,
             "device_ms": tr.span_device_s.get(name, 0.0) * 1e3 / n,
-            "host_self_ms": self_ms.get(name, 0.0) / n} for name in names}
+            "host_self_ms": self_ms.get(name, 0.0) / n,
+            "attrs": attrs.get(name, [])} for name in names}
         counters = defaultdict(float)
         for r in recs:
             for k, v in r["counters"].items():
@@ -155,7 +168,8 @@ def main() -> None:
     for name, row in out.get("spans", {}).items():
         print(f"{name:<24} calls {row['calls']:5.1f}  device "
               f"{row['device_ms']:9.3f} ms  host self "
-              f"{row['host_self_ms']:8.3f} ms")
+              f"{row['host_self_ms']:8.3f} ms"
+              + "".join(f"  {a}" for a in row["attrs"]))
     for name, ms in out["idle_ms_per_request"].items():
         print(f"idle in {name:<24} {ms:8.3f} ms a request")
     line = json.dumps(out)
