@@ -14,7 +14,8 @@ kernel and nowhere else, so a run can show that its main path went
 through the kernels; :data:`route_counts` splits those of the kernels
 that have routes by route (K2's and the separable warp's, seen also as
 :data:`warp_route_counts` and :data:`warp_separable_route_counts`).
-:func:`_launched` raises them, and the span counters ``launch.<kernel>``
+Exact detection's two kernels (its tiles and its merge) count once a
+call.  :func:`_launched` raises them, and the span counters ``launch.<kernel>``
 and ``launch.<kernel>.<route>`` (``utils.timing``) with them.
 """
 
@@ -41,7 +42,8 @@ _SRC = _PKG / "csrc"
 _SOURCES = {"detect_tiles": "detect_tiles.cu",
             "warp_combine": "warp_combine.cu",
             "clip_combine": "clip_combine.cu",
-            "warp_separable": "warp_separable.cu"}
+            "warp_separable": "warp_separable.cu",
+            "find_exact": "find_exact.cu"}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 #: ``-Xptxas -v`` reports each kernel's registers, shared memory, stack
 #: frame and spills on stderr, kept in ``build_info["ptxas"]``
@@ -173,6 +175,11 @@ def _load() -> dict:
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
                            i, p]
             fn.restype = i
+            q = ctypes.c_longlong
+            fn = libs["find_exact"].find_exact_launch
+            fn.argtypes = [p, p, q, p, p, i, i, i, i, i, i, p, p, p, p, q, p,
+                           p, p, p]
+            fn.restype = i
             _libs = libs
         return _libs
 
@@ -204,8 +211,9 @@ def _frames_arg(frames: torch.Tensor):
 
 @functools.lru_cache(maxsize=None)
 def _params_block(params: tuple):
-    """K1's parameter block as a C float array in host memory: the
-    launch passes it to the kernel by value."""
+    """A kernel's parameter block (K1's, exact detection's taps) as a C
+    float array in host memory: the launch passes it to the kernel by
+    value."""
     return (ctypes.c_float * len(params))(*params)
 
 
@@ -847,3 +855,83 @@ def warp_separable_cuda(imgs, mats, out_shape, band: int, span: int,
         for _ in range(1 if route == "smem" else 2):
             _launched("warp_separable", route)
     return out, cov
+
+
+#: exact detection's tile (csrc/find_exact.cu): 32 x 126 core pixels, which
+#: hold at most 16 x 63 peaks (no two peaks are 8-adjacent, so a 2 x 2 cell
+#: holds one); the radii with an instance of the kernel (fwhm 2.67 to
+#: 11.33); the most stars a frame keeps (the merge block's selection in
+#: shared memory)
+_FIND_TH, _FIND_TW = 32, 126
+_FIND_TILE_PEAKS = (_FIND_TH // 2) * (_FIND_TW // 2)
+_FIND_RADII = range(2, 9)
+_FIND_MAX_STARS = 2048
+
+
+def _find_exact_cap(h: int, w: int, k: int) -> int:
+    """Candidate slots a frame of ``h`` x ``w`` needs in exact detection's
+    buffer: each tile's peaks, or its ``k`` best where it holds more."""
+    tiles = -(-h // _FIND_TH) * -(-w // _FIND_TW)
+    return tiles * min(k, _FIND_TILE_PEAKS)
+
+
+def find_exact_cuda(data, taps, r: int, thresholds, mask, max_stars: int,
+                    border: int, stats: bool):
+    """Launch exact detection (``csrc/find_exact.cu``) on an (N, H, W)
+    float32 stack: ``taps`` the (2r + 1)^2 float32 filter of
+    ``ops.detect.daofind_kernel``, ``thresholds`` (N,), ``mask`` None or
+    bool (H, W), (1, H, W) or (N, H, W) (True = excluded).  Returns the
+    ``max_stars`` best peaks of each frame in ``_top_k``'s order, as
+    (values (N, k) float32, rows (N, k) int64, columns (N, k) int64;
+    -inf at (0, 0) past the last peak) and, with ``stats``, the masked
+    density plane (N, H, W), else None."""
+    dev = data.device
+    if data.dim() != 3 or data.dtype != torch.float32:
+        raise ValueError(f"find_exact kernel takes an (N, H, W) float32 "
+                         f"stack, got {tuple(data.shape)} {data.dtype}")
+    n, h, w = data.shape
+    if n < 1 or h * w >= 1 << 31:
+        raise ValueError(f"find_exact kernel takes 1 or more frames of "
+                         f"fewer than 2**31 pixels, got {tuple(data.shape)}")
+    if r not in _FIND_RADII or not 1 <= max_stars <= _FIND_MAX_STARS:
+        raise ValueError(f"find_exact kernel takes radii 2 to 8 and 1 to "
+                         f"{_FIND_MAX_STARS} stars, got radius {r}, "
+                         f"{max_stars} stars")
+    if tuple(taps.shape) != (2 * r + 1, 2 * r + 1):
+        raise ValueError(f"find_exact taps must be {2 * r + 1} x "
+                         f"{2 * r + 1}, got {tuple(taps.shape)}")
+    data = data.contiguous()
+    thr = _check(thresholds, "thresholds", dev, (n,))
+    stride = 0
+    if mask is not None:
+        if mask.device != dev or mask.dtype != torch.bool:
+            raise ValueError(f"mask must be bool on {dev}, got "
+                             f"{mask.dtype} on {mask.device}")
+        if (mask.dim() not in (2, 3) or tuple(mask.shape[-2:]) != (h, w)
+                or (mask.dim() == 3 and mask.shape[0] not in (1, n))):
+            raise ValueError(f"mask must be (H, W), (1, H, W) or (N, H, W) "
+                             f"of {(n, h, w)}, got {tuple(mask.shape)}")
+        if mask.dim() == 3 and mask.shape[0] == n and n > 1:
+            stride = h * w
+        mask = mask.contiguous().view(torch.uint8)
+    par = _params_block(tuple(float(v) for v in taps.reshape(-1)))
+    k = max_stars
+    cap = _find_exact_cap(h, w, k)
+    cand_val = torch.empty((n * cap,), dtype=torch.float32, device=dev)
+    cand_pos = torch.empty((n * cap,), dtype=torch.int32, device=dev)
+    cand_count = torch.empty((n,), dtype=torch.int32, device=dev)
+    dens = (torch.empty((n, h, w), dtype=torch.float32, device=dev)
+            if stats else None)
+    vals = torch.empty((n, k), dtype=torch.float32, device=dev)
+    py = torch.empty((n, k), dtype=torch.int64, device=dev)
+    px = torch.empty((n, k), dtype=torch.int64, device=dev)
+    lib = _load()["find_exact"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.find_exact_launch(
+        _ptr(data), _ptr(mask), stride, _ptr(thr),
+        ctypes.cast(par, ctypes.c_void_p), r, n, h, w, border, k,
+        _ptr(dens), _ptr(cand_val), _ptr(cand_pos), _ptr(cand_count), cap,
+        _ptr(vals), _ptr(py), _ptr(px), ctypes.c_void_p(stream))
+    _raise_on(err, "find_exact")
+    _launched("find_exact")
+    return vals, py, px, dens

@@ -214,15 +214,101 @@ def find_stars(
     ``stats=False`` skips peak / sharpness / roundness (zeros).
     ``bin_rows`` (fast mode, stats=False): detect on 2x row-binned data.
 
+    On a CUDA tensor the exact filter, its peaks and their top-k are one
+    hand-written kernel pair (``csrc/find_exact.cu``) where
+    :func:`_find_route` says 'kernel', bit for bit
+    :func:`find_stars_plain`, which CPU tensors and the other routes run.
+
     Returns :class:`Stars` with (max_stars,) fields for one frame, or
     (N, max_stars) for a batch."""
+    args = (data, fwhm, threshold, max_stars, mask, border, topk_mode, mode,
+            stats, bin_rows, floor)
+    if data.device.type == "cpu":
+        return find_stars_plain(*args)
+    if data.device.type != "cuda":
+        raise ValueError(f"no find_exact kernel for device {data.device}")
+    kernel, foot, r = daofind_kernel(fwhm)
+    if _find_route(data.shape, max_stars, topk_mode, mode, kernel, foot,
+                   r) != "kernel":
+        return find_stars_plain(*args)
+    from .. import kernels
+
+    single, data, floor_f = _frames(data, floor)
+    n = data.shape[0]
+    thr = _per_frame(threshold, n, data.device)
+    top_vals, py, px, dens = kernels.find_exact_cuda(
+        data, kernel, r, thr, mask, max_stars, border, stats)
+    return _measure(data, top_vals, py, px, dens, foot, r, 1, stats,
+                    floor_f, single)
+
+
+def _tile_topk(topk_mode: str, hd: int, w: int, max_stars: int,
+               bin_r: int = 1) -> bool:
+    """Whether the top-k keeps the strongest peak of each (64 / bin_r,
+    256) tile first: ``topk_mode`` 'tile' on a frame of whole tiles, at
+    least ``max_stars`` of them."""
+    tth, ttw = 64 // bin_r, 256
+    return (topk_mode == "tile" and hd % tth == 0 and w % ttw == 0
+            and (hd // tth) * (w // ttw) >= max_stars)
+
+
+def _find_route(shape, max_stars: int, topk_mode: str, mode: str,
+                kernel: np.ndarray, foot: torch.Tensor, r: int) -> str:
+    """How :func:`find_stars` detects on a CUDA stack of ``shape`` ((H, W)
+    or (N, H, W)) with ``daofind_kernel``'s (kernel, foot, r): 'kernel'
+    (``kernels.find_exact_cuda``), else the composed route the twin runs:
+    'fast' (mode 'fast'), 'tile' (the tile top-k applies), 'radius' (no
+    instance of the kernel past radius 8, fwhm from 11.33), 'taps' (a tap
+    inside the circular footprint is 0, which an instance would not
+    skip), 'max_stars' (more than 2048, or more than the twin ranks, where
+    its top-k raises)."""
+    from .. import kernels
+
+    if mode == "fast":
+        return "fast"
+    h, w = shape[-2:]
+    if _tile_topk(topk_mode, h, w, max_stars):
+        return "tile"
+    if r not in kernels._FIND_RADII:
+        return "radius"
+    if not np.array_equal(kernel != 0, foot.numpy() > 0):
+        return "taps"
+    ranked = (h // 2) * w if h % 2 == 0 else h * w
+    if not 1 <= max_stars <= min(kernels._FIND_MAX_STARS, ranked):
+        return "max_stars"
+    return "kernel"
+
+
+def _frames(data: torch.Tensor, floor):
+    """(single, float32 (N, H, W) data, (N,) floor)."""
     single = data.dim() == 2
     data = to_float32(data)
     if single:
         data = data[None]
+    return single, data, _per_frame(floor, data.shape[0], data.device)
+
+
+@numpy_inputs("data", "threshold", "mask")
+def find_stars_plain(
+    data: torch.Tensor,
+    fwhm: float = 3.0,
+    threshold: "torch.Tensor | float" = 100.0,
+    max_stars: int = 1024,
+    mask: "torch.Tensor | None" = None,
+    border: int = 2,
+    topk_mode: str = "global",
+    mode: str = "exact",
+    stats: bool = True,
+    bin_rows: bool = False,
+    floor: "torch.Tensor | float" = 0.0,
+) -> Stars:
+    """Plain PyTorch twin of :func:`find_stars`, on any device, composed
+    of whole-tensor operations: the filter tap by tap, the peak test by
+    shifted maxima, the top-k by ``_top_k``.  Same arguments and result;
+    the exact route's kernel is held to it bit for bit."""
+    single, data, floor_f = _frames(data, floor)
     n, h, w = data.shape
     dev = data.device
-    floor_f = _per_frame(floor, n, dev)
     kernel, foot, r = daofind_kernel(fwhm)
     bin_r = 2 if (bin_rows and mode == "fast" and h % 2 == 0) else 1
     if bin_r > 1:
@@ -268,8 +354,7 @@ def find_stars(
     del pad, nm_earlier, nm_later, is_peak
 
     tth, ttw = 64 // bin_r, 256
-    if (topk_mode == "tile" and hd % tth == 0 and w % ttw == 0
-            and (hd // tth) * (w // ttw) >= max_stars):
+    if _tile_topk(topk_mode, hd, w, max_stars, bin_r):
         # strongest peak per (64, 256) tile (lowest raster index on
         # ties), then the top-k over the tiles
         s4 = score.reshape(n, hd // tth, tth, w // ttw, ttw)
@@ -298,6 +383,22 @@ def find_stars(
         top_vals, top_idx = _top_k(score.reshape(n, -1), max_stars)
         py = (top_idx // w) * bin_r
         px = top_idx % w
+    del score
+    return _measure(data, top_vals, py, px, dens, foot, r, bin_r, stats,
+                    floor_f, single)
+
+
+def _measure(data: torch.Tensor, top_vals: torch.Tensor, py: torch.Tensor,
+             px: torch.Tensor, dens: "torch.Tensor | None",
+             foot: torch.Tensor, r: int, bin_r: int, stats: bool,
+             floor_f: torch.Tensor, single: bool) -> Stars:
+    """The Stars tables of the (N, S) candidates (``top_vals`` at rows
+    ``py``, columns ``px``; -inf = no star) of an (N, H, W) float32 stack:
+    centre-of-mass centroids in the (2r + 1)^2 box and, with ``stats``,
+    peak / sharpness / roundness from the density plane ``dens``."""
+    n, h, w = data.shape
+    max_stars = top_vals.shape[1]
+    dev = data.device
     top_vals = top_vals.to(torch.float32)
     valid = torch.isfinite(top_vals)
 

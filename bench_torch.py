@@ -173,22 +173,42 @@ def config_for(impl: str, n_frames: int, size: int, rotate: bool = False):
                           combine_impl=impl)
 
 
+def exact_detection_kernel(cfg, h: int, w: int) -> bool:
+    """Whether a run of ``cfg`` on frames of ``h`` x ``w`` detects through
+    exact detection's kernel: ``find_stars`` in 'exact' mode (no
+    ``detect_fast``) on its kernel route (``ops.detect._find_route``)."""
+    from astrophotography_tpu_torch.ops import detect as dt
+
+    if cfg.detect_fast:
+        return False
+    kernel, foot, r = dt.daofind_kernel(cfg.fwhm)
+    return dt._find_route((h, w), cfg.max_stars, cfg.detect_topk, "exact",
+                          kernel, foot, r) == "kernel"
+
+
 def required_launches(impl: str, cfg, h: int, w: int) -> dict:
     """The kernels a run of ``impl`` must launch on the card, {name: exact
     count, or None for any positive count}: K1 where the lean path takes
     its fused detection (``models.pipeline.lean_detect_fused``) and K2 on
     the lean path; K3 once per band on 'pallas'; K2 on 'fused'; the
-    separable warp on 'pallas' and 'xla'."""
+    separable warp on 'pallas' and 'xla'; exact detection's kernel where
+    the path detects with it (:func:`exact_detection_kernel`; the lean
+    path where K1 does not take the frames)."""
     from astrophotography_tpu_torch.models import pipeline as pl
 
     if impl == "lean":
         req = {"warp_combine": None}
         if pl.lean_detect_fused(cfg, h, w):
             req["detect_tiles"] = None
+        elif exact_detection_kernel(cfg, h, w):
+            req["find_exact"] = None
         return req
-    return {"pallas": {"clip_combine": cfg.n_bands, "warp_separable": None},
-            "fused": {"warp_combine": None},
-            "xla": {"warp_separable": None}}.get(impl, {})
+    req = {"pallas": {"clip_combine": cfg.n_bands, "warp_separable": None},
+           "fused": {"warp_combine": None},
+           "xla": {"warp_separable": None}}.get(impl, {})
+    if exact_detection_kernel(cfg, h, w):
+        req = dict(req, find_exact=None)
+    return req
 
 
 def check_launches(label, launches, required) -> None:

@@ -256,12 +256,15 @@ def _k3_exact(k, p, label) -> float:
     return err
 
 
-def _sep_exact(k, p, label) -> float:
-    """The separable warp's (warped, coverage) ``k`` equal to its twin's
-    ``p`` bit for bit, signed zeros included; a NaN only has to be a NaN
-    (the kernel rounds every value operation as its twin does)."""
+def _exact(k, p, label, names) -> float:
+    """A kernel's outputs ``k`` equal to its twin's ``p`` field by field
+    (``names``) bit for bit, signed zeros included; a NaN only has to be
+    a NaN (the kernels round every value operation as their twins do)."""
     err = 0.0
-    for what, kk, pp in zip(("warped", "coverage"), k, p):
+    for what, kk, pp in zip(names, k, p):
+        if kk.dtype == torch.bool:
+            _require(bool(torch.equal(kk, pp)), f"{label}: {what} differs")
+            continue
         nan_k, nan_p = torch.isnan(kk), torch.isnan(pp)
         _require(bool(torch.equal(nan_k, nan_p)),
                  f"{label}: {what} NaN pixels differ")
@@ -768,7 +771,8 @@ _PIPELINE = "astrophotography_tpu_torch.models.pipeline"
 _PIPELINE_CALLS = {"K1": (_PIPELINE, "detect_tiles"),
                    "K2": (_PIPELINE, "warp_combine"),
                    "K3": (_PIPELINE, "clip_combine"),
-                   "warp_separable": (_PIPELINE, "warp_affine_separable")}
+                   "warp_separable": (_PIPELINE, "warp_affine_separable"),
+                   "find_exact": (_PIPELINE, "find_stars")}
 #: each kernel as the sharded code calls it
 _MC_CALLS = dict(_PIPELINE_CALLS,
                  K2=("astrophotography_tpu_torch.parallel.fused",
@@ -781,13 +785,16 @@ _PLAINS = {"K1": ("astrophotography_tpu_torch.ops.detect_tiles",
            "K3": ("astrophotography_tpu_torch.ops.clip_combine",
                   "clip_combine_plain"),
            "warp_separable": ("astrophotography_tpu_torch.ops.warp",
-                              "warp_affine_separable_plain")}
+                              "warp_affine_separable_plain"),
+           "find_exact": ("astrophotography_tpu_torch.ops.detect",
+                          "find_stars_plain")}
 
 
 def _plain_check(kind: str, call, label: str) -> dict:
     """The plain twin on the exact arguments a kernel got in a path's
     run, held against the kernel's result by the kernel's rule: K1 by
-    :func:`_k1_agrees`, K2, K3 and the separable warp bit for bit."""
+    :func:`_k1_agrees`, K2, K3, the separable warp and exact detection
+    bit for bit."""
     import importlib
 
     _require(call is not None, f"{label}: {kind} was not called")
@@ -799,7 +806,10 @@ def _plain_check(kind: str, call, label: str) -> dict:
     if kind == "K1":
         agree = _k1_agrees(out, p, label)
     elif kind == "warp_separable":
-        agree = {"max_abs_err": _sep_exact(out, p, label)}
+        agree = {"max_abs_err": _exact(out, p, label,
+                                       ("warped", "coverage"))}
+    elif kind == "find_exact":
+        agree = {"max_abs_err": _exact(out, p, label, out._fields)}
     else:
         agree = {"max_abs_err": (_k2_exact if kind == "K2" else _k3_exact)(
             out, p, label)}
@@ -1154,7 +1164,8 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
                                          ref["whole"])}, card)
 
     key = "unfused"
-    add(key, {"clip_combine": cfg_u.n_bands, "warp_separable": None})
+    add(key, {"clip_combine": cfg_u.n_bands, "warp_separable": None,
+              "find_exact": None})
     n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
     mats = _same_on_every_rank(key, ranks, key, "matrices")
     one = refs[f"unfused {cfg_u.n_bands} bands"]
@@ -1207,7 +1218,8 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
         card)
 
     key = "unfused extras"
-    add(key, {"clip_combine": cfg_u.n_bands, "warp_separable": None})
+    add(key, {"clip_combine": cfg_u.n_bands, "warp_separable": None,
+              "find_exact": None})
     n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
     mats = _same_on_every_rank(key, ranks, key, "matrices")
     want = refs[key]
@@ -1228,7 +1240,7 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
          "vs_one_process_same_bands_max_abs_err": err}, card)
 
     key = "unfused fused"
-    add(key, {"warp_combine": 1})
+    add(key, {"warp_combine": 1, "find_exact": None})
     n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
     mats = _same_on_every_rank(key, ranks, key, "matrices")
     halos = {r[key]["halo"] for r in ranks}
@@ -2616,7 +2628,8 @@ def run_reduce(card: str, dev) -> dict:
             wall = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
         _require(rc == 0, f"ap_reduce exited {rc}")
-        check_launches("reduce", launches, {"warp_combine": 2})
+        check_launches("reduce", launches, {"warp_combine": 2,
+                                            "find_exact": None})
         res["ap_reduce"] = {
             "wall_s": wall, "lights": n_lights,
             "lights_per_s": n_lights / wall,
@@ -2684,11 +2697,15 @@ def run_reduce(card: str, dev) -> dict:
         res["ap_stack"] = {}
         outs = {}
         for key, extra, want in (
-                ("xla", ["--engine", "xla"], {"warp_separable": None}),
+                ("xla", ["--engine", "xla"],
+                 {"warp_separable": None, "find_exact": None}),
                 ("pallas", ["--engine", "pallas"],
-                 {"clip_combine": 1, "warp_separable": None}),
-                ("fused", ["--engine", "fused"], {"warp_combine": 1}),
-                ("union", ["--canvas", "union"], {"warp_separable": None})):
+                 {"clip_combine": 1, "warp_separable": None,
+                  "find_exact": None}),
+                ("fused", ["--engine", "fused"],
+                 {"warp_combine": 1, "find_exact": None}),
+                ("union", ["--canvas", "union"],
+                 {"warp_separable": None, "find_exact": None})):
             path = os.path.join(tmp, f"ap_stack_{key}.fits")
             kernels.reset_launch_counts()
             with _Recorder(ap_stack) as rec:
@@ -2865,8 +2882,9 @@ def _unfused_split(fr, kw, cfg) -> dict:
 def run_unfused_path(card: str, dev, phases) -> dict:
     """K3 against its twin at the unfused path's band shape, then the
     unfused path (``calibrate_register_stack``) at 24x4096^2, as far as
-    ``phases`` asks; the warm-up's separable warps (one a band) are
-    replayed on their twin bit for bit."""
+    ``phases`` asks; the warm-up's separable warps (one a band) and its
+    exact detection (one call) are replayed on their twins bit for
+    bit."""
     from astrophotography_tpu_torch import kernels
     from astrophotography_tpu_torch.models import calibrate_register_stack
 
@@ -2901,16 +2919,20 @@ def run_unfused_path(card: str, dev, phases) -> dict:
 
     kernels.reset_launch_counts()
     with _FirstCall(*_PIPELINE_CALLS["warp_separable"],
-                    keep=cfg.n_bands) as ws:
-        run()                               # warm-up, its warps kept
+                    keep=cfg.n_bands) as ws, \
+            _FirstCall(*_PIPELINE_CALLS["find_exact"]) as fs:
+        run()                    # warm-up, its warps and detection kept
     torch.cuda.synchronize()
     sep_routes = dict(kernels.warp_separable_route_counts)
     _require(len(ws.calls) == cfg.n_bands, f"{label}: warp_separable calls")
     _require(sep_routes == {"smem": cfg.n_bands, "scratch": 0},
              f"{label}: warp_separable routes {sep_routes}")
+    _require(kernels.launch_counts["find_exact"] == 1,
+             f"{label}: find_exact launches")
     sep_checks = [_plain_check("warp_separable", c, f"{label} band {i}")
                   for i, c in enumerate(ws.calls)]
-    del ws
+    find_check = _plain_check("find_exact", fs.call, label)
+    del ws, fs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2921,7 +2943,8 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     check_launches(label, launches, {"clip_combine": cfg.n_bands,
-                                     "warp_separable": cfg.n_bands})
+                                     "warp_separable": cfg.n_bands,
+                                     "find_exact": 1})
     _require("jax" not in sys.modules, "jax was imported")
     k = 3
     t0 = time.perf_counter()
@@ -2948,7 +2971,7 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     blaunches = dict(kernels.launch_counts)
     check_launches(label + " badpix", blaunches,
                    {"clip_combine": cfg.n_bands,
-                    "warp_separable": cfg.n_bands})
+                    "warp_separable": cfg.n_bands, "find_exact": 1})
     b_in, b_rms, b_terr = _check_registration(label + " badpix", bdiag, mats,
                                               UNFUSED_T_ERR_PX)
     b_med = check_stack(label + " badpix", stacked)
@@ -2970,6 +2993,7 @@ def run_unfused_path(card: str, dev, phases) -> dict:
            "warp_separable_plain_checks": sep_checks,
            "warp_separable_max_abs_err": max(c["max_abs_err"]
                                              for c in sep_checks),
+           "find_exact_plain_check": find_check,
            "device_ms_split": split, "with_badpix_mask": badpix,
            "min_inliers": min_in, "max_rms_px": max_rms,
            "max_translation_err_px": t_err, "interior_median": med,
@@ -3059,7 +3083,7 @@ BENCH_RUNS = (
                 "BENCH_SKIP_ROTATION": "1"},
      (("24x4096^2 pallas, sub-px dithers",
        {"detect_tiles": 0, "warp_combine": 0, "clip_combine": 2,
-        "warp_separable": 2}),)),
+        "warp_separable": 2, "find_exact": 1}),)),
 )
 #: what each bench line is held beside: the smoke phase that ran the
 #: same configuration in this call
@@ -3663,7 +3687,8 @@ def run_deep(card: str, dev) -> dict:
     ulaunches = dict(kernels.launch_counts)
     u_peak = torch.cuda.max_memory_allocated()
     check_launches(ulabel, ulaunches, {"clip_combine": ucfg.n_bands,
-                                       "warp_separable": None})
+                                       "warp_separable": None,
+                                       "find_exact": None})
     u_in, u_rms, u_err = _check_registration(ulabel, diag, mats,
                                              UNFUSED_T_ERR_PX)
     u_med = check_stack(ulabel, stacked)
@@ -4209,7 +4234,8 @@ def run_wide(card: str, dev) -> dict:
     run_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
     routes = dict(kernels.warp_route_counts)
-    check_launches(label, launches, {"warp_combine": 1})
+    check_launches(label, launches, {"warp_combine": 1,
+                                     "find_exact": None})
     _require(routes == {"smem": 0, "cols": 0, "wide": 1},
              f"{label}: K2 routes {routes}")
     _require("jax" not in sys.modules, "jax was imported")

@@ -1191,7 +1191,8 @@ def test_bench_attempt_lean_on_the_card(cuda):
 
     line = bench_torch.attempt(8, 1024, 1, "lean", device=cuda)
     assert line["launches"] == {"detect_tiles": 1, "warp_combine": 1,
-                                "clip_combine": 0, "warp_separable": 0}
+                                "clip_combine": 0, "warp_separable": 0,
+                                "find_exact": 0}
     assert abs(line["interior_median"] - bench_torch.SKY) \
         < 0.05 * bench_torch.SKY
     assert line["vs_baseline"] is None and line["value"] > 0
@@ -1261,9 +1262,10 @@ def test_spans_and_syncs_on_the_card(cuda, path):
         assert counted["launch.warp_combine"] == 1
         assert counted["launch.warp_combine.smem"] == 1
     else:
-        # the plain warp: one launch of the separable kernel a band
+        # exact detection's kernel once, the plain warp's once a band
         assert {k: v for k, v in counted.items()
                 if k.startswith("launch.")} == {
+                    "launch.find_exact": 1,
                     "launch.warp_separable": cfg.n_bands,
                     "launch.warp_separable.smem": cfg.n_bands}
     with warnings.catch_warnings(record=True) as caught:
@@ -1428,7 +1430,8 @@ def _sep_check(imgs, mats, out_shape, route=None, **kw):
                                                   n, chans, imgs.shape[-2],
                                                   out_shape[1]))
     assert launches == {"detect_tiles": 0, "warp_combine": 0,
-                        "clip_combine": 0, "warp_separable": per}
+                        "clip_combine": 0, "warp_separable": per,
+                        "find_exact": 0}
     assert routes == {"smem": 0, "scratch": 0, want_route: per}
     _same_bits(got[0], want[0], "warped")
     _same_bits(got[1], want[1], "coverage")
