@@ -66,8 +66,9 @@ def parse(argv: Optional[List[str]]) -> argparse.Namespace:
                         "(frame with the most detected stars)")
     p.add_argument("--stack_engine", default="xla",
                    choices=("xla", "pallas", "fused"),
-                   help="stack combine engine: xla = plain PyTorch, "
-                        "pallas = the sigma-clip combine kernel, fused = "
+                   help="stack combine engine: xla and pallas (one "
+                        "path) = the separable warp band by band, then the "
+                        "sigma-clip combine kernel for 'average', fused = "
                         "the memory-lean warp+combine kernel")
     p.add_argument("--stack_combine", default="average",
                    choices=["average", "median", "sum"])

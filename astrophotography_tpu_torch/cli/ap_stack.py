@@ -44,9 +44,10 @@ def parse(argv: Optional[List[str]]) -> argparse.Namespace:
                    help="sigma clip bound (default 5)")
     p.add_argument("--engine", default="xla",
                    choices=("xla", "pallas", "fused"),
-                   help="combine engine: 'xla' = plain PyTorch, 'pallas' = "
-                        "the sigma-clip combine kernel, 'fused' = the "
-                        "memory-lean warp+combine kernel")
+                   help="combine engine: 'xla' and 'pallas' (one path) = "
+                        "the separable warp, then the sigma-clip combine "
+                        "kernel for 'average', 'fused' = the memory-lean "
+                        "warp+combine kernel")
     p.add_argument("--ref_frame", default="auto",
                    help="registration reference: frame index or 'auto' "
                         "(frame with the most detected stars)")
@@ -77,8 +78,7 @@ def _stack_union_canvas(stack, scales, cfg, timer: StageTimer, name: str):
     the two device passes: (1) detection + registration, (2) host
     corner math on the (N, 2, 3) matrices, (3) the separable warp of
     every frame onto the canvas and the sigma-clip combine."""
-    from ..models.pipeline import register_frames
-    from ..ops.stack import sigma_clip_combine
+    from ..models.pipeline import combine_band, register_frames
     from ..ops.warp import warp_affine_separable
 
     n, h, w = stack.shape
@@ -131,12 +131,8 @@ def _stack_union_canvas(stack, scales, cfg, timer: StageTimer, name: str):
         warped, covers = warp_affine_separable(
             stack, torch.from_numpy(mats_c).to(dev), (hc, wc),
             span=cfg.warp_span, analytic_coverage=True)
-        out = sigma_clip_combine(warped, mask=covers > 0.5,
-                                 sigma_lower=cfg.sigma_lower,
-                                 sigma_upper=cfg.sigma_upper,
-                                 method=cfg.combine)
+        stacked = combine_band(warped, covers, cfg)
         del warped, covers
-        stacked = torch.where(torch.isnan(out), 0.0, out)
         synchronize(dev)
     with timer.stage("download", name):
         stacked = stacked.cpu().numpy()

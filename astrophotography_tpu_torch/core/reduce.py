@@ -158,7 +158,8 @@ class ReduceConfig:
     stack_combine: str = "average"
     #: registration reference frame: an index or 'auto' (most stars)
     ref_frame: "int | str" = "auto"
-    #: stack engine: 'xla', 'pallas', or 'fused' (memory-lean mega-kernel)
+    #: stack engine: 'xla' or 'pallas' (one path: the separable warp and
+    #: the K3 combine for 'average'), or 'fused' (memory-lean mega-kernel)
     combine_impl: str = "xla"
     noclean: bool = True          # skip outputs that already exist
     quality: bool = True

@@ -23,7 +23,10 @@ import numpy as np
 class PipelineConfig:
     """Static configuration of the stacking pipeline (see the JAX
     package's ``PipelineConfig`` for each field's meaning; the lean path
-    reads the detection, registration and warp+combine fields)."""
+    reads the detection, registration and warp+combine fields).
+    ``combine_impl`` keeps the JAX package's three values, but 'xla' and
+    'pallas' run one path here: both combine a band's 'average' with the
+    K3 kernel (``models.pipeline.combine_band``)."""
 
     fwhm: float = 3.0
     detect_nsigma: float = 7.0

@@ -6,9 +6,10 @@ sigma-clip stack over an (N, H, W) light stack (the JAX package's
 whole stack to float32, detects stars on every calibrated frame
 (``ops/detect.find_stars``), registers every frame to the reference, then
 warps the stack band by band (``ops/warp``) and sigma-clip combines each
-band (``ops/stack``, or the K3 kernel ``ops/clip_combine`` with
-``combine_impl='pallas'``), or hands the calibrated stack to the fused
-warp+combine kernel (``combine_impl='fused'``).
+band (:func:`combine_band`: the K3 kernel ``ops/clip_combine`` for
+'average' under both 'xla' and 'pallas', ``ops/stack`` for 'median' and
+'sum'), or hands the calibrated stack to the fused warp+combine kernel
+(``combine_impl='fused'``).
 
 :func:`calibrate_register_stack_lean` never holds a calibrated stack:
 detection runs the fused raw->candidate kernel (``ops/detect_tiles``)
@@ -404,11 +405,13 @@ def warp_band(cal: torch.Tensor, matrices: torch.Tensor, band_h: int,
 
 def combine_band(warped: torch.Tensor, weights: torch.Tensor,
                  config: PipelineConfig) -> torch.Tensor:
-    """Sigma-clip combine one warped band: K3 for combine_impl='pallas'
-    with 'average', else ``sigma_clip_combine``.  Pixels no frame covers
-    are 0 (swarp weight-map semantics), not NaN."""
+    """Sigma-clip combine one warped band: 'average' by ``clip_combine``
+    (K3 on the card, its plain twin on the CPU) under 'xla' and 'pallas'
+    alike, 'median' and 'sum' by ``sigma_clip_combine`` (K3 computes only
+    the mean).  Pixels no frame covers are 0 (swarp weight-map
+    semantics), not NaN."""
     mask = weights > 0.5
-    if config.combine_impl == "pallas" and config.combine == "average":
+    if config.combine == "average":
         out = clip_combine(warped, mask=mask, sigma_lower=config.sigma_lower,
                            sigma_upper=config.sigma_upper)
     else:
@@ -440,10 +443,10 @@ def calibrate_register_stack(
     ``badpix_mask`` (H, W), True or non-zero = bad, repairs every
     calibrated frame by the median of the good pixels within +-2
     (``ops/badpix.fix_bad_pixels``) before detection.
-    ``config.combine_impl`` is 'xla' (``sigma_clip_combine``), 'pallas'
-    (the K3 kernel for 'average') or 'fused' (the warp+combine kernel on
-    the calibrated stack); the non-fused paths warp ``config.n_bands``
-    horizontal bands one after another.
+    ``config.combine_impl`` is 'xla' or 'pallas', which share
+    :func:`combine_band` (the K3 kernel for 'average'), or 'fused' (the
+    warp+combine kernel on the calibrated stack); the non-fused paths warp
+    ``config.n_bands`` horizontal bands one after another.
 
     Returns (stacked (H, W) float32, diagnostics dict of per-frame
     scale, theta, tx, ty, n_inliers, rms, n_stars, the reference frame

@@ -17,7 +17,7 @@ the diagnostics are replicated.  Per rank:
    and every rank gets the same matrices);
 4. unfused: its frames warped onto its 'space' band (``warp_band``),
    the warped band and the coverage mask gathered over 'frame', the
-   combine (K3 under ``combine_impl='pallas'``), ``config.n_bands``
+   combine (``combine_band``: K3 for 'average'), ``config.n_bands``
    sub-bands at a time; under ``combine_impl='fused'`` the calibrated
    rows of its band gathered over 'frame', then
    :func:`parallel.fused.sharded_warp_combine` (K2) on them with the

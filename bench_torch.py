@@ -190,8 +190,8 @@ def required_launches(impl: str, cfg, h: int, w: int) -> dict:
     """The kernels a run of ``impl`` must launch on the card, {name: exact
     count, or None for any positive count}: K1 where the lean path takes
     its fused detection (``models.pipeline.lean_detect_fused``) and K2 on
-    the lean path; K3 once per band on 'pallas'; K2 on 'fused'; the
-    separable warp on 'pallas' and 'xla'; exact detection's kernel where
+    the lean path; K3 once per band and the separable warp on 'pallas'
+    and 'xla' (one path); K2 on 'fused'; exact detection's kernel where
     the path detects with it (:func:`exact_detection_kernel`; the lean
     path where K1 does not take the frames)."""
     from astrophotography_tpu_torch.models import pipeline as pl
@@ -203,9 +203,8 @@ def required_launches(impl: str, cfg, h: int, w: int) -> dict:
         elif exact_detection_kernel(cfg, h, w):
             req["find_exact"] = None
         return req
-    req = {"pallas": {"clip_combine": cfg.n_bands, "warp_separable": None},
-           "fused": {"warp_combine": None},
-           "xla": {"warp_separable": None}}.get(impl, {})
+    req = {"fused": {"warp_combine": None}}.get(
+        impl, {"clip_combine": cfg.n_bands, "warp_separable": None})
     if exact_detection_kernel(cfg, h, w):
         req = dict(req, find_exact=None)
     return req

@@ -120,7 +120,8 @@ def test_attempt_on_the_cpu(impl, rotate):
     ("pallas", 4096, {"clip_combine": 2, "warp_separable": None,
                       "find_exact": None}),
     ("fused", 4096, {"warp_combine": None, "find_exact": None}),
-    ("xla", 4096, {"warp_separable": None, "find_exact": None}),
+    ("xla", 4096, {"clip_combine": 2, "warp_separable": None,
+                   "find_exact": None}),
 ])
 def test_required_launches(impl, size, want):
     cfg = bench_torch.config_for(impl, 24, size)

@@ -1262,10 +1262,12 @@ def test_spans_and_syncs_on_the_card(cuda, path):
         assert counted["launch.warp_combine"] == 1
         assert counted["launch.warp_combine.smem"] == 1
     else:
-        # exact detection's kernel once, the plain warp's once a band
+        # exact detection's kernel once, the plain warp's and K3 (under
+        # the cell's 'xla') once a band
         assert {k: v for k, v in counted.items()
                 if k.startswith("launch.")} == {
                     "launch.find_exact": 1,
+                    "launch.clip_combine": cfg.n_bands,
                     "launch.warp_separable": cfg.n_bands,
                     "launch.warp_separable.smem": cfg.n_bands}
     with warnings.catch_warnings(record=True) as caught:
@@ -1279,6 +1281,45 @@ def test_spans_and_syncs_on_the_card(cuda, path):
     syncs = sum("called a synchronizing CUDA operation" in str(w.message)
                 for w in caught)
     assert syncs == counted.get("host_reads", 0) > 0
+
+
+def test_unfused_xla_combines_with_k3_on_the_card(cuda, monkeypatch):
+    """``calibrate_register_stack`` under the default engine 'xla' (the
+    unfused cell's configuration at 8 x 1024^2): K3 once a band, and the
+    stack each band's replay through ``clip_combine_plain`` bit for
+    bit."""
+    from astrophotography_tpu_torch.models import pipeline as pl
+    from stackbench.registry import Registry
+    from stackbench.run import pipeline_config
+
+    reg = Registry.load()
+    cell = reg.cell("unfused-16mpix-n24.dither")
+    config = dict(reg.config(cell["config"]), frames=8, height=1024,
+                  width=1024)
+    mix = reg.traffic(cell["traffic"])
+    obs = reg.generator(mix["generator"]).inputs(config, mix, 2**31 + 23,
+                                                 cuda)
+    cfg = pipeline_config(config)
+    assert cfg.combine_impl == "xla" and cfg.n_bands == 2
+    bands = []
+    combine = pl.combine_band
+
+    def keep(warped, weights, config):
+        bands.append((warped.clone(), weights.clone()))
+        return combine(warped, weights, config)
+
+    monkeypatch.setattr(pl, "combine_band", keep)
+    before = kernels.launch_counts["clip_combine"]
+    got, _diag = pl.calibrate_register_stack(
+        obs.frames, bias=obs.bias, dark=obs.dark, flat=obs.flat,
+        exp_ratios=obs.exp_ratios, config=cfg)
+    assert kernels.launch_counts["clip_combine"] == before + cfg.n_bands
+    assert len(bands) == cfg.n_bands
+    plain = [cc.clip_combine_plain(w, m > 0.5, cfg.sigma_lower,
+                                   cfg.sigma_upper) for w, m in bands]
+    want = torch.cat([torch.where(torch.isnan(p), 0.0, p) for p in plain])
+    assert torch.equal(got, want)
+    assert float((got != 0).float().mean()) > 0.9
 
 
 def test_altaz_cell_on_the_card(cuda):

@@ -17,10 +17,14 @@ from astrophotography_tpu.models.pipeline import (
     calibrate_register_stack as jax_unfused,
     calibrate_register_stack_lean as jax_lean)
 from astrophotography_tpu.ops import calibrate as jcal
-from astrophotography_tpu_torch.models import (calibrate_register_stack,
+from astrophotography_tpu_torch.models import (PipelineConfig,
+                                               calibrate_register_stack,
                                                calibrate_register_stack_lean,
                                                from_jax_config)
+from astrophotography_tpu_torch.models.pipeline import combine_band
 from astrophotography_tpu_torch.ops import calibrate as tcal
+from astrophotography_tpu_torch.ops.clip_combine import clip_combine
+from astrophotography_tpu_torch.ops.stack import sigma_clip_combine
 from tests.test_register_stack import _make_dithered_stack
 
 # one intra-op thread: the suite runs in parallel worker processes, whose
@@ -116,6 +120,33 @@ def test_unfused_pipeline_matches_jax(combine_impl, n_bands, extra):
     flux = extra.pop("flux", False)
     cfg = dict(BASE, combine_impl=combine_impl, n_bands=n_bands, **extra)
     _check("unfused", calibrate_register_stack, cfg, flux=flux)
+
+
+@pytest.mark.parametrize("combine", ["average", "median", "sum"])
+@pytest.mark.parametrize("combine_impl", ["xla", "pallas"])
+def test_combine_band_rule(combine_impl, combine):
+    """``combine_band``'s one rule: 'average' is ``clip_combine``'s image
+    (K3's twin on the CPU) under 'xla' and 'pallas' alike, 'median' and
+    'sum' ``sigma_clip_combine``'s, on the numeric coverage a warp hands
+    it; a pixel no frame covers is 0."""
+    rng = np.random.default_rng(23)
+    warped = rng.normal(800.0, 8.0, (9, 12, 16)).astype(np.float32)
+    warped[rng.uniform(size=warped.shape) < 0.03] = 40000.0
+    weights = rng.uniform(0.0, 1.0, warped.shape).astype(np.float32)
+    weights[:, 0, 0] = 0.25
+    warped, weights = torch.from_numpy(warped), torch.from_numpy(weights)
+    cfg = PipelineConfig(combine_impl=combine_impl, combine=combine,
+                         sigma_lower=3.0, sigma_upper=4.0)
+    got = combine_band(warped, weights, cfg)
+    mask = weights > 0.5
+    if combine == "average":
+        want = clip_combine(warped, mask, sigma_lower=3.0, sigma_upper=4.0)
+    else:
+        want = sigma_clip_combine(warped, mask=mask, sigma_lower=3.0,
+                                  sigma_upper=4.0, method=combine)
+    want = torch.where(torch.isnan(want), 0.0, want)
+    assert torch.equal(got, want)
+    assert got[0, 0] == 0.0 and bool((got[1:, 1:] > 700.0).all())
 
 
 def test_lean_chunked_detection_matches_jax():
