@@ -43,7 +43,8 @@ _SOURCES = {"detect_tiles": "detect_tiles.cu",
             "warp_combine": "warp_combine.cu",
             "clip_combine": "clip_combine.cu",
             "warp_separable": "warp_separable.cu",
-            "find_exact": "find_exact.cu"}
+            "find_exact": "find_exact.cu",
+            "calibrate": "calibrate.cu"}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 #: ``-Xptxas -v`` reports each kernel's registers, shared memory, stack
 #: frame and spills on stderr, kept in ``build_info["ptxas"]``
@@ -179,6 +180,9 @@ def _load() -> dict:
             fn = libs["find_exact"].find_exact_launch
             fn.argtypes = [p, p, q, p, p, i, i, i, i, i, i, p, p, p, p, q, p,
                            p, p, p]
+            fn.restype = i
+            fn = libs["calibrate"].calibrate_launch
+            fn.argtypes = [p, i, p, p, p, p, i, i, q, p, p]
             fn.restype = i
             _libs = libs
         return _libs
@@ -935,3 +939,50 @@ def find_exact_cuda(data, taps, r: int, thresholds, mask, max_stars: int,
     _raise_on(err, "find_exact")
     _launched("find_exact")
     return vals, py, px, dens
+
+
+def _master(t: Optional[torch.Tensor], name: str, device,
+            shape) -> Optional[torch.Tensor]:
+    """A calibration master as the kernel takes it: None, or a float32
+    tensor of ``shape`` on ``device`` (contiguous); raises on anything
+    else, since the twin would broadcast or promote it."""
+    if t is None:
+        return None
+    if t.device != device or t.dtype != torch.float32 \
+            or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be float32 {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.contiguous()
+
+
+def calibrate_cuda(imgs, bias, dark, flat, exp_ratios,
+                   dark_still_biased: bool) -> torch.Tensor:
+    """Launch calibration (``csrc/calibrate.cu``) on an (N, H, W) uint16
+    or float32 stack: ``bias``, ``dark``, ``flat`` None or float32 (H, W),
+    ``exp_ratios`` None or (N,) (made float32, as the twin makes it).
+    Returns the float32 (N, H, W) stack
+    ``ops.calibrate.calibrate_batch_plain`` computes, bit for bit, in one
+    launch; the output is the only allocation."""
+    dev = imgs.device
+    if imgs.dim() != 3 or imgs.dtype not in (torch.uint16, torch.float32):
+        raise ValueError(f"calibrate kernel takes an (N, H, W) uint16 or "
+                         f"float32 stack, got {tuple(imgs.shape)} "
+                         f"{imgs.dtype}")
+    n, h, w = imgs.shape
+    bias, dark, flat = (_master(m, name, dev, (h, w)) for m, name in
+                        ((bias, "bias"), (dark, "dark"), (flat, "flat")))
+    er = _check(exp_ratios, "exp_ratios", dev, (n,))
+    out = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    imgs = imgs.contiguous()
+    lib = _load()["calibrate"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.calibrate_launch(
+        _ptr(imgs), int(imgs.dtype == torch.uint16), _ptr(bias), _ptr(dark),
+        _ptr(flat), _ptr(er), int(dark_still_biased), n, h * w, _ptr(out),
+        ctypes.c_void_p(stream))
+    _raise_on(err, "calibrate")
+    _launched("calibrate")
+    return out

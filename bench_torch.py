@@ -191,20 +191,25 @@ def required_launches(impl: str, cfg, h: int, w: int) -> dict:
     count, or None for any positive count}: K1 where the lean path takes
     its fused detection (``models.pipeline.lean_detect_fused``) and K2 on
     the lean path; K3 once per band and the separable warp on 'pallas'
-    and 'xla' (one path); K2 on 'fused'; exact detection's kernel where
-    the path detects with it (:func:`exact_detection_kernel`; the lean
-    path where K1 does not take the frames)."""
+    and 'xla' (one path); K2 on 'fused'; calibration's kernel once on the
+    unfused paths and once a chunk where the lean path's detection
+    calibrates without K1; exact detection's kernel where the path
+    detects with it (:func:`exact_detection_kernel`; the lean path where
+    K1 does not take the frames)."""
     from astrophotography_tpu_torch.models import pipeline as pl
 
     if impl == "lean":
         req = {"warp_combine": None}
         if pl.lean_detect_fused(cfg, h, w):
             req["detect_tiles"] = None
-        elif exact_detection_kernel(cfg, h, w):
+            return req
+        req["calibrate"] = None
+        if exact_detection_kernel(cfg, h, w):
             req["find_exact"] = None
         return req
     req = {"fused": {"warp_combine": None}}.get(
         impl, {"clip_combine": cfg.n_bands, "warp_separable": None})
+    req = dict(req, calibrate=1)
     if exact_detection_kernel(cfg, h, w):
         req = dict(req, find_exact=None)
     return req

@@ -772,7 +772,8 @@ _PIPELINE_CALLS = {"K1": (_PIPELINE, "detect_tiles"),
                    "K2": (_PIPELINE, "warp_combine"),
                    "K3": (_PIPELINE, "clip_combine"),
                    "warp_separable": (_PIPELINE, "warp_affine_separable"),
-                   "find_exact": (_PIPELINE, "find_stars")}
+                   "find_exact": (_PIPELINE, "find_stars"),
+                   "calibrate": (_PIPELINE, "calibrate_batch")}
 #: each kernel as the sharded code calls it
 _MC_CALLS = dict(_PIPELINE_CALLS,
                  K2=("astrophotography_tpu_torch.parallel.fused",
@@ -787,14 +788,16 @@ _PLAINS = {"K1": ("astrophotography_tpu_torch.ops.detect_tiles",
            "warp_separable": ("astrophotography_tpu_torch.ops.warp",
                               "warp_affine_separable_plain"),
            "find_exact": ("astrophotography_tpu_torch.ops.detect",
-                          "find_stars_plain")}
+                          "find_stars_plain"),
+           "calibrate": ("astrophotography_tpu_torch.ops.calibrate",
+                         "calibrate_batch_plain")}
 
 
 def _plain_check(kind: str, call, label: str) -> dict:
     """The plain twin on the exact arguments a kernel got in a path's
     run, held against the kernel's result by the kernel's rule: K1 by
-    :func:`_k1_agrees`, K2, K3, the separable warp and exact detection
-    bit for bit."""
+    :func:`_k1_agrees`, K2, K3, the separable warp, exact detection and
+    calibration bit for bit."""
     import importlib
 
     _require(call is not None, f"{label}: {kind} was not called")
@@ -810,6 +813,8 @@ def _plain_check(kind: str, call, label: str) -> dict:
                                        ("warped", "coverage"))}
     elif kind == "find_exact":
         agree = {"max_abs_err": _exact(out, p, label, out._fields)}
+    elif kind == "calibrate":
+        agree = {"max_abs_err": _exact((out,), (p,), label, ("stack",))}
     else:
         agree = {"max_abs_err": (_k2_exact if kind == "K2" else _k3_exact)(
             out, p, label)}
@@ -1165,7 +1170,7 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
 
     key = "unfused"
     add(key, {"clip_combine": cfg_u.n_bands, "warp_separable": None,
-              "find_exact": None})
+              "calibrate": 1, "find_exact": None})
     n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
     mats = _same_on_every_rank(key, ranks, key, "matrices")
     one = refs[f"unfused {cfg_u.n_bands} bands"]
@@ -1219,7 +1224,7 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
 
     key = "unfused extras"
     add(key, {"clip_combine": cfg_u.n_bands, "warp_separable": None,
-              "find_exact": None})
+              "calibrate": 1, "find_exact": None})
     n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
     mats = _same_on_every_rank(key, ranks, key, "matrices")
     want = refs[key]
@@ -1240,7 +1245,7 @@ def run_multichip(card: str, dev, snap: dict, rot: dict) -> dict:
          "vs_one_process_same_bands_max_abs_err": err}, card)
 
     key = "unfused fused"
-    add(key, {"warp_combine": 1, "find_exact": None})
+    add(key, {"warp_combine": 1, "calibrate": 1, "find_exact": None})
     n_in = _same_on_every_rank(key, ranks, key, "n_inliers")
     mats = _same_on_every_rank(key, ranks, key, "matrices")
     halos = {r[key]["halo"] for r in ranks}
@@ -2921,8 +2926,9 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     kernels.reset_launch_counts()
     with _FirstCall(*_PIPELINE_CALLS["warp_separable"],
                     keep=cfg.n_bands) as ws, \
-            _FirstCall(*_PIPELINE_CALLS["find_exact"]) as fs:
-        run()                    # warm-up, its warps and detection kept
+            _FirstCall(*_PIPELINE_CALLS["find_exact"]) as fs, \
+            _FirstCall(*_PIPELINE_CALLS["calibrate"]) as cs:
+        run()                    # warm-up, its kernels' calls kept
     torch.cuda.synchronize()
     sep_routes = dict(kernels.warp_separable_route_counts)
     _require(len(ws.calls) == cfg.n_bands, f"{label}: warp_separable calls")
@@ -2933,7 +2939,10 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     sep_checks = [_plain_check("warp_separable", c, f"{label} band {i}")
                   for i, c in enumerate(ws.calls)]
     find_check = _plain_check("find_exact", fs.call, label)
-    del ws, fs
+    _require(kernels.launch_counts["calibrate"] == 1,
+             f"{label}: calibrate launches")
+    cal_check = _plain_check("calibrate", cs.call, label)
+    del ws, fs, cs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2945,7 +2954,7 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check_launches(label, launches, {"clip_combine": cfg.n_bands,
                                      "warp_separable": cfg.n_bands,
-                                     "find_exact": 1})
+                                     "calibrate": 1, "find_exact": 1})
     _require("jax" not in sys.modules, "jax was imported")
     k = 3
     t0 = time.perf_counter()
@@ -2972,7 +2981,8 @@ def run_unfused_path(card: str, dev, phases) -> dict:
     blaunches = dict(kernels.launch_counts)
     check_launches(label + " badpix", blaunches,
                    {"clip_combine": cfg.n_bands,
-                    "warp_separable": cfg.n_bands, "find_exact": 1})
+                    "warp_separable": cfg.n_bands, "calibrate": 1,
+                    "find_exact": 1})
     b_in, b_rms, b_terr = _check_registration(label + " badpix", bdiag, mats,
                                               UNFUSED_T_ERR_PX)
     b_med = check_stack(label + " badpix", stacked)
@@ -2995,6 +3005,7 @@ def run_unfused_path(card: str, dev, phases) -> dict:
            "warp_separable_max_abs_err": max(c["max_abs_err"]
                                              for c in sep_checks),
            "find_exact_plain_check": find_check,
+           "calibrate_plain_check": cal_check,
            "device_ms_split": split, "with_badpix_mask": badpix,
            "min_inliers": min_in, "max_rms_px": max_rms,
            "max_translation_err_px": t_err, "interior_median": med,
@@ -3084,7 +3095,7 @@ BENCH_RUNS = (
                 "BENCH_SKIP_ROTATION": "1"},
      (("24x4096^2 pallas, sub-px dithers",
        {"detect_tiles": 0, "warp_combine": 0, "clip_combine": 2,
-        "warp_separable": 2, "find_exact": 1}),)),
+        "warp_separable": 2, "calibrate": 1, "find_exact": 1}),)),
 )
 #: what each bench line is held beside: the smoke phase that ran the
 #: same configuration in this call
@@ -3183,7 +3194,7 @@ def run_lean_chunked(card: str, dev) -> dict:
     torch.cuda.synchronize()
     single_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
-    check_launches(label, launches, {"warp_combine": 1})
+    check_launches(label, launches, {"warp_combine": 1, "calibrate": None})
     # find_stars' 5x5 centre-of-mass centroids, as on the unfused path
     min_in, max_rms, t_err = _check_registration(label, diag, mats,
                                                  UNFUSED_T_ERR_PX)
@@ -3689,7 +3700,7 @@ def run_deep(card: str, dev) -> dict:
     u_peak = torch.cuda.max_memory_allocated()
     check_launches(ulabel, ulaunches, {"clip_combine": ucfg.n_bands,
                                        "warp_separable": None,
-                                       "find_exact": None})
+                                       "calibrate": 1, "find_exact": None})
     u_in, u_rms, u_err = _check_registration(ulabel, diag, mats,
                                              UNFUSED_T_ERR_PX)
     u_med = check_stack(ulabel, stacked)
@@ -4235,7 +4246,7 @@ def run_wide(card: str, dev) -> dict:
     run_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launch_counts)
     routes = dict(kernels.warp_route_counts)
-    check_launches(label, launches, {"warp_combine": 1,
+    check_launches(label, launches, {"warp_combine": 1, "calibrate": 1,
                                      "find_exact": None})
     _require(routes == {"smem": 0, "cols": 0, "wide": 1},
              f"{label}: K2 routes {routes}")

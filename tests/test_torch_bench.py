@@ -107,7 +107,7 @@ def test_attempt_on_the_cpu(impl, rotate):
     # the CPU runs each kernel's plain twin: no launch is counted
     assert line["launches"] == {"detect_tiles": 0, "warp_combine": 0,
                                 "clip_combine": 0, "warp_separable": 0,
-                                "find_exact": 0}
+                                "find_exact": 0, "calibrate": 0}
     assert abs(line["interior_median"] - bench_torch.SKY) \
         < 0.05 * bench_torch.SKY
     assert line["peak_mem_bytes"] is None
@@ -116,12 +116,14 @@ def test_attempt_on_the_cpu(impl, rotate):
 @pytest.mark.parametrize("impl,size,want", [
     ("lean", 4096, {"warp_combine": None, "detect_tiles": None}),
     ("lean", 1024, {"warp_combine": None, "detect_tiles": None}),
-    ("lean", 512, {"warp_combine": None}),        # too few tiles for K1
+    ("lean", 512, {"warp_combine": None,          # too few tiles for K1
+                   "calibrate": None}),
     ("pallas", 4096, {"clip_combine": 2, "warp_separable": None,
-                      "find_exact": None}),
-    ("fused", 4096, {"warp_combine": None, "find_exact": None}),
+                      "calibrate": 1, "find_exact": None}),
+    ("fused", 4096, {"warp_combine": None, "calibrate": 1,
+                     "find_exact": None}),
     ("xla", 4096, {"clip_combine": 2, "warp_separable": None,
-                   "find_exact": None}),
+                   "calibrate": 1, "find_exact": None}),
 ])
 def test_required_launches(impl, size, want):
     cfg = bench_torch.config_for(impl, 24, size)

@@ -1192,7 +1192,7 @@ def test_bench_attempt_lean_on_the_card(cuda):
     line = bench_torch.attempt(8, 1024, 1, "lean", device=cuda)
     assert line["launches"] == {"detect_tiles": 1, "warp_combine": 1,
                                 "clip_combine": 0, "warp_separable": 0,
-                                "find_exact": 0}
+                                "find_exact": 0, "calibrate": 0}
     assert abs(line["interior_median"] - bench_torch.SKY) \
         < 0.05 * bench_torch.SKY
     assert line["vs_baseline"] is None and line["value"] > 0
@@ -1262,10 +1262,11 @@ def test_spans_and_syncs_on_the_card(cuda, path):
         assert counted["launch.warp_combine"] == 1
         assert counted["launch.warp_combine.smem"] == 1
     else:
-        # exact detection's kernel once, the plain warp's and K3 (under
-        # the cell's 'xla') once a band
+        # calibration's and exact detection's kernels once, the plain
+        # warp's and K3 (under the cell's 'xla') once a band
         assert {k: v for k, v in counted.items()
                 if k.startswith("launch.")} == {
+                    "launch.calibrate": 1,
                     "launch.find_exact": 1,
                     "launch.clip_combine": cfg.n_bands,
                     "launch.warp_separable": cfg.n_bands,
@@ -1472,7 +1473,7 @@ def _sep_check(imgs, mats, out_shape, route=None, **kw):
                                                   out_shape[1]))
     assert launches == {"detect_tiles": 0, "warp_combine": 0,
                         "clip_combine": 0, "warp_separable": per,
-                        "find_exact": 0}
+                        "find_exact": 0, "calibrate": 0}
     assert routes == {"smem": 0, "scratch": 0, want_route: per}
     _same_bits(got[0], want[0], "warped")
     _same_bits(got[1], want[1], "coverage")
@@ -1631,3 +1632,160 @@ def test_warp_separable_makes_no_host_read(cuda):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert out[0].shape == (6, 128, 512)
+
+
+def _cal_inputs(n, h, w, seed, dtype="uint16", dev="cpu"):
+    """``test_torch_calibrate_kernel._inputs`` (raw over the whole uint16
+    range, a flat with zeros, NaNs and negative values) as tensors on
+    ``dev``: the stack and calibrate_batch's keyword arguments."""
+    from test_torch_calibrate_kernel import _inputs, _tensor
+
+    raw, bias, dark, flat, ratios = _inputs(n, h, w, seed, dtype)
+    kw = dict(bias=bias, dark=dark, flat=flat, exp_ratios=ratios)
+    return _tensor(raw).to(dev), {k: torch.from_numpy(v).to(dev)
+                                  for k, v in kw.items()}
+
+
+def _cal_check(imgs, kw, launches=1, badpix_mask=None):
+    """calibrate_batch on the card against calibrate_batch_plain on the
+    same tensors, bit for bit (NaNs in place), with ``launches`` launches
+    of the kernel.  Returns the kernel path's stack."""
+    from astrophotography_tpu_torch.ops import calibrate as cb
+
+    before = kernels.launch_counts["calibrate"]
+    got = cb.calibrate_batch(imgs, badpix_mask=badpix_mask, **kw)
+    assert kernels.launch_counts["calibrate"] == before + launches
+    want = cb.calibrate_batch_plain(imgs, badpix_mask=badpix_mask, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == imgs.shape
+    _same_bits(got, want, "calibrated")
+    return got
+
+
+CAL_CASES = {
+    "n1": dict(n=1, h=64, w=256),
+    "n3": dict(n=3, h=64, w=256),
+    "n7_unrolled": dict(n=7, h=1024, w=1024),
+    "n40": dict(n=40, h=512, w=2048),
+    "ragged_7x13": dict(n=3, h=7, w=13),
+    "ragged_5x4099": dict(n=4, h=5, w=4099),
+    "float32": dict(n=5, h=1024, w=1024, dtype="float32"),
+    "int16": dict(n=5, h=64, w=256, dtype="int16"),
+    "float32_ragged": dict(n=3, h=9, w=11, dtype="float32"),
+    "no_bias": dict(n=3, h=64, w=256, drop=("bias",)),
+    "no_dark": dict(n=3, h=64, w=256, drop=("dark",)),
+    "no_flat": dict(n=3, h=64, w=256, drop=("flat",)),
+    "bias_only_float32": dict(n=3, h=64, w=256, dtype="float32",
+                              drop=("dark", "flat")),
+    "no_masters": dict(n=3, h=64, w=256, drop=("bias", "dark", "flat")),
+    "dark_not_biased": dict(n=3, h=64, w=256, dark_still_biased=False),
+    "no_ratios": dict(n=6, h=64, w=256, drop=("exp_ratios",)),
+    "badpix": dict(n=3, h=64, w=256, badpix=True),
+    "badpix_no_masters_float32": dict(n=2, h=32, w=64, dtype="float32",
+                                      drop=("bias", "dark", "flat"),
+                                      badpix=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CAL_CASES))
+def test_calibrate_equals_plain(cuda, case):
+    """The calibration kernel against its twin, bit for bit, on the card
+    and against the twin on the CPU; a float32 or int16 stack without
+    masters launches nothing, as the twin computes nothing."""
+    c = dict(CAL_CASES[case])
+    drop, badpix = c.pop("drop", ()), c.pop("badpix", False)
+    dsb = c.pop("dark_still_biased", True)
+    imgs, kw = _cal_inputs(c["n"], c["h"], c["w"], seed=len(case),
+                           dtype=c.get("dtype", "uint16"), dev=cuda)
+    for k in drop:
+        kw[k] = None
+    kw["dark_still_biased"] = dsb
+    mask = None
+    if badpix:
+        rng = np.random.default_rng(5)
+        mask = torch.from_numpy(rng.random((c["h"], c["w"])) < 0.02).to(cuda)
+    masterless = all(kw[k] is None for k in ("bias", "dark", "flat"))
+    launches = 0 if masterless and c.get("dtype") in ("float32",
+                                                      "int16") else 1
+    got = _cal_check(imgs, kw, launches, mask)
+    from astrophotography_tpu_torch.ops import calibrate as cb
+
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+           for k, v in kw.items()}
+    want = cb.calibrate_batch_plain(
+        imgs.cpu(), badpix_mask=None if mask is None else mask.cpu(), **cpu)
+    _same_bits(got.cpu(), want, "calibrated against the CPU twin")
+
+
+def test_calibrate_the_cells_stack(cuda):
+    """The unfused cell's own call: 24 x 4096^2 uint16 with the
+    benchmark's masters and exposure ratio 0.5, one launch, bit for bit
+    the twin on the card; two frames against the twin on the CPU."""
+    from astrophotography_tpu_torch.ops import calibrate as cb
+    from stackbench.registry import Registry
+    from stackbench.run import pipeline_config
+
+    reg = Registry.load()
+    cell = reg.cell("unfused-16mpix-n24.dither")
+    config = reg.config(cell["config"])
+    mix = reg.traffic(cell["traffic"])
+    obs = reg.generator(mix["generator"]).inputs(config, mix, 2**31 + 29,
+                                                 cuda)
+    assert obs.frames.shape == (24, 4096, 4096)
+    assert obs.frames.dtype == torch.uint16
+    assert bool((obs.exp_ratios == 0.5).all())
+    kw = dict(bias=obs.bias, dark=obs.dark, flat=obs.flat,
+              exp_ratios=obs.exp_ratios,
+              dark_still_biased=pipeline_config(config).dark_still_biased)
+    got = _cal_check(obs.frames, kw)
+    idx = [0, 23]
+    raw = obs.frames.view(torch.int16)[idx].view(torch.uint16)
+    cpu = cb.calibrate_batch_plain(
+        raw.cpu(), obs.bias.cpu(), obs.dark.cpu(), obs.flat.cpu(),
+        obs.exp_ratios[idx].cpu(),
+        dark_still_biased=kw["dark_still_biased"])
+    _same_bits(got[idx].cpu(), cpu, "the cell's frames against the CPU")
+
+
+def test_calibrate_launcher_makes_no_host_read(cuda):
+    """The kernel path waits for the card nowhere, and allocates only its
+    output: the peak rises by the float32 stack alone."""
+    from astrophotography_tpu_torch.ops import calibrate as cb
+
+    imgs, kw = _cal_inputs(6, 256, 512, seed=3, dev=cuda)
+    cb.calibrate_batch(imgs, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = cb.calibrate_batch(imgs, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base == out.numel() * 4
+
+
+def test_unfused_pipeline_launches_calibrate_once(cuda):
+    """``calibrate_register_stack`` on the card launches the calibration
+    kernel once a call, with and without a bad-pixel mask, and no more."""
+    from astrophotography_tpu_torch.models import pipeline as pl
+    from stackbench.registry import Registry
+    from stackbench.run import pipeline_config
+
+    reg = Registry.load()
+    cell = reg.cell("unfused-16mpix-n24.dither")
+    config = dict(reg.config(cell["config"]), frames=8, height=1024,
+                  width=1024)
+    mix = reg.traffic(cell["traffic"])
+    obs = reg.generator(mix["generator"]).inputs(config, mix, 2**31 + 31,
+                                                 cuda)
+    cfg = pipeline_config(config)
+    hot = obs.dark - obs.bias > 1000.0
+    for mask in (None, hot):
+        before = kernels.launch_counts["calibrate"]
+        pl.calibrate_register_stack(
+            obs.frames, bias=obs.bias, dark=obs.dark, flat=obs.flat,
+            exp_ratios=obs.exp_ratios, badpix_mask=mask, config=cfg)
+        assert kernels.launch_counts["calibrate"] == before + 1

@@ -250,7 +250,7 @@ def test_launches_counted_once_through_one_path(monkeypatch):
     assert "warp_separable_route_counts[" not in src
     for name in ("detect_tiles_cuda", "warp_combine_cuda",
                  "clip_combine_cuda", "warp_separable_cuda",
-                 "find_exact_cuda"):
+                 "find_exact_cuda", "calibrate_cuda"):
         assert inspect.getsource(getattr(kernels, name)).count(
             "_launched(") == 1, name
     monkeypatch.setattr(kernels, "launch_counts", dict(kernels.launch_counts))
